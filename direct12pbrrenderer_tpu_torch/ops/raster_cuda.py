@@ -1,0 +1,180 @@
+"""Fused raster + attribute interpolation — counterpart of
+`ops/raster_pallas.py::rasterize_interp_pallas` (kernel A).
+
+`rasterize_interp` launches the hand-written CUDA kernel
+`csrc/raster_interp.cu` for CUDA tensors; for CPU tensors it runs
+`rasterize_interp_reference`, the plain PyTorch version of the same function.
+There is no fallback between the two: a CUDA input either launches the kernel
+or raises.
+
+Two-pass semantics of the TPU kernel: every tile renders the first
+`min(count, cap_small)` entries of its bin list, and the `hot_k` tiles with
+the largest counts render `min(count, cap)`. Here that is one limit per tile
+and one launch; the hot set is picked with a stable descending sort, so ties
+go to the lower tile index exactly like `lax.top_k`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import gbuffer, raster
+
+CHUNK = 128  # candidates per staged chunk (the TPU kernel's lane width)
+_KERNEL = "raster_interp"
+
+
+def split_caps(cap: int, num_tiles: int) -> tuple[int, int]:
+    """(cap_small, hot_k) for the two-pass raster: every tile renders its
+    first cap_small list entries; the hot_k fullest tiles render full cap.
+    Tiles beyond hot_k whose count exceeds cap_small are overflow (surfaced
+    through the pipeline's bin_overflow stat)."""
+    if cap <= 2 * CHUNK:
+        return cap, 0
+    cap_small = max(CHUNK, (cap // 4) // CHUNK * CHUNK)
+    hot_k = min(num_tiles, max(64, num_tiles // 6))
+    return cap_small, hot_k
+
+
+def pack_raster_rows(setup: raster.TriangleSetup) -> torch.Tensor:
+    """(T, 16) rows [ea0,eb0,ec0, ea1,eb1,ec1, ea2,eb2,ec2, z0,z1,z2, w0,w1,w2, id];
+    invalid triangles get ec0 = -3e38 (never inside)."""
+    t = setup.edges.shape[0]
+    e = setup.edges.reshape(t, 9)
+    ec0 = torch.where(setup.valid, e[:, 2], -3e38)
+    tri_id = torch.arange(t, dtype=torch.float32, device=e.device)[:, None]
+    return torch.cat([e[:, 0:2], ec0[:, None], e[:, 3:9], setup.z, setup.w_clip, tri_id], 1)
+
+
+def pack_rows64(setup: raster.TriangleSetup, payload: torch.Tensor) -> torch.Tensor:
+    """The kernel's (T, 64) per-triangle row: [raster row 16 | payload 40
+    (material 16, vertex attr rows 24) | aabb ymin/ymax 2 | pad 6]. The
+    y-extents feed the kernel's per-band chunk reject and never meet a band
+    for invalid triangles."""
+    t = setup.edges.shape[0]
+    ymin = torch.where(setup.valid, setup.aabb[:, 1], 3e38)
+    ymax = torch.where(setup.valid, setup.aabb[:, 3], -3e38)
+    pad = torch.zeros((t, 6), dtype=torch.float32, device=payload.device)
+    return torch.cat([pack_raster_rows(setup), payload, ymin[:, None], ymax[:, None], pad], 1)
+
+
+def resolve_caps(cap: int, num_tiles: int, cap_small: int | None, hot_k: int | None):
+    auto_small, auto_hot = split_caps(cap, num_tiles)
+    cap_small = auto_small if cap_small is None else min(cap_small, cap)
+    hot_k = auto_hot if hot_k is None else min(hot_k, num_tiles)
+    if cap <= cap_small:
+        hot_k = 0
+    return cap_small, hot_k
+
+
+def tile_limits(counts, cap: int, cap_small: int, hot_k: int) -> torch.Tensor:
+    """(tiles,) int32 list length each tile renders: min(count, cap_small),
+    or min(count, cap) for the hot_k fullest tiles (stable: lower tile index
+    wins ties, as lax.top_k)."""
+    counts = torch.clamp(counts, max=cap).to(torch.int32)
+    limits = torch.clamp(counts, max=cap_small)
+    if hot_k > 0:
+        hot = torch.sort(counts, descending=True, stable=True).indices[:hot_k]
+        limits = limits.index_copy(0, hot, counts[hot])
+    return limits.contiguous()
+
+
+def rasterize_interp(setup: raster.TriangleSetup, bins: raster.Bins, rows64: torch.Tensor,
+                     width: int, height: int, tile_h: int, tile_w: int, y_offset=0,
+                     cap_small: int | None = None, hot_k: int | None = None,
+                     return_tiled: bool = False):
+    """-> (tri_id (H, W) int32, z (H, W) f32, planes (24, H, W) f32): planes
+    0-7 are the perspective-interpolated [uv, normal_ws, tangent_ws], 8-23
+    the winning triangle's material row; zero on background."""
+    if return_tiled:
+        raise NotImplementedError(
+            "return_tiled feeds the fused G-buffer path, which is not ported yet "
+            "(ROADMAP.md, kernel queue B/C)")
+    if rows64.device.type == "cpu":
+        return rasterize_interp_reference(setup, bins, rows64, width, height, tile_h,
+                                          tile_w, y_offset, cap_small, hot_k)
+    if rows64.device.type != "cuda":
+        raise ValueError(f"rasterize_interp: unsupported device {rows64.device}")
+
+    tiles_y, tiles_x = height // tile_h, width // tile_w
+    num_tiles = tiles_y * tiles_x
+    ids, counts = bins.ids, bins.counts
+    cap = ids.shape[1]
+    if width % tile_w or height % tile_h:
+        raise ValueError(f"canvas {width}x{height} is not a whole number of "
+                         f"{tile_h}x{tile_w} tiles")
+    if min(tile_h, 8) * tile_w > 4096:
+        raise ValueError(f"tile width {tile_w} exceeds the kernel's 512 (8-row bands of "
+                         "at most 4096 pixels)")
+    if cap % CHUNK:
+        raise ValueError(f"bin cap {cap} must be a multiple of {CHUNK}")
+    if tuple(ids.shape) != (num_tiles, cap) or tuple(counts.shape) != (num_tiles,):
+        raise ValueError(f"bins {tuple(ids.shape)}/{tuple(counts.shape)} do not match "
+                         f"{num_tiles} tiles")
+    if rows64.dim() != 2 or rows64.shape[1] != 64:
+        raise ValueError(f"rows64 must be (T, 64), got {tuple(rows64.shape)}")
+    if rows64.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(f"rows64 must be float32 and bin ids int32, got "
+                        f"{rows64.dtype}/{ids.dtype}")
+    for name, t in (("rows64", rows64), ("bin ids", ids), ("counts", counts)):
+        if t.device != rows64.device:
+            raise ValueError(f"{name} on {t.device}, rows64 on {rows64.device}")
+    rows64 = rows64.contiguous()
+    ids = ids.contiguous()
+    cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
+    limits = tile_limits(counts, cap, cap_small, hot_k)
+
+    dev = rows64.device
+    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    planes = torch.empty((24, height, width), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.raster_interp_launch(
+            rows64.data_ptr(), ids.data_ptr(), cap, limits.data_ptr(), num_tiles,
+            width, height, tile_h, tile_w, float(y_offset),
+            tri_id.data_ptr(), z.data_ptr(), planes.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"raster_interp kernel launch failed: CUDA error {err}")
+        rasterize_interp.launches += 1
+    return tri_id, z, planes
+
+
+rasterize_interp.launches = 0  # kernel launches in this process (reset by callers)
+
+
+def _library() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.load(_KERNEL)
+    fn = lib.raster_interp_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, p, i, i, i, i, i, ctypes.c_float, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def rasterize_interp_reference(setup: raster.TriangleSetup, bins: raster.Bins,
+                               rows64: torch.Tensor, width: int, height: int, tile_h: int,
+                               tile_w: int, y_offset=0, cap_small: int | None = None,
+                               hot_k: int | None = None):
+    """Plain PyTorch version of the kernel: the same per-tile list limits,
+    then the plain chunked rasterizer, the rows64[tri_id] gather and the
+    `_bary` interpolation of the gather path."""
+    tiles_y, tiles_x = height // tile_h, width // tile_w
+    num_tiles = tiles_y * tiles_x
+    cap = bins.ids.shape[1]
+    cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
+    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
+    pos = torch.arange(cap, device=bins.ids.device)[None, :]
+    ids = torch.where(pos < limits[:, None], bins.ids, -1)
+    tri_id, z = raster.rasterize(setup, raster.Bins(ids, limits), width, height,
+                                 tile_h, tile_w, y_offset=y_offset)
+    interp, matrow, mask = gbuffer.interp_from_rows(tri_id, rows64, width, height, y_offset)
+    planes = torch.where(mask[..., None], torch.cat([interp, matrow], -1), 0.0)
+    return tri_id, z, planes.permute(2, 0, 1).contiguous()

@@ -1,0 +1,181 @@
+"""Deferred shading pass — counterpart of `ops/shading.py` (dense path).
+
+Mirrors `deferred_shading.hlsl` with its quirks (the directional light is
+computed but never added, AO is read but unused): SH ambient diffuse +
+split-sum specular + clustered point lights + emission, and the deferred
+skybox on uncovered pixels. This is the JAX package's `env_ids is None`,
+`light_tile is None` branch: direct cube-atlas / LUT sampler taps and a
+serial sweep over the compacted active lights.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from direct12pbrrenderer_tpu.config import MAX_LIGHTS_PER_CLUSTER, PREFILTER_ENVMAP_MIP_LEVELS
+
+from . import common
+from .clustered import CLUSTER_X, CLUSTER_Y, CLUSTER_Z
+
+
+def view_space_depth(ndc_depth, near, far):
+    """ndc z [0,1] -> view z [near, far] (deferred_shading.hlsl:76-79)."""
+    return near * far / (far - ndc_depth * (far - near))
+
+
+def camera_rays(width, height, inv_view, fov, ratio, near, y_offset=0,
+                full_height=None, full_width=None):
+    """Per-pixel world-space camera->near-plane vectors (H, W, 3): the
+    reference's corner-interpolated camera_vec, evaluated per pixel."""
+    dev = inv_view.device
+    near_h = 2.0 * near * torch.tan(torch.tensor(fov / 2.0, dtype=torch.float32, device=dev))
+    near_w = near_h * ratio
+    fh = full_height if full_height is not None else height
+    fw = full_width if full_width is not None else width
+    v = ((torch.arange(height, dtype=torch.float32, device=dev) + 0.5 + y_offset) / fh)[:, None]
+    u = ((torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / fw)[None, :]
+    u, v = torch.broadcast_tensors(u, v)
+    cam = torch.stack([(u - 0.5) * near_w, (0.5 - v) * near_h, torch.full_like(u, near)], -1)
+    rot = inv_view[:3, :3]
+    return (cam[..., None, :] * rot).sum(-1)
+
+
+def pixel_view_geometry(depth, normal, inv_view, camera_pos, width, height, fov, ratio,
+                        near, far, y_offset=0, full_height=None, full_width=None):
+    """(position, view_dir, z_view, n_dot_v, refl, ray) per pixel from the
+    depth buffer + decoded normals (deferred_shading.hlsl:96-110)."""
+    cam_vec = camera_rays(width, height, inv_view, fov, ratio, near, y_offset,
+                          full_height, full_width)
+    z_view = view_space_depth(depth, near, far)
+    position = camera_pos[None, None, :] + cam_vec * (z_view / near)[..., None]
+    view_dir = common.normalize(camera_pos[None, None, :] - position, 1e-20)
+    n_dot_v = torch.clamp((normal * view_dir).sum(-1), min=0.0)
+    refl = 2.0 * (normal * view_dir).sum(-1, keepdim=True) * normal - view_dir
+    refl = common.normalize(refl, 1e-20)
+    ray = common.normalize(cam_vec, 1e-20)
+    return position, view_dir, z_view, n_dot_v, refl, ray
+
+
+def deferred_shade(
+    gb_albedo_emission,   # (H, W, 4)
+    gb_normal_oct,        # (H, W, 2)
+    gb_rough_metal_ao,    # (H, W, 3)
+    depth,                # (H, W) ndc z
+    mask,                 # (H, W) bool coverage
+    sh_pack,              # (7, 4) SkyBoxSH
+    brdf_lut_quad,        # ((S*S, 4, 2) quad records, S) for the split-sum LUT
+    prefiltered,          # common.CubeMipAtlas of the prefiltered mips
+    skybox,               # common.CubeMipAtlas (1 mip) for the background
+    active_lights,        # (N_active, 14) from clustered.build_active_lights
+    inv_view, camera_pos,
+    fov, ratio, near, far,
+    width: int,
+    height: int,
+    y_offset=0,
+    full_height: int | None = None,
+    full_width: int | None = None,
+):
+    """-> (H, W, 3) HDR radiance. The point-light sweep walks the active
+    rows in order with a per-pixel `< MAX_LIGHTS_PER_CLUSTER` hit counter;
+    its trip count is the number of live rows this frame, read to the host
+    with `.item()` (the one host sync of this pass)."""
+    albedo = gb_albedo_emission[..., :3]
+    emission = gb_albedo_emission[..., 3]
+    normal = common.decode_octahedron(gb_normal_oct)
+    roughness = gb_rough_metal_ao[..., 0]
+    metallic = gb_rough_metal_ao[..., 1]
+
+    position, view_dir, z_view, n_dot_v, refl, ray = pixel_view_geometry(
+        depth, normal, inv_view, camera_pos, width, height, fov, ratio,
+        near, far, y_offset, full_height, full_width,
+    )
+
+    # --- environment diffuse: SH polynomial (deferred_shading.hlsl:23-54) ---
+    n = normal
+    a4 = torch.cat([n, torch.ones_like(n[..., :1])], -1)
+    b4 = torch.stack([n[..., 0] * n[..., 1], n[..., 1] * n[..., 2], n[..., 2] * n[..., 2],
+                      n[..., 2] * n[..., 0]], -1)
+    c1 = n[..., 0] * n[..., 0] - n[..., 1] * n[..., 1]
+    l0l1 = torch.stack([(a4 * sh_pack[i]).sum(-1) for i in (0, 2, 4)], -1)
+    l2 = torch.stack([(b4 * sh_pack[i]).sum(-1) for i in (1, 3, 5)], -1)
+    l2 = l2 + sh_pack[6, :3] * c1[..., None]
+    irradiance = l0l1 + l2
+    kd = albedo * (1.0 - metallic[..., None]) * common.INV_PI
+    env_diffuse = kd * irradiance
+
+    # --- environment specular: split-sum (deferred_shading.hlsl:56-70) -----
+    env_irr = common.sample_cube_atlas_trilinear(
+        prefiltered, refl, roughness * PREFILTER_ENVMAP_MIP_LEVELS)[..., :3]
+    lut, lut_size = brdf_lut_quad
+    env_brdf = common.sample_quad_tex2d(lut, lut_size, lut_size, roughness, n_dot_v)
+    f0 = common.compute_f0(albedo, metallic[..., None])
+    env_specular = env_irr * (f0 * env_brdf[..., 0:1] + env_brdf[..., 1:2])
+
+    # --- clustered point lights (deferred_shading.hlsl:158-186) ------------
+    # per-pixel cluster AABB in closed form (clustered_compute.hlsl:21-42)
+    dev = depth.device
+    fh = full_height if full_height is not None else height
+    fw = full_width if full_width is not None else width
+    u = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5) / fw
+    v = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5 + y_offset) / fh
+    sx = torch.clamp(torch.floor(u * CLUSTER_X), 0, CLUSTER_X - 1)
+    sy = torch.clamp(torch.floor((1.0 - v) * CLUSTER_Y), 0, CLUSTER_Y - 1)
+    zc_ = torch.clamp(z_view, near, far)
+    szf = torch.clamp(
+        torch.floor(CLUSTER_Z * torch.log(zc_ / near) / math.log(far / near)),
+        0, CLUSTER_Z - 1,
+    )
+    sx = sx.expand(depth.shape)
+    sy = sy.expand(depth.shape)
+    tan_half = math.tan(fov / 2.0)
+    znear_c = near * torch.pow(far / near, szf / CLUSTER_Z)
+    zfar_c = near * torch.pow(far / near, (szf + 1) / CLUSTER_Z)
+
+    def corner(ndc_x, ndc_y, vz):
+        return (ndc_x * ratio * tan_half * vz, ndc_y * tan_half * vz)
+
+    min_ndc_x = 2.0 * sx / CLUSTER_X - 1.0
+    min_ndc_y = 2.0 * sy / CLUSTER_Y - 1.0
+    max_ndc_x = 2.0 * (sx + 1) / CLUSTER_X - 1.0
+    max_ndc_y = 2.0 * (sy + 1) / CLUSTER_Y - 1.0
+    xa, ya = corner(min_ndc_x, min_ndc_y, znear_c)
+    xb, yb = corner(min_ndc_x, min_ndc_y, zfar_c)
+    xc, yc = corner(max_ndc_x, max_ndc_y, znear_c)
+    xd, yd = corner(max_ndc_x, max_ndc_y, zfar_c)
+    cmin = torch.stack([torch.minimum(torch.minimum(xa, xb), torch.minimum(xc, xd)),
+                        torch.minimum(torch.minimum(ya, yb), torch.minimum(yc, yd)),
+                        znear_c], -1)
+    cmax = torch.stack([torch.maximum(torch.maximum(xa, xb), torch.maximum(xc, xd)),
+                        torch.maximum(torch.maximum(ya, yb), torch.maximum(yc, yd)),
+                        zfar_c], -1)
+
+    # padded rows (cull_r = 0) contribute nothing: walk only the live ones
+    n_active = int((active_lights[:, 13] > 0.0).sum().item())
+    acc = torch.zeros(depth.shape + (3,), dtype=torch.float32, device=dev)
+    counter = torch.zeros(depth.shape, dtype=torch.int32, device=dev)
+    for s in range(n_active):
+        lp = active_lights[s]
+        pos_w, color, intensity = lp[0:3], lp[3:6], lp[6]
+        kc, kl, kq = lp[7], lp[8], lp[9]
+        pos_view, cull_r = lp[10:13], lp[13]
+
+        closest = torch.minimum(torch.maximum(pos_view, cmin), cmax)
+        d2 = ((pos_view - closest) ** 2).sum(-1)
+        hit = (d2 < cull_r * cull_r) & (counter < MAX_LIGHTS_PER_CLUSTER)
+
+        ldir = pos_w - position
+        dist = torch.linalg.vector_norm(ldir, dim=-1)
+        ldir = ldir / torch.clamp(dist[..., None], min=1e-20)
+        n_dot_l = torch.clamp((normal * ldir).sum(-1), min=0.0)
+        attenuation = 1.0 / torch.clamp(kc + kl * dist + kq * dist * dist, min=common.EPSILON)
+        f = common.brdf(albedo, metallic, roughness, normal, view_dir, ldir)
+        contrib = f * (color * (intensity * attenuation * n_dot_l)[..., None])
+        acc = acc + torch.where(hit[..., None], contrib, 0.0)
+        counter = counter + hit.to(torch.int32)
+
+    lit = env_diffuse + env_specular + acc + albedo * emission[..., None]
+    # --- skybox (skybox.hlsl): background pixels sample the cubemap --------
+    sky = common._cube_atlas_bilinear(skybox, ray, 0)[..., :3]
+    return torch.where(mask[..., None], lit, sky)

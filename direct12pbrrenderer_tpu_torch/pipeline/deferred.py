@@ -1,0 +1,465 @@
+"""DeferredRenderPipeline — counterpart of `pipeline/deferred.py`.
+
+The ten passes of `DeferredPipeline.{h,cpp}` (precompute, Cull, Clustered,
+GBuffer, DeferredShading, Skybox, Bloom, AutoExposure, ToneMapping, Present)
+declared against the reused render graph (`graph/frame_graph.py`), which
+orders them from their read/write sets. The two precompute passes run once
+in the constructor and latch as device tensors; every frame then runs the
+graph eagerly on `device`, with the average-luminance EMA carried across
+frames.
+
+Ported configuration: the direct-atlas G-buffer sampler, the dense deferred
+shading with its serial light sweep, and — with `use_pallas` — the fused
+raster + interpolation kernel (ops/raster_cuda.py, TPU kernel A). Knobs whose
+path is not ported yet raise NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from direct12pbrrenderer_tpu.config import (
+    BRDF_LUT_SIZE,
+    PREFILTER_ENVMAP_MIP_LEVELS,
+    PREFILTER_ENVMAP_SIZE,
+    RenderConfig,
+)
+from direct12pbrrenderer_tpu.graph import frame_graph as fg
+from direct12pbrrenderer_tpu.pipeline.scene_pack import PackedScene, pack_scene
+from direct12pbrrenderer_tpu.scene.camera import Camera
+from direct12pbrrenderer_tpu.scene.scene import Scene
+
+from ..ops import bloom as bloom_ops
+from ..ops import clustered, common, gbuffer, ibl, postprocess, raster_cuda
+from . import stages
+
+_F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
+
+
+@dataclass
+class FrameStats:
+    visible_instances: int
+    total_instances: int
+    visible_lights: int
+    bin_overflow: int = 0
+    tex_approx_taps: int = 0  # cache-kernel taps resolved via fallback
+    env_approx_taps: int = 0  # env-cache taps resolved via fallback/cascade
+    lights_truncated: int = 0  # visible lights beyond max_active_lights
+    light_tile_overflow: int = 0  # per-tile culled lights beyond light_cap
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+class DeferredRenderPipeline:
+    def __init__(
+        self,
+        scene: Scene,
+        config: RenderConfig | None = None,
+        tile_h: int = 24,
+        tile_w: int = 128,
+        bin_cap: int = 2048,
+        atlas_max_dim: int | None = 1024,
+        prefilter_size: int | None = None,
+        brdf_lut_size: int = BRDF_LUT_SIZE,
+        use_pallas: bool | None = None,
+        use_tex_kernel: bool | None = None,
+        texture_filter: str = "trilinear",
+        max_active_lights: int = 64,
+        pallas_interpret: bool = False,
+        light_tile: tuple | None = None,
+        light_cap: int | None = None,
+        tex_caps: tuple | str | None = None,
+        env_budget: int | None = None,
+        tex_cascade: bool = False,
+        raster_caps: tuple | None = None,
+        fused_light_dtype: str | None = None,
+        *,
+        device: torch.device | str,
+    ):
+        """Same knobs as the JAX pipeline, plus the explicit `device`.
+        `use_pallas=None` means "on a CUDA device". The kernel path needs a
+        bin_cap that is a multiple of raster_cuda.CHUNK: on a CUDA device any
+        other bin_cap raises, on the CPU it turns use_pallas off as the JAX
+        package does. `pallas_interpret` is accepted for signature parity
+        with the JAX pipeline and has no effect (a CPU device takes each
+        kernel's plain version)."""
+        self.device = device = torch.device(device)
+        self.config = config or RenderConfig()
+        cfg = self.config
+        # arbitrary resolutions: the raster canvas pads up to the tile grid
+        # and the RT is cropped back before the post chain
+        self.render_w = -(-cfg.width // tile_w) * tile_w
+        self.render_h = -(-cfg.height // tile_h) * tile_h
+        self.tile_h, self.tile_w, self.bin_cap = tile_h, tile_w, bin_cap
+        self.max_active_lights = max_active_lights
+        on_gpu = device.type == "cuda"
+        if light_tile is None and max_active_lights > 64 and (
+            use_pallas if use_pallas is not None else on_gpu
+        ):
+            light_tile = (tile_h, tile_w)
+        if light_tile is not None:
+            raise _not_ported("the tile-clustered light kernel (light_tile, "
+                              "max_active_lights > 64)", "kernel queue G")
+        self.light_tile = None
+        self.light_cap = light_cap if light_cap is not None else max(
+            128, -(-min(max_active_lights, 1024) // 128) * 128)
+        if texture_filter not in ("trilinear", "bilinear"):
+            raise _not_ported(f"texture_filter={texture_filter!r}", "module queue: "
+                              "off-default paths")
+        self.texture_filter = texture_filter
+        if use_tex_kernel:
+            raise _not_ported("the texture-cache kernels (use_tex_kernel=True)",
+                              "kernel queue B/C")
+        self.use_tex_kernel = False
+        if fused_light_dtype is not None:
+            raise _not_ported("fused_light_dtype", "kernel queue D")
+        # stored and unused on this configuration, as in the JAX package
+        # (they size the texture/env caches of the kernel paths)
+        self.tex_caps = None if tex_caps == "auto" else tex_caps
+        self.tex_cascade = tex_cascade
+        self.env_budget = env_budget
+        self.raster_caps = raster_caps
+        if use_pallas is None:
+            use_pallas = on_gpu
+        use_pallas = bool(use_pallas)
+        if use_pallas and bin_cap % raster_cuda.CHUNK:
+            if on_gpu:
+                # on the card the kernel path never gives way to the plain one
+                raise ValueError(f"use_pallas needs a bin_cap that is a multiple of "
+                                 f"{raster_cuda.CHUNK}, got {bin_cap} (or pass "
+                                 "use_pallas=False)")
+            use_pallas = False  # the JAX package's rule, kept for CPU parity
+        self.use_pallas = use_pallas
+
+        self.scene = scene
+        self.packed: PackedScene = pack_scene(scene, cfg, atlas_max_dim)
+        if self.packed.config is not None:
+            self.config = cfg = self.packed.config
+
+        # ---- precompute passes (once, latched) ----------------------------
+        self.brdf_lut = ibl.brdf_lut(size=brdf_lut_size, device=device)
+        if scene.skybox is not None and scene.skybox.cubemap is not None:
+            cube = scene.skybox.cubemap
+            base = torch.as_tensor(
+                np.stack([f.mip_array_rgba(0)[..., :3] for f in cube.faces]).astype(np.float32),
+                device=device)
+            src = ibl.build_cubemap_mips(base, int(np.log2(base.shape[1])) + 1)
+            size = prefilter_size or min(PREFILTER_ENVMAP_SIZE, base.shape[1])
+            pf = ibl.prefilter_env_map(src, out_size=size)
+            sh_pack = np.asarray(cube.sh.as_array(), np.float32)
+        else:
+            size = prefilter_size or 64
+            pf = [torch.zeros((6, size >> m, size >> m, 3), device=device)
+                  for m in range(PREFILTER_ENVMAP_MIP_LEVELS)]
+            base = torch.zeros((6, 8, 8, 3), device=device)
+            sh_pack = np.zeros((7, 4), np.float32)
+
+        p = self.packed
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        self.buffers = {
+            "positions": dev(p.positions),
+            "normals": dev(p.normals),
+            "tangents": dev(p.tangents),
+            "uvs": dev(p.uvs),
+            "vtx_instance": dev(p.vtx_instance),
+            "tris": dev(p.tris),
+            "tri_material": dev(p.tri_material),
+            "tri_instance": dev(p.tri_instance),
+            "tri_valid_pool": dev(p.tri_valid),
+            "mat_rows": dev(gbuffer.pack_material_rows(
+                p.materials.albedo, p.materials.emission, p.materials.roughness,
+                p.materials.metallic, p.materials.use_map, p.materials.tex_ids)),
+            "atlas": gbuffer.AtlasDevice.from_numpy(
+                p.atlas.data, p.atlas.page_base, p.atlas.base_size, p.atlas.n_mips,
+                p.atlas.srgb, device=device),
+            "light_pos": dev(p.light_pos),
+            "light_color": dev(p.light_color),
+            "light_intensity": dev(p.light_intensity),
+            "light_attenuation": dev(p.light_attenuation),
+            "ClusterBounds": dev(clustered.cluster_bounds(cfg.fov, cfg.ratio, cfg.near,
+                                                          cfg.far)),
+            "SkyBoxSH": dev(sh_pack),
+            "PrecomputeBRDF": (common.make_quad_tex2d(self.brdf_lut), self.brdf_lut.shape[0]),
+            "PrefilterEnvMap": common.CubeMipAtlas.from_mips(pf, device),
+            "SkyBoxTexture": common.CubeMipAtlas.from_mips([base], device),
+        }
+        self.graph = self._build_graph()
+        self.avg_luminance = torch.zeros((), dtype=torch.float32, device=device)
+        self.last_stats: FrameStats | None = None
+        self._scene_np = self._scene_dev = None
+        self._cam_np = self._cam_dev = None
+
+    def load_state(self, state: dict) -> None:
+        """Replace the device buffers and the exposure carry with `state`
+        (from state.state_from_jax): scene pools, material rows, atlas,
+        lights and precompute products."""
+        state = dict(state)
+        avg = state.pop("avg_luminance")
+        missing = set(self.buffers) - set(state)
+        if missing:
+            raise KeyError(f"state lacks buffers {sorted(missing)}")
+        self.buffers = state
+        self.avg_luminance = avg.to(self.device)
+
+    # ------------------------------------------------------------------
+    def _build_graph(self) -> fg.CompiledGraph:
+        cfg = self.config
+        w, h = cfg.width, cfg.height          # logical viewport
+        rw, rh = self.render_w, self.render_h  # padded raster canvas
+
+        def cull_pass(env):
+            p = self.packed
+            n_inst, n_lgt = p.instance_count, p.light_count
+            vis = torch.zeros((p.model_mats.shape[0],), dtype=torch.bool, device=self.device)
+            if n_inst:
+                vis[:n_inst] = common.frustum_cull_aabbs(
+                    env["FrustumPlanes"], env["InstanceBounds"][:n_inst, 0],
+                    env["InstanceBounds"][:n_inst, 1])
+            lv = torch.zeros((p.light_pos.shape[0],), dtype=torch.bool, device=self.device)
+            if n_lgt:
+                lv[:n_lgt] = common.frustum_cull_aabbs(
+                    env["FrustumPlanes"], env["LightBounds"][:n_lgt, 0],
+                    env["LightBounds"][:n_lgt, 1])
+            counts = torch.stack([vis.sum(), lv.sum()]).to(torch.int32)
+            return {"InstanceVisible": vis, "LightValid": lv, "VisibleCounts": counts}
+
+        def clustered_pass(env):
+            active = stages.active_lights(env, env["LightValid"], env["View"],
+                                          self.max_active_lights)
+            return {"FrustumCluster": (env["ClusterBounds"], active),
+                    "PointLights": active[:, 13] > 0}
+
+        def gbuffer_pass(env):
+            setup, vattrs = stages.geometry(env, env["ModelMats"], env["NormalMats"],
+                                            env["InstanceVisible"], env["ViewProj"], w, h)
+            bins = stages.binning(setup, rw, rh, self.tile_h, self.tile_w, self.bin_cap)
+            if self.use_pallas:
+                # fused raster + attribute interpolation (kernel A): the
+                # winning row is gathered once per pixel inside the kernel
+                tri_id, depth, planes = stages.rasterize_interp(
+                    setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
+                    raster_caps=self.raster_caps)
+                gb = gbuffer.gbuffer_shade_planar(tri_id, depth, planes, env["atlas"],
+                                                  self.texture_filter)
+            else:
+                tri_id, depth = stages.rasterize(setup, bins, rw, rh, self.tile_h,
+                                                 self.tile_w)
+                gb = stages.gbuffer_shade(tri_id, depth, setup, env, vattrs, rw, rh,
+                                          texture_filter=self.texture_filter)
+            return {
+                "GBufferA": gb.albedo_emission,
+                "GBufferB": gb.normal_oct,
+                "GBufferC": gb.rough_metal_ao,
+                "GBufferDepthStencil": (gb.depth, gb.mask),
+                "BinCounts": bins.counts,
+                "TexApproxCount": torch.zeros((), dtype=torch.int32, device=self.device),
+            }
+
+        def deferred_pass(env):
+            depth, mask = env["GBufferDepthStencil"]
+            _bounds, active = env["FrustumCluster"]
+            gb = gbuffer.GBuffer(env["GBufferA"], env["GBufferB"], env["GBufferC"],
+                                 depth, mask)
+            rt = stages.deferred_shade(gb, env, active, env["InvView"], env["CameraPos"],
+                                       cfg, rw, rh, full_height=h, full_width=w)
+            if (rw, rh) != (w, h):
+                rt = rt[:h, :w].contiguous()  # crop the pad-to-tile canvas
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            return {"DeferredShadingRT": rt, "LightTruncCount": zero,
+                    "EnvApproxCount": zero}
+
+        def skybox_pass(env):
+            # composited inside deferred_shade (sky where stencil == 0); the
+            # pass exists for graph parity and re-publishes the RT
+            return {"DeferredShadingRT": env["DeferredShadingRT"]}
+
+        def bloom_pass(env):
+            if not cfg.enable_bloom:
+                return {"DeferredShadingRT": env["DeferredShadingRT"]}
+            return {"DeferredShadingRT": bloom_ops.bloom(env["DeferredShadingRT"])}
+
+        def auto_exposure_pass(env):
+            hist = postprocess.luminance_histogram(env["DeferredShadingRT"])
+            if cfg.enable_auto_exposure:
+                avg = postprocess.average_luminance_direct(
+                    env["DeferredShadingRT"], float(w * h), env["PrevAverageLuminance"],
+                    env["DeltaTime"])
+            else:
+                avg = torch.tensor(0.18, dtype=torch.float32, device=self.device)
+            return {"LuminanceHistogram": hist, "AverageLuminance": avg}
+
+        def tone_mapping_pass(env):
+            return {"ToneMappedTexture": postprocess.tone_map(env["DeferredShadingRT"],
+                                                              env["AverageLuminance"])}
+
+        def present_pass(env):
+            rgb8 = (env["ToneMappedTexture"] * 255.0 + 0.5).to(torch.uint8)
+            return {"BackBuffer": (rgb8, env["AverageLuminance"], env["BinCounts"],
+                                   env["TexApproxCount"], env["LightTruncCount"],
+                                   env["EnvApproxCount"], env["VisibleCounts"])}
+
+        gdesc = {
+            "GBufferA": fg.ResourceDesc((rh, rw, 4), _F32),
+            "GBufferB": fg.ResourceDesc((rh, rw, 2), _F32),
+            "GBufferC": fg.ResourceDesc((rh, rw, 3), _F32),
+        }
+        rt_desc = {"DeferredShadingRT": fg.ResourceDesc((h, w, 3), _F32)}
+        passes = [
+            fg.RenderPass("Cull", ("FrustumPlanes", "InstanceBounds", "LightBounds"),
+                          ("InstanceVisible", "LightValid", "VisibleCounts"), cull_pass),
+            fg.RenderPass("Clustered",
+                          ("ClusterBounds", "View", "light_pos", "light_attenuation",
+                           "light_intensity", "LightValid"),
+                          ("FrustumCluster", "PointLights"), clustered_pass),
+            fg.RenderPass("GBuffer",
+                          ("positions", "normals", "tangents", "uvs", "vtx_instance",
+                           "tris", "tri_material", "tri_instance", "tri_valid_pool",
+                           "mat_rows", "atlas", "ModelMats", "NormalMats", "ViewProj",
+                           "InstanceVisible"),
+                          ("GBufferA", "GBufferB", "GBufferC", "GBufferDepthStencil",
+                           "BinCounts", "TexApproxCount"),
+                          gbuffer_pass, declares=gdesc),
+            fg.RenderPass("DeferredShading",
+                          ("GBufferA", "GBufferB", "GBufferC", "GBufferDepthStencil",
+                           "SkyBoxSH", "PrecomputeBRDF", "PrefilterEnvMap", "SkyBoxTexture",
+                           "FrustumCluster", "InvView", "CameraPos"),
+                          ("DeferredShadingRT", "LightTruncCount", "EnvApproxCount"),
+                          deferred_pass, declares={**gdesc, **rt_desc}),
+            fg.RenderPass("Skybox", (), ("DeferredShadingRT",), skybox_pass),
+            fg.RenderPass("Bloom", ("DeferredShadingRT",), ("DeferredShadingRT",),
+                          bloom_pass, declares=rt_desc),
+            fg.RenderPass("AutoExposure",
+                          ("DeferredShadingRT", "PrevAverageLuminance", "DeltaTime"),
+                          ("LuminanceHistogram", "AverageLuminance"), auto_exposure_pass),
+            fg.RenderPass("ToneMapping", ("DeferredShadingRT", "AverageLuminance"),
+                          ("ToneMappedTexture",), tone_mapping_pass,
+                          declares={"ToneMappedTexture": fg.ResourceDesc((h, w, 3), _F32)}),
+            fg.RenderPass("Present",
+                          ("ToneMappedTexture", "AverageLuminance", "BinCounts",
+                           "TexApproxCount", "LightTruncCount", "EnvApproxCount",
+                           "VisibleCounts"),
+                          ("BackBuffer",), present_pass),
+        ]
+        return fg.compile_graph(passes, present="Present")
+
+    # ------------------------------------------------------------------
+    def _frame(self, scene_f32, cam_f32, prev_avg_lum):
+        p = self.packed
+        i = p.model_mats.shape[0]
+        mm = scene_f32[: i * 16].reshape(i, 4, 4)
+        off = i * 16
+        nm = scene_f32[off: off + i * 9].reshape(i, 3, 3)
+        off += i * 9
+        nb = p.instance_bounds.shape[0]
+        ib = scene_f32[off: off + nb * 6].reshape(nb, 2, 3)
+        off += nb * 6
+        lbn = p.light_bounds.shape[0]
+        lb = scene_f32[off: off + lbn * 6].reshape(lbn, 2, 3)
+        env = dict(self.buffers)
+        env.update(
+            ModelMats=mm, NormalMats=nm, InstanceBounds=ib, LightBounds=lb,
+            FrustumPlanes=cam_f32[:24].reshape(6, 4),
+            View=cam_f32[24:40].reshape(4, 4),
+            InvView=cam_f32[40:56].reshape(4, 4),
+            ViewProj=cam_f32[56:72].reshape(4, 4),
+            CameraPos=cam_f32[72:75],
+            PrevAverageLuminance=prev_avg_lum,
+            DeltaTime=cam_f32[75],
+        )
+        return fg.execute(self.graph, env)["BackBuffer"]
+
+    def _pack_camera(self, camera: Camera, delta_time: float) -> np.ndarray:
+        view = camera.view_matrix()
+        return np.concatenate([
+            np.asarray(camera.frustum_planes(), np.float32).ravel(),
+            np.asarray(view, np.float32).ravel(),
+            np.asarray(camera.world_matrix(), np.float32).ravel(),
+            np.asarray(camera.projection_matrix() @ view, np.float32).ravel(),
+            np.asarray(camera.position, np.float32).ravel(),
+            np.float32([delta_time]),
+        ]).astype(np.float32)
+
+    def _pack_scene(self) -> np.ndarray:
+        p = self.packed
+        normal_mats = np.ascontiguousarray(np.transpose(p.inv_model_mats[:, :3, :3], (0, 2, 1)))
+        return np.concatenate([
+            p.model_mats.ravel(), normal_mats.ravel(),
+            p.instance_bounds.ravel(), p.light_bounds.ravel(),
+        ]).astype(np.float32)
+
+    def _upload(self, camera: Camera, delta_time: float):
+        # scene and camera packs are re-uploaded only when they change
+        scene_f32 = self._pack_scene()
+        if self._scene_np is None or not np.array_equal(self._scene_np, scene_f32):
+            self._scene_np = scene_f32
+            self._scene_dev = torch.as_tensor(scene_f32, device=self.device)
+        cam_f32 = self._pack_camera(camera, delta_time)
+        if self._cam_np is None or not np.array_equal(self._cam_np, cam_f32):
+            self._cam_np = cam_f32
+            self._cam_dev = torch.as_tensor(cam_f32, device=self.device)
+
+    def render_sequence(self, cameras, delta_time: float = 1.0 / 60.0):
+        """Render a camera path: N `render` calls with the exposure EMA carried
+        frame to frame. Returns the stacked (N, H, W, 3) uint8 frames."""
+        frames = [self.render(c, delta_time, collect_stats=False) for c in cameras]
+        return torch.stack(frames)
+
+    def render(self, camera: Camera, delta_time: float = 1.0 / 60.0,
+               collect_stats: bool = True):
+        """One frame -> (H, W, 3) uint8 tensor on the pipeline's device.
+
+        collect_stats=False skips the host readback of the bin and
+        visibility counters (the frame then has no host sync of its own
+        beyond the data-dependent loop bounds of its stages)."""
+        self._upload(camera, delta_time)
+        (rgb8, avg, bin_counts, tex_approx, light_trunc, env_approx,
+         vis_counts) = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)
+        self.avg_luminance = avg
+        if collect_stats:
+            self.last_stats = self._stats(bin_counts.cpu().numpy(), vis_counts.cpu().numpy(),
+                                          int(tex_approx), int(env_approx), int(light_trunc))
+        return rgb8
+
+    def _stats(self, counts_np, vis_np, tex_approx, env_approx, light_trunc) -> FrameStats:
+        overflow = int(np.maximum(counts_np - self.bin_cap, 0).max())
+        if self.use_pallas:
+            # two-pass raster: tiles beyond the hot set that exceed the small
+            # cap also lose triangles — surface them the same way
+            if self.raster_caps is not None:
+                cap_small, hot_k = self.raster_caps
+                hot_k = min(hot_k, counts_np.size)
+            else:
+                cap_small, hot_k = raster_cuda.split_caps(self.bin_cap, counts_np.size)
+            n_over_small = int((counts_np > cap_small).sum())
+            if n_over_small > hot_k:
+                over = np.sort(counts_np[counts_np > cap_small])
+                overflow = max(
+                    overflow,
+                    int(np.maximum(over[:-hot_k] - cap_small, 0).max())
+                    if hot_k else int((over - cap_small).max()),
+                )
+        n_vis_lights = int(vis_np[1])
+        stats = FrameStats(
+            visible_instances=int(vis_np[0]),
+            total_instances=self.packed.instance_count,
+            visible_lights=n_vis_lights,
+            bin_overflow=overflow,
+            tex_approx_taps=tex_approx,
+            env_approx_taps=env_approx,
+            lights_truncated=max(0, n_vis_lights - self.max_active_lights),
+            light_tile_overflow=light_trunc,
+        )
+        if stats.lights_truncated:
+            logging.getLogger(__name__).warning(
+                "%d visible lights exceed max_active_lights=%d; excess lights are "
+                "dropped (raise max_active_lights)", n_vis_lights, self.max_active_lights)
+        return stats

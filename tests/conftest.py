@@ -99,6 +99,8 @@ def pytest_configure(config):
         "markers", "slow_sharded: slow subset — multi-device equivalence")
     config.addinivalue_line(
         "markers", "slow_kernels: slow subset — kernel/census/scale/e2e")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skipped without one)")
 
 
 def pytest_collection_modifyitems(config, items):

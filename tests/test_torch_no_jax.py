@@ -1,0 +1,74 @@
+"""The port imports torch and never jax, directly or through the JAX
+package's host modules it reuses.
+
+tests/conftest.py imports jax into the test process, so the frame is rendered
+in a fresh interpreter, which then reports whether jax was ever imported.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "direct12pbrrenderer_tpu_torch"
+
+_SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from direct12pbrrenderer_tpu.config import RenderConfig
+from direct12pbrrenderer_tpu.resource import reflection_def  # noqa: F401
+from direct12pbrrenderer_tpu.resource.default_meshes import sphere_mesh
+from direct12pbrrenderer_tpu.resource.resources import MaterialResource, MeshResource, ModelResource
+from direct12pbrrenderer_tpu.scene.camera import Camera
+from direct12pbrrenderer_tpu.scene.scene import Scene, SceneLight, SceneModel
+import direct12pbrrenderer_tpu_torch.state  # noqa: F401
+from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+mesh = MeshResource("mem/sphere", "mem/sphere_data")
+mesh.mesh = sphere_mesh(1.0, 12, 8)
+mat = MaterialResource("mem/mat")
+mat.set_parameter("Albedo", np.array([0.8, 0.3, 0.2], np.float32))
+model = ModelResource("mem/model", mesh, [mat])
+scene = Scene("mem/scene")
+sm = SceneModel("ball")
+sm.set_model(model)
+sm.update_transform()
+scene.add_model(sm)
+light = SceneLight("key")
+light.translation = np.array([2.0, 2.0, 3.0], np.float32)
+light.update_transform()
+light.set_intensity(60.0)
+light.set_radius(4.0)
+scene.add_light(light)
+cfg = RenderConfig(width=64, height=48, max_triangles=1024, max_vertices=1024,
+                   max_instances=2, max_lights=4)
+pipe = DeferredRenderPipeline(scene, cfg, tile_h=12, tile_w=64, bin_cap=256,
+                              prefilter_size=8, brdf_lut_size=16, use_pallas=True,
+                              device="cpu")
+cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
+cam.move([0, 0, 4])
+cam.rotate(0, np.pi, 0)
+img = pipe.render(cam).numpy()
+assert img.shape == (48, 64, 3) and (img.max(-1) > 16).mean() > 0.05
+print("jax imported:", any(m == "jax" or m.startswith("jax.") for m in sys.modules))
+"""
+
+
+def test_port_renders_without_importing_jax():
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "jax imported: False", proc.stdout
+
+
+def test_package_sources_name_no_jax():
+    pat = re.compile(r"^\s*(import jax|from jax\b)", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert offenders == []
+    # the kernel wrapper launches or raises: no fallback to the plain version
+    wrapper = (PACKAGE / "ops" / "raster_cuda.py").read_text()
+    assert "except" not in wrapper

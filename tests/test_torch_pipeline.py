@@ -1,0 +1,161 @@
+"""The port's whole frame against the JAX package's, on the CPU.
+
+The slice configuration: the JAX pipeline with `use_pallas=True,
+use_tex_kernel=False, pallas_interpret=True` (fused raster+interpolation
+kernel in interpret mode, direct-atlas sampler, dense deferred shading), the
+port with `use_pallas=True` on a CPU device (the kernel's plain version). The
+scene is `__graft_entry__._tiny_pipeline`'s at 128x96, tile 12x64,
+bin_cap 512 (cap 512 > cap_small 128: the two-pass split runs), with and
+without a sky. With the JAX pipeline's buffers carried across
+(state.state_from_jax) both render from bit-identical inputs, so the frame
+must meet the JAX package's own fidelity bar, rmse <= 1e-3 on uint8/255, and
+FrameStats must be identical.
+"""
+
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as JaxPipeline
+from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
+from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+from direct12pbrrenderer_tpu_torch.state import state_from_jax
+from test_env_isolation import _sky_cube
+
+torch.set_num_threads(2)
+RMSE_BAR = 1e-3
+KNOBS = dict(tile_h=12, tile_w=64, bin_cap=512, prefilter_size=16, brdf_lut_size=32)
+
+
+def jax_state(pipe) -> dict[str, np.ndarray]:
+    """The JAX pipeline's buffers flattened to numpy in state.py's schema."""
+    out = {}
+    for k, v in pipe.buffers.items():
+        if hasattr(v, "_fields"):                       # AtlasDevice
+            out.update({f"{k}.{f}": np.asarray(getattr(v, f)) for f in v._fields})
+        elif isinstance(v, tuple):                      # (LUT quad records, side)
+            out[f"{k}.quad"], out[f"{k}.size"] = np.asarray(v[0]), np.asarray(v[1])
+        elif hasattr(v, "shape"):
+            out[k] = np.asarray(v)
+        else:                                           # CubeMipAtlas
+            out.update({f"{k}.{f}": np.asarray(getattr(v, f))
+                        for f in ("offsets", "sizes_arr", "flat")})
+    out["avg_luminance"] = np.asarray(pipe.avg_luminance)
+    return out
+
+
+def _scene(sky: bool):
+    pipe, cam, cfg = graft._tiny_pipeline()
+    scene = pipe.scene
+    if sky:
+        res = CubeMapResource("mem/sky")
+        res.cubemap = _sky_cube(16)
+        scene.set_skybox(res)
+    return scene, cam, cfg
+
+
+def _poses(cam, n=2):
+    out, c = [], cam
+    for _ in range(n):
+        out.append(c)
+        c = copy.deepcopy(c)
+        c.rotate(0.0, 0.05, 0.02)
+    return out
+
+
+def _rmse(a, b):
+    a = np.asarray(a, np.float64) / 255.0
+    b = np.asarray(b, np.float64) / 255.0
+    return float(np.sqrt(np.mean((a - b) ** 2)))
+
+
+_JAX_RUNS = {}
+
+
+def _jax_run(sky: bool, use_pallas: bool):
+    """JAX frames (2 poses), stats and flattened state; cached per config."""
+    key = (sky, use_pallas)
+    if key not in _JAX_RUNS:
+        scene, cam, cfg = _scene(sky)
+        jp = JaxPipeline(scene, cfg, use_pallas=use_pallas, use_tex_kernel=False,
+                         pallas_interpret=True, **KNOBS)
+        state = jax_state(jp)
+        frames, stats = [], []
+        for c in _poses(cam):
+            frames.append(np.asarray(jp.render(c)))
+            stats.append(jp.last_stats)
+        _JAX_RUNS[key] = (scene, cam, cfg, state, frames, stats, float(jp.avg_luminance))
+    return _JAX_RUNS[key]
+
+
+@pytest.mark.parametrize("sky", [False, True])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_frame_matches_jax_with_state(sky, use_pallas):
+    scene, cam, cfg, state, frames, stats, avg = _jax_run(sky, use_pallas)
+    tp = DeferredRenderPipeline(scene, cfg, use_pallas=use_pallas, device="cpu", **KNOBS)
+    assert tp.use_pallas == use_pallas
+    tp.load_state(state_from_jax(state, "cpu"))
+    for c, want, want_stats in zip(_poses(cam), frames, stats):
+        got = tp.render(c).numpy()
+        assert got.shape == want.shape and got.dtype == np.uint8
+        assert (want.max(-1) > 16).mean() > 0.05  # a non-trivial frame
+        assert _rmse(got, want) <= RMSE_BAR
+        assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(want_stats)
+    np.testing.assert_allclose(float(tp.avg_luminance), avg, rtol=1e-5)
+
+
+def test_frame_with_own_precompute_matches_jax():
+    """The port's own BRDF LUT / prefilter / SH / cube atlases in the frame."""
+    scene, cam, cfg, _, frames, stats, _ = _jax_run(True, True)
+    tp = DeferredRenderPipeline(scene, cfg, use_pallas=True, device="cpu", **KNOBS)
+    for c, want, want_stats in zip(_poses(cam), frames, stats):
+        assert _rmse(tp.render(c).numpy(), want) <= RMSE_BAR
+        assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(want_stats)
+
+
+def test_render_sequence_matches_per_frame():
+    scene, cam, cfg = _scene(True)
+    poses = _poses(cam, 3)
+    a = DeferredRenderPipeline(scene, cfg, use_pallas=True, device="cpu", **KNOBS)
+    b = DeferredRenderPipeline(scene, cfg, use_pallas=True, device="cpu", **KNOBS)
+    seq = a.render_sequence(poses).numpy()
+    per = np.stack([b.render(c).numpy() for c in poses])
+    assert seq.shape == (3, cfg.height, cfg.width, 3)
+    np.testing.assert_array_equal(seq, per)
+    assert float(a.avg_luminance) == float(b.avg_luminance)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(use_tex_kernel=True),
+    dict(light_tile=(12, 64)),
+    dict(max_active_lights=128, use_pallas=True),
+    dict(texture_filter="anisotropic"),
+    dict(fused_light_dtype="bfloat16"),
+])
+def test_unported_knobs_raise(knobs):
+    scene, _, cfg = _scene(False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
+
+
+def test_knob_defaults_follow_the_device():
+    scene, _, cfg = _scene(False)
+    p = DeferredRenderPipeline(scene, cfg, device="cpu", **KNOBS)
+    assert not p.use_pallas and not p.use_tex_kernel and p.light_tile is None
+    # the kernel needs whole 128-candidate chunks: the CPU turns the kernel
+    # path off as the JAX package does, a CUDA device refuses (it never gives
+    # way to the plain path); the check comes before any device allocation
+    q = DeferredRenderPipeline(scene, cfg, device="cpu", use_pallas=True,
+                               **{**KNOBS, "bin_cap": 500})
+    assert not q.use_pallas
+    for use_pallas in (True, None):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            DeferredRenderPipeline(scene, cfg, device="cuda", use_pallas=use_pallas,
+                                   **{**KNOBS, "bin_cap": 500})
+    # the dense light sweep serves >64 lights where the kernel path is off
+    r = DeferredRenderPipeline(scene, cfg, device="cpu", max_active_lights=128, **KNOBS)
+    assert r.light_tile is None and r.light_cap == 128
