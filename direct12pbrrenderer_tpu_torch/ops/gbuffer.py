@@ -134,7 +134,8 @@ class GBuffer(NamedTuple):
     rough_metal_ao: torch.Tensor   # (H, W, 3) "GBufferC".rgb
     depth: torch.Tensor            # (H, W) ndc z
     mask: torch.Tensor             # (H, W) bool coverage (stencil != 0 analog)
-    tex_approx: torch.Tensor | None = None  # None on the direct-atlas sampler path
+    tex_approx: torch.Tensor | None = None  # cache taps resolved via fallback; None
+    # on the direct-atlas sampler path
 
 
 def _quantize8(x):
@@ -164,6 +165,47 @@ def interp_from_rows(tri_id, tri_rows, width, height, y_offset=0):
     w = attrs * lam_p[..., None]
     interp = (w[..., 0, :] + w[..., 1, :]) + w[..., 2, :]
     return interp, row[..., 16:32], mask
+
+
+def _cascade_kw(tex_cascade):
+    """tex_cascade knob: False/True, or a (cap, block_cap, mip_off) tuple
+    that both enables the LOD cascade and sizes it."""
+    if isinstance(tex_cascade, tuple):
+        return {"cascade": True, "cascade_caps": tex_cascade}
+    return {"cascade": bool(tex_cascade)}
+
+
+def _cap_kw(tex_caps):
+    """tex_caps: (cap_lo, cap_hi[, stage_budget[, block_cap]]); None entries
+    keep the worst-case defaults."""
+    if tex_caps is None:
+        return {}
+    kw = {"cap_lo": tex_caps[0], "cap_hi": tex_caps[1]}
+    for i, name in ((2, "stage_budget"), (3, "block_cap")):
+        if len(tex_caps) > i and tex_caps[i] is not None:
+            kw[name] = tex_caps[i]
+    return kw
+
+
+def gbuffer_shade_fused(tri_id, depth, pl_tiles, id_tiles, atlas: AtlasDevice, height: int,
+                        width: int, tile_h: int, tile_w: int,
+                        texture_filter: str = "trilinear", tex_caps: tuple | None = None,
+                        tex_cascade=False, return_tiled: bool = False):
+    """G-buffer straight from the raster kernel's tile blocks: plan, resolve
+    and pixel shade run tiled (texcache.shade_planes_fused, kernels B and C);
+    the one (H, W) materialization is the final 9-channel untile.
+
+    return_tiled=True returns (GBuffer, gb_tiles (tiles, 9, blocks, 128)):
+    the fused deferred pass reads the tile blocks directly."""
+    from . import texcache
+
+    gb_tiles, approx_count = texcache.shade_planes_fused(
+        atlas, pl_tiles, id_tiles, height, width, tile_h, tile_w, filter=texture_filter,
+        return_tiled=True, **_cascade_kw(tex_cascade), **_cap_kw(tex_caps))
+    gb9 = texcache._untile(gb_tiles, height, width, tile_h, tile_w)
+    gb = GBuffer(gb9[0:4].permute(1, 2, 0), gb9[4:6].permute(1, 2, 0),
+                 gb9[6:9].permute(1, 2, 0), depth, tri_id >= 0, approx_count)
+    return (gb, gb_tiles) if return_tiled else gb
 
 
 def gbuffer_shade_planar(tri_id, depth, planes, atlas: AtlasDevice,

@@ -87,14 +87,36 @@ def rasterize_interp(setup: raster.TriangleSetup, bins: raster.Bins, rows64: tor
                      return_tiled: bool = False):
     """-> (tri_id (H, W) int32, z (H, W) f32, planes (24, H, W) f32): planes
     0-7 are the perspective-interpolated [uv, normal_ws, tangent_ws], 8-23
-    the winning triangle's material row; zero on background."""
-    if return_tiled:
-        raise NotImplementedError(
-            "return_tiled feeds the fused G-buffer path, which is not ported yet "
-            "(ROADMAP.md, kernel queue B/C)")
+    the winning triangle's material row; zero on background.
+
+    With return_tiled=True, returns (tri_id, z, pl_tiles (tiles, p, 24),
+    id_tiles (tiles, p, 1), z_tiles (tiles, p, 1)) in the TPU kernel's tile
+    blocks (p = tile_h * tile_w, row-major within the tile; z_tiles is inf
+    on background, as the TPU kernel leaves it), which the fused G-buffer
+    and deferred passes read."""
     if rows64.device.type == "cpu":
-        return rasterize_interp_reference(setup, bins, rows64, width, height, tile_h,
-                                          tile_w, y_offset, cap_small, hot_k)
+        out = rasterize_interp_reference(setup, bins, rows64, width, height, tile_h,
+                                         tile_w, y_offset, cap_small, hot_k)
+    else:
+        out = _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset,
+                      cap_small, hot_k)
+    if not return_tiled:
+        return out
+    tri_id, z, planes = out
+
+    def tiles(x):  # (C, H, W) -> (tiles, p, C)
+        c, ty, tx = x.shape[0], height // tile_h, width // tile_w
+        x = x.reshape(c, ty, tile_h, tx, tile_w).permute(1, 3, 2, 4, 0)
+        return x.reshape(ty * tx, tile_h * tile_w, c)
+
+    z_bg = torch.where(tri_id >= 0, z, float("inf"))
+    return tri_id, z, tiles(planes), tiles(tri_id[None]), tiles(z_bg[None])
+
+
+rasterize_interp.launches = 0  # kernel launches in this process (reset by callers)
+
+
+def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_small, hot_k):
     if rows64.device.type != "cuda":
         raise ValueError(f"rasterize_interp: unsupported device {rows64.device}")
 
@@ -142,9 +164,6 @@ def rasterize_interp(setup: raster.TriangleSetup, bins: raster.Bins, rows64: tor
             raise RuntimeError(f"raster_interp kernel launch failed: CUDA error {err}")
         rasterize_interp.launches += 1
     return tri_id, z, planes
-
-
-rasterize_interp.launches = 0  # kernel launches in this process (reset by callers)
 
 
 def _library() -> ctypes.CDLL:

@@ -1,0 +1,356 @@
+"""Fused deferred shading on the G-buffer's tile blocks — counterpart of
+`ops/shade_pallas.py` (kernel D).
+
+`deferred_shade_fused` computes the tiled per-pixel geometry, the env-cache
+tap groups and their plan (`envcache.plan_env_tiled`, kernel B) and the
+64-float `const` vector, then runs kernel D: env-page resolve (bf16 pairs),
+SH2 irradiance diffuse, split-sum specular, the clustered point-light loop
+over the frame's compacted active lights with the per-cluster cap-32 counter,
+emission, and the sky on background pixels (deferred_shading.hlsl:23-186,
+skybox.hlsl).
+
+`deferred_kernel` launches the hand-written CUDA kernel
+`csrc/deferred_shade.cu` for CUDA tensors; for CPU tensors it runs
+`deferred_kernel_reference`, the plain PyTorch version. There is no fallback
+between the two: a CUDA input either launches the kernel or raises. Both
+mask each light's contribution with a select (the TPU kernel multiplies by
+a 0/1 gate, which lets a NaN of a degenerate light row through); on finite
+values the two agree exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from direct12pbrrenderer_tpu.config import (
+    CLUSTER_X,
+    CLUSTER_Y,
+    CLUSTER_Z,
+    MAX_LIGHTS_PER_CLUSTER,
+)
+
+from . import common, envcache
+from .resolve_shade_cuda import staged_rows
+from .shading import env_tap_groups
+from .texcache import _untile
+
+_EPS = 1e-6
+_INV_PI = 0.31830988618
+_PI = 3.14159265359
+GB_CH = 14    # kernel gb channels [albedo(3), emission, normal(3), roughness,
+              # metallic, z_view, mask, fracm, cov0, cov4]
+CONST_LEN = 64
+MAX_LIGHTS = 64
+_KERNEL = "deferred_shade"
+
+
+def deferred_kernel(const, lights, off, cnts, staged, rec, fx, fy, gb, *, has_env: bool,
+                    tile_h: int, tile_w: int, tiles_x: int):
+    """Kernel D on one frame's tiles. const (64,) f32 [tan_half, ratio,
+    near, far, cam(3), yoff, R(9) row-major inv_view[:3,:3], fw, fh,
+    log(far/near), far/near, n_active, pad(2), sh_pack(28), pad]; lights
+    (L <= 64, 14) active-light rows; off/cnts (tiles, G) int32; staged
+    (tiles, B*8, 128) int32 env pages; rec/fx/fy (tiles, G, blocks, 128); gb
+    (tiles, 14, blocks, 128) f32. -> (tiles, 4, blocks, 128) f32 [rgb,
+    cluster-hit counter]."""
+    if rec.device.type == "cpu":
+        return deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
+                                         has_env=has_env, tile_h=tile_h, tile_w=tile_w,
+                                         tiles_x=tiles_x)
+    if rec.device.type != "cuda":
+        raise ValueError(f"deferred_kernel: unsupported device {rec.device}")
+    tiles, n_groups, blocks, lanes = rec.shape
+    if lanes != 128 or n_groups != 4 + has_env:
+        raise ValueError(f"rec must be (tiles, {4 + has_env}, blocks, 128), got "
+                         f"{tuple(rec.shape)}")
+    if lights.dim() != 2 or lights.shape[1] != 14 or not 0 < lights.shape[0] <= MAX_LIGHTS:
+        raise ValueError(f"lights must be (1..{MAX_LIGHTS}, 14), got {tuple(lights.shape)}")
+    if tile_w % 128 or blocks * 128 != tile_h * tile_w:
+        raise ValueError(f"{blocks} lane rows do not make a {tile_h}x{tile_w} tile")
+    shapes = {"const": (const, (CONST_LEN,), torch.float32),
+              "lights": (lights, tuple(lights.shape), torch.float32),
+              "off": (off, (tiles, n_groups), torch.int32),
+              "cnts": (cnts, (tiles, n_groups), torch.int32),
+              "rec": (rec, tuple(rec.shape), torch.int32),
+              "fx": (fx, tuple(rec.shape), torch.float32),
+              "fy": (fy, tuple(rec.shape), torch.float32),
+              "gb": (gb, (tiles, GB_CH, blocks, 128), torch.float32)}
+    for name, (x, shape, dtype) in shapes.items():
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != rec.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {rec.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if (staged.dtype != torch.int32 or staged.dim() != 3 or staged.shape[0] != tiles
+            or staged.shape[1] % envcache.REC_I32 or staged.shape[2] != 128
+            or staged.device != rec.device):
+        raise ValueError(f"staged must be (tiles, B*8, 128) int32 on {rec.device}, got "
+                         f"{tuple(staged.shape)} {staged.dtype} on {staged.device}")
+    c = [x.contiguous() for x in (const, lights, off, cnts, staged, rec, fx, fy, gb)]
+    dev = rec.device
+    out = torch.empty((tiles, 4, blocks, 128), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.deferred_shade_launch(
+            c[0].data_ptr(), c[1].data_ptr(), lights.shape[0], c[2].data_ptr(),
+            c[3].data_ptr(), c[4].data_ptr(), staged.shape[1] // envcache.REC_I32,
+            c[5].data_ptr(), c[6].data_ptr(), c[7].data_ptr(), c[8].data_ptr(),
+            tiles, n_groups, blocks, int(has_env), tile_h, tile_w, tiles_x, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"deferred_shade kernel launch failed: CUDA error {err}")
+        deferred_kernel.launches += 1
+    return out
+
+
+deferred_kernel.launches = 0  # kernel launches in this process (reset by callers)
+
+
+def _library() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.load(_KERNEL)
+    fn = lib.deferred_shade_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------------------- plain version ----
+def _resolve_env_group(off, cnts, staged, rec, fx, fy, gi):
+    """Group gi's clamp-quad tap: bf16 pairs unpacked (low half << 16, high
+    half & ~0xFFFF, bit cast), bilinear blend -> 4 x (tiles, blocks, 128)."""
+    packed = staged_rows(off, cnts, staged, rec, gi, envcache.REC_I32)
+
+    def val(v):
+        p = packed[v >> 1]
+        return ((p & ~0xFFFF) if v & 1 else (p << 16)).view(torch.float32)
+
+    f_x, f_y = fx[:, gi], fy[:, gi]
+    w00 = (1 - f_x) * (1 - f_y)
+    w01 = f_x * (1 - f_y)
+    w10 = (1 - f_x) * f_y
+    w11 = f_x * f_y
+    return [val(c) * w00 + val(4 + c) * w01 + val(8 + c) * w10 + val(12 + c) * w11
+            for c in range(4)]
+
+
+def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb, *,
+                              has_env: bool, tile_h: int, tile_w: int, tiles_x: int):
+    """Plain PyTorch version of kernel D: the same per-pixel formulas in the
+    same order over whole (tiles, blocks, 128) planes; the light loop's trip
+    count is read to the host."""
+    n_tiles, n_groups, blocks, _ = rec.shape
+    dev = rec.device
+    res = [_resolve_env_group(off, cnts, staged, rec, fx, fy, g) for g in range(n_groups)]
+    alb = [gb[:, 0], gb[:, 1], gb[:, 2]]
+    emission = gb[:, 3]
+    nx, ny, nz = gb[:, 4], gb[:, 5], gb[:, 6]
+    rough, metal = gb[:, 7], gb[:, 8]
+    z_view = gb[:, 9]
+    mask = gb[:, 10] > 0.5
+    fracm = gb[:, 11]
+    cov0 = gb[:, 12] > 0.5
+    cov4 = gb[:, 13] > 0.5
+
+    # environment specular: split-sum (deferred_shading.hlsl:56-70)
+    env_irr = []
+    for c in range(3):
+        exact = res[0][c] * (1.0 - fracm) + res[1][c] * fracm
+        fallback = torch.where(cov4, res[4][c], res[0][c]) if has_env else res[0][c]
+        env_irr.append(torch.where(cov0, exact, fallback))
+    lut_a, lut_b = res[2][0], res[2][1]
+    sky = res[3]
+    f0 = [0.04 * (1.0 - metal) + alb[c] * metal for c in range(3)]
+    env_spec = [env_irr[c] * (f0[c] * lut_a + lut_b) for c in range(3)]
+
+    # environment diffuse: SH2 polynomial (hlsl:23-54)
+    sh = const[24:52]
+    b0_, b1_, b2_, b3_ = nx * ny, ny * nz, nz * nz, nz * nx
+    c1 = nx * nx - ny * ny
+
+    def irr_ch(r_a, r_b, c6):
+        a = nx * sh[4 * r_a] + ny * sh[4 * r_a + 1] + nz * sh[4 * r_a + 2] + sh[4 * r_a + 3]
+        b = (b0_ * sh[4 * r_b] + b1_ * sh[4 * r_b + 1] + b2_ * sh[4 * r_b + 2]
+             + b3_ * sh[4 * r_b + 3])
+        return a + b + sh[24 + c6] * c1
+
+    irr = [irr_ch(0, 1, 0), irr_ch(2, 3, 1), irr_ch(4, 5, 2)]
+    kd_alb = [alb[c] * ((1.0 - metal) * _INV_PI) for c in range(3)]
+    env_diff = [kd_alb[c] * irr[c] for c in range(3)]
+
+    # per-pixel position and view vector (the kernel's own reconstruction)
+    tan_half, ratio, near, far = const[0], const[1], const[2], const[3]
+    camx, camy, camz = const[4], const[5], const[6]
+    yoff, fw, fh, log_zr, fn_ratio = const[7], const[17], const[18], const[19], const[20]
+    n_active = min(int(const[21].item()), lights.shape[0])
+    wb = tile_w // 128
+    t = torch.arange(n_tiles, device=dev)[:, None, None]
+    bidx = torch.arange(blocks, device=dev)[None, :, None]
+    lane = torch.arange(128, device=dev)[None, None, :]
+    row = (bidx // wb).float()
+    col = ((bidx % wb) * 128 + lane).float()
+    ox = ((t % tiles_x) * tile_w).float()
+    oy = ((t // tiles_x) * tile_h).float()
+    u = (col + 0.5 + ox) / fw
+    v = (row + 0.5 + oy + yoff) / fh
+    near_h = 2.0 * near * tan_half
+    near_w = near_h * ratio
+    cx_ = (u - 0.5) * near_w
+    cy_ = (0.5 - v) * near_h
+    scale = z_view / near
+    posx = camx + (const[8] * cx_ + const[9] * cy_ + const[10] * near) * scale
+    posy = camy + (const[11] * cx_ + const[12] * cy_ + const[13] * near) * scale
+    posz = camz + (const[14] * cx_ + const[15] * cy_ + const[16] * near) * scale
+    vdx, vdy, vdz = camx - posx, camy - posy, camz - posz
+    inv_vl = torch.rsqrt(torch.clamp(vdx * vdx + vdy * vdy + vdz * vdz, min=1e-40))
+    vdx, vdy, vdz = vdx * inv_vl, vdy * inv_vl, vdz * inv_vl
+    n_dot_v = torch.clamp(nx * vdx + ny * vdy + nz * vdz, min=0.0)
+
+    # per-pixel cluster AABB (clustered_compute.hlsl:21-42 in closed form)
+    sx = torch.clamp(torch.floor(u * CLUSTER_X), 0, CLUSTER_X - 1)
+    sy = torch.clamp(torch.floor((1.0 - v) * CLUSTER_Y), 0, CLUSTER_Y - 1)
+    zc_ = torch.minimum(torch.maximum(z_view, near), far)
+    szf = torch.clamp(torch.floor(CLUSTER_Z * torch.log(zc_ / near) / log_zr), 0, CLUSTER_Z - 1)
+    znear_c = near * torch.pow(fn_ratio, szf / CLUSTER_Z)
+    zfar_c = near * torch.pow(fn_ratio, (szf + 1) / CLUSTER_Z)
+    min_nx = 2.0 * sx / CLUSTER_X - 1.0
+    min_ny = 2.0 * sy / CLUSTER_Y - 1.0
+    max_nx = 2.0 * (sx + 1) / CLUSTER_X - 1.0
+    max_ny = 2.0 * (sy + 1) / CLUSTER_Y - 1.0
+    xa, xb = min_nx * ratio * tan_half * znear_c, min_nx * ratio * tan_half * zfar_c
+    xc, xd = max_nx * ratio * tan_half * znear_c, max_nx * ratio * tan_half * zfar_c
+    ya, yb = min_ny * tan_half * znear_c, min_ny * tan_half * zfar_c
+    yc, yd = max_ny * tan_half * znear_c, max_ny * tan_half * zfar_c
+    cminx = torch.minimum(torch.minimum(xa, xb), torch.minimum(xc, xd))
+    cmaxx = torch.maximum(torch.maximum(xa, xb), torch.maximum(xc, xd))
+    cminy = torch.minimum(torch.minimum(ya, yb), torch.minimum(yc, yd))
+    cmaxy = torch.maximum(torch.maximum(ya, yb), torch.maximum(yc, yd))
+
+    a2 = (rough * rough) * (rough * rough)
+    k_geo = (rough + 1.0) * (rough + 1.0) * (1.0 / 8.0)
+    g_v = n_dot_v / torch.clamp(n_dot_v * (1.0 - k_geo) + k_geo, min=_EPS)
+
+    # clustered point lights (hlsl:158-186): serial, so the cap-32 counter
+    # admits lights in row order exactly
+    acc = [torch.zeros_like(z_view) for _ in range(3)]
+    counter = torch.zeros_like(z_view)
+    for s in range(n_active):
+        lp = lights[s]
+        dx = lp[10] - torch.minimum(torch.maximum(lp[10], cminx), cmaxx)
+        dy = lp[11] - torch.minimum(torch.maximum(lp[11], cminy), cmaxy)
+        dz = lp[12] - torch.minimum(torch.maximum(lp[12], znear_c), zfar_c)
+        hit = ((dx * dx + dy * dy + dz * dz) < lp[13] * lp[13]) & (
+            counter < float(MAX_LIGHTS_PER_CLUSTER))
+        ldx, ldy, ldz = lp[0] - posx, lp[1] - posy, lp[2] - posz
+        dist = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
+        inv_d = 1.0 / torch.clamp(dist, min=1e-20)
+        ldx, ldy, ldz = ldx * inv_d, ldy * inv_d, ldz * inv_d
+        n_dot_l = torch.clamp(nx * ldx + ny * ldy + nz * ldz, min=0.0)
+        hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
+        inv_h = 1.0 / torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=_EPS)
+        n_dot_h = torch.clamp((nx * hx + ny * hy + nz * hz) * inv_h, min=0.0)
+        t_ = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
+        d_ggx = a2 / torch.clamp(_PI * t_ * t_, min=_EPS)
+        g_l = n_dot_l / torch.clamp(n_dot_l * (1.0 - k_geo) + k_geo, min=_EPS)
+        spec_s = d_ggx * (g_v * g_l) / torch.clamp(4.0 * n_dot_l * n_dot_v, min=1e-4)
+        one_m = torch.clamp(1.0 - n_dot_l, min=_EPS)
+        om2 = one_m * one_m
+        pow5 = om2 * om2 * one_m
+        att = 1.0 / torch.clamp(lp[7] + lp[8] * dist + lp[9] * (dist * dist), min=_EPS)
+        lum = lp[6] * att * n_dot_l
+        for c in range(3):
+            fres = f0[c] + (1.0 - f0[c]) * pow5
+            contrib = ((1.0 - fres) * kd_alb[c] + fres * spec_s) * (lp[3 + c] * lum)
+            acc[c] = acc[c] + torch.where(hit, contrib, 0.0)
+        counter = counter + hit.float()
+
+    # final = env_diffuse + env_specular + point + emission | sky
+    out = [torch.where(mask, env_diff[c] + env_spec[c] + acc[c] + alb[c] * emission, sky[c])
+           for c in range(3)]
+    return torch.stack(out + [counter], 1)
+
+
+# ------------------------------------------------------------- the pass ----
+def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active_lights,
+                         inv_view, camera_pos, env_ids: tuple, fov: float, ratio: float,
+                         near: float, far: float, width: int, height: int, tile_h: int,
+                         tile_w: int, y_offset=0, full_height: int | None = None,
+                         full_width: int | None = None, env_budget: int | None = None):
+    """Fused deferred shading on tile blocks: gb_tiles (tiles, 9, blocks,
+    128) quantized G-buffer, z_tiles/id_tiles (tiles, p, 1) raster blocks
+    (inf / -1 on background) -> ((H, W, 3) HDR RT, env_approx_count () int32)."""
+    fh = full_height if full_height is not None else height
+    fw = full_width if full_width is not None else width
+    n_tiles, _, blocks, _ = gb_tiles.shape
+    tiles_x = width // tile_w
+    if tuple(z_tiles.shape) != (n_tiles, tile_h * tile_w, 1):
+        raise ValueError(f"z_tiles {tuple(z_tiles.shape)} do not match {n_tiles} "
+                         f"{tile_h}x{tile_w} tiles")
+    dev = gb_tiles.device
+    depth_t = z_tiles.reshape(n_tiles, blocks, 128)
+    depth_t = torch.where(torch.isinf(depth_t), 1.0, depth_t)
+    mask_t = id_tiles.reshape(n_tiles, blocks, 128) >= 0
+
+    # tiled per-pixel geometry (shading.pixel_view_geometry's formulas)
+    wb = tile_w // 128
+    tidx = torch.arange(n_tiles, device=dev)[:, None, None]
+    bidx = torch.arange(blocks, device=dev)[None, :, None]
+    lane = torch.arange(128, device=dev)[None, None, :]
+    ox = ((tidx % tiles_x) * tile_w).float()
+    oy = ((tidx // tiles_x) * tile_h).float()
+    px = ((bidx % wb) * 128 + lane).float() + 0.5 + ox
+    py = (bidx // wb).float() + 0.5 + oy + y_offset
+    u = px / fw
+    v = (py / fh).expand(u.shape)
+    near_h = 2.0 * near * math.tan(fov / 2.0)
+    near_w = near_h * ratio
+    cam = torch.stack([(u - 0.5) * near_w, (0.5 - v) * near_h, torch.full_like(u, near)], -1)
+    cam_vec = (cam[..., None, :] * inv_view[:3, :3]).sum(-1)
+    z_view = near * far / (far - depth_t * (far - near))
+    position = camera_pos + cam_vec * (z_view / near)[..., None]
+    view_dir = common.normalize(camera_pos - position, 1e-20)
+    normal = common.decode_octahedron(torch.stack([gb_tiles[:, 4], gb_tiles[:, 5]], -1))
+    n_dot_v = torch.clamp((normal * view_dir).sum(-1), min=0.0)
+    refl = common.normalize(2.0 * (normal * view_dir).sum(-1, keepdim=True) * normal - view_dir,
+                            1e-20)
+    ray = common.normalize(cam_vec, 1e-20)
+
+    # env tap groups + plan (kernel B)
+    (texg, mipg, uq, vq, act, fb_tids, caps, fracm, has_env) = env_tap_groups(
+        refl, ray, gb_tiles[:, 6], n_dot_v, mask_t, env_ids)
+
+    def to_g(x):  # (tiles, blocks, 128, G) -> (tiles, G, blocks, 128)
+        return x.permute(0, 3, 1, 2)
+
+    act_g = to_g(act)
+    off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = envcache.plan_env_tiled(
+        env_atlas, to_g(texg), to_g(mipg), to_g(uq), to_g(vq), act_g, fb_tids=fb_tids,
+        share=((0, 1),), caps=caps, block_cap=8, stage_budget=env_budget)
+    env_approx = (act_g & ~covered_t).sum().to(torch.int32)
+
+    cov0 = covered_t[:, 0].float()
+    cov4 = covered_t[:, 4].float() if has_env else torch.zeros_like(cov0)
+    gbk = torch.cat([gb_tiles[:, 0:4], normal.permute(0, 3, 1, 2), gb_tiles[:, 6:8],
+                     z_view[:, None], mask_t.float()[:, None], fracm.permute(0, 3, 1, 2),
+                     cov0[:, None], cov4[:, None]], 1)
+    n_active = (active_lights[:, 13] > 0.0).sum().float()
+    f32 = dict(dtype=torch.float32, device=dev)
+    const = torch.cat([
+        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+        camera_pos.float().reshape(3),
+        torch.tensor([y_offset], **f32),
+        inv_view[:3, :3].reshape(9).float(),
+        torch.tensor([fw, fh, math.log(far / near), far / near], **f32),
+        n_active.reshape(1),
+        torch.zeros(2, **f32),
+        sh_pack.reshape(28).float(),
+        torch.zeros(12, **f32),
+    ])
+    out = deferred_kernel(const, active_lights, off_arr, cnts, staged, rec_t, fx_t, fy_t,
+                          gbk, has_env=has_env, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)
+    img = _untile(out, height, width, tile_h, tile_w)          # (4, H, W)
+    return img[:3].permute(1, 2, 0).contiguous(), env_approx

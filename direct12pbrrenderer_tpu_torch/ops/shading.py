@@ -58,6 +58,40 @@ def pixel_view_geometry(depth, normal, inv_view, camera_pos, width, height, fov,
     return position, view_dir, z_view, n_dot_v, refl, ray
 
 
+def env_tap_groups(refl, ray, roughness, n_dot_v, mask, env_ids):
+    """The deferred pass's env-cache tap groups: per-pixel (tex, mip, u, v,
+    active) stacks (..., G) for the env trilinear halves, the BRDF LUT, the
+    background sky and (when env content exists) the mip+3 LOD-clamp
+    cascade, plus the matching fb_tids/caps. Returns (tex, mip, u, v, act,
+    fb_tids, caps, fracm, has_env)."""
+    env_base, sky_base, lut_tid, env_mips, has_env = (
+        env_ids if len(env_ids) == 5 else (*env_ids, True))
+    lvl = torch.clamp(roughness * PREFILTER_ENVMAP_MIP_LEVELS, 0.0, env_mips - 1.0)
+    lo = torch.floor(lvl).to(torch.int32)
+    fracm = (lvl - lo)[..., None]
+    hi = torch.clamp(lo + 1, max=env_mips - 1)
+    face_e, ue, ve = common.cubemap_coords(refl)
+    face_s, us, vs = common.cubemap_coords(ray)
+    zero = torch.zeros_like(lo)
+    tex_e = env_base + face_e
+    env_tids = tuple(range(env_base, env_base + 6))
+    sky_tids = tuple(range(sky_base, sky_base + 6))
+    groups = [
+        (tex_e, lo, ue, ve, mask, env_tids),
+        (tex_e, hi, ue, ve, mask, env_tids),
+        (torch.full_like(lo, lut_tid), zero, roughness, n_dot_v, mask, (lut_tid,)),
+        (sky_base + face_s, zero, us, vs, ~mask, sky_tids),
+    ]
+    caps = [32, 32, 32, 32]
+    if has_env:
+        # LOD-clamp cascade: mip+3 re-taps resolve mirror-tile footprints that
+        # overflow the mip-0 budget at a mild blur (only with env content)
+        groups.append((tex_e, torch.clamp(lo + 3, max=env_mips - 1), ue, ve, mask, env_tids))
+        caps.append(16)
+    return (*(torch.stack([gr[i] for gr in groups], -1) for i in range(5)),
+            tuple(gr[5] for gr in groups), tuple(caps), fracm, has_env)
+
+
 def deferred_shade(
     gb_albedo_emission,   # (H, W, 4)
     gb_normal_oct,        # (H, W, 2)

@@ -1,0 +1,363 @@
+"""Software texture cache, the fused G-buffer's plan side — counterpart of
+`ops/texcache.py`.
+
+Per 24x128-px screen tile the plan extracts the distinct atlas pages each
+(material slot, trilinear half) touches, plus up to CAP_FB guaranteed
+coarsest-mip fallback pages per group, and stages all tiles' pages in one
+gather. Two kernels run on the plan: kernel B (`ops/cover_cuda.py`, the page
+cover) and kernel C (`ops/resolve_shade_cuda.py`, the tap resolve plus the
+gbuffer.hlsl pixel shade). Layouts at module boundaries are the JAX
+package's: per-pixel planes are `(tiles, G, blocks, 128)`, 128 consecutive
+pixels of a tile row being one lane row.
+
+Differences from the TPU plan, none of which changes a value:
+* `onehot_lookup` is a plain indexed load `table[key]` (the TPU's one-hot
+  MXU product existed to avoid per-element gathers; both are exact);
+* `blocks` is not padded to a multiple of 8 (a TPU sublane rule): padded
+  rows are inactive, so they add no page to any cover and the unpadded
+  region is the same;
+* the staged block gathers whole pages from the atlas viewed channel-major,
+  one pass instead of a gather and a transpose.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cover_cuda, resolve_shade_cuda
+from .gbuffer import AtlasDevice
+
+MAX_MIPS = 13
+CAP_FB = 4       # guaranteed last-mip fallback pages per group
+SEG_CHUNK = 8    # staged-span granularity (the TPU kernel's sweep chunk)
+
+
+def not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
+
+
+# --------------------------------------------------------------- tiling ----
+def pick_tile(height: int, width: int, max_pixels: int = 4096):
+    """Choose a (tile_h, tile_w) screen tiling for the texture cache: about
+    24x128, tile_h*tile_w a multiple of 128 dividing the frame; None when the
+    frame admits no such tiling."""
+    tws = sorted((d for d in range(32, min(width, 512) + 1) if width % d == 0),
+                 key=lambda d: abs(d - 128))
+    for tw in tws:
+        ths = sorted(
+            (d for d in range(4, min(height, 64) + 1)
+             if height % d == 0 and (d * tw) % 128 == 0 and d * tw <= max_pixels),
+            key=lambda d: abs(d - 3072 // tw),
+        )
+        if ths:
+            return ths[0], tw
+    return None
+
+
+def _tile(img, tile_h, tile_w):
+    """(..., H, W) leading-batched image -> (tiles, ..., blocks, 128)."""
+    *lead, h, w = img.shape
+    ty, tx = h // tile_h, w // tile_w
+    n = len(lead)
+    x = img.reshape(*lead, ty, tile_h, tx, tile_w)
+    x = x.permute(n, n + 2, *range(n), n + 1, n + 3)      # (ty, tx, ..., th, tw)
+    return x.reshape(ty * tx, *lead, tile_h * tile_w // 128, 128)
+
+
+def _untile(tiles, height, width, tile_h, tile_w):
+    """(n_tiles, ..., blocks, 128) -> (..., H, W)."""
+    ty, tx = height // tile_h, width // tile_w
+    lead = tiles.shape[1:-2]
+    n = len(lead)
+    x = tiles.reshape(ty, tx, *lead, tile_h, tile_w)
+    x = x.permute(*range(2, 2 + n), 0, 2 + n, 1, 3 + n)  # (..., ty, th, tx, tw)
+    return x.reshape(*lead, height, width)
+
+
+# ------------------------------------------------------- table lookups ----
+def fused_tex_table(atlas: AtlasDevice) -> torch.Tensor:
+    """(T, 4+MAX_MIPS) f32 table keyed by tex: [n_mips, base_w, base_h,
+    fallback_page, page_base[0..MAX_MIPS-1]], all values int-exact. The
+    fallback page is page_base[n_mips] (the 1x1-addressable coarsest mip)."""
+    last = atlas.page_base.gather(
+        1, torch.clamp(atlas.n_mips, max=MAX_MIPS - 1)[:, None].long())
+    return torch.cat([atlas.n_mips[:, None], atlas.base_size, last,
+                      atlas.page_base[:, :MAX_MIPS]], -1).float()
+
+
+def select_mip(pb, mip):
+    """pb (..., MAX_MIPS) f32 page bases, mip (...,) int32 -> (...,) int32
+    (0 for a mip outside the table, as the TPU's one-hot select)."""
+    ok = (mip >= 0) & (mip < pb.shape[-1])
+    idx = torch.clamp(mip, 0, pb.shape[-1] - 1).long()[..., None]
+    return torch.where(ok, pb.gather(-1, idx)[..., 0], 0.0).to(torch.int32)
+
+
+def onehot_lookup(table, key):
+    """table (n, k) f32, key (...,) int -> (..., k): the row of each key, a
+    zero row for a key outside the table (the TPU's one-hot product)."""
+    n = table.shape[0]
+    ok = (key >= 0) & (key < n)
+    rows = table[torch.clamp(key, 0, n - 1).long()]
+    return torch.where(ok[..., None], rows, 0.0)
+
+
+# ----------------------------------------------------------------- plan ----
+def _tap_addresses(base_w, base_h, page_base, mip, u, v):
+    """Per-pixel page id + intra-page record index + bilinear fracs for one
+    wrap-addressed mip tap (gbuffer._sample_mip_bilinear's addressing)."""
+    w = torch.clamp(base_w >> mip, min=1)
+    h = torch.clamp(base_h >> mip, min=1)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = x - x0f
+    fy = y - y0f
+    x0 = torch.remainder(x0f.to(torch.int32), w)
+    y0 = torch.remainder(y0f.to(torch.int32), h)
+    pages_x = (w + 15) >> 4
+    page = page_base + (y0 >> 3) * pages_x + (x0 >> 4)
+    intra = (y0 & 7) * 16 + (x0 & 15)
+    return page, intra, fx, fy
+
+
+def _mip_plan(atlas, tex, lod, trilinear):
+    """Per-pixel table lookup + mip selection: (base_w, base_h, page-base
+    rows, fallback page, [mip_lo(, mip_hi)], trilinear frac, n_mips)."""
+    row0 = onehot_lookup(fused_tex_table(atlas), tex)
+    n_mips_t = row0[..., 0].to(torch.int32)
+    base_w = row0[..., 1].to(torch.int32)
+    base_h = row0[..., 2].to(torch.int32)
+    fb_page = row0[..., 3].to(torch.int32)
+    pb = row0[..., 4:]
+    lod = torch.minimum(torch.clamp(lod, min=0.0), (n_mips_t - 1).float())
+    if trilinear:
+        m_lo = torch.floor(lod).to(torch.int32)
+        tfrac = lod - m_lo
+        mips = [m_lo, torch.minimum(m_lo + 1, n_mips_t - 1)]
+    else:
+        m_lo = torch.round(lod).to(torch.int32)
+        tfrac = torch.zeros_like(lod)
+        mips = [m_lo]
+    return base_w, base_h, pb, fb_page, mips, tfrac, n_mips_t
+
+
+def _cover_and_match(pages, act, cap, block_cap: int):
+    """pages/act (tiles, g, blocks, 128): the two-level page cover (kernel
+    B). `cap` is one int or a per-group tuple. Returns (page_list (tiles, g,
+    cap_max) ascending, 0-padded; count (tiles, g); slot; found)."""
+    caps = cap if isinstance(cap, tuple) else (cap,) * pages.shape[1]
+    if max(caps) > cover_cuda.MAX_CAP:
+        raise not_ported(f"page covers above {cover_cuda.MAX_CAP} pages per group "
+                         f"(caps {caps})", "kernel queue I")
+    return cover_cuda.fused_cover(pages, act, caps, block_cap)
+
+
+def _align8(x):
+    return -(-x // SEG_CHUNK) * SEG_CHUNK
+
+
+def _compact_layout(counts_all, cap_fb, budget):
+    """The demand-shaped staging layout: each group's [fallback | cover]
+    span at a SEG_CHUNK-aligned offset under the per-tile budget, with
+    SEG_CHUNK rows reserved for every later group so its fallback pages
+    always fit. counts_all (tiles, G) -> (off (tiles, G), span (tiles, G))."""
+    n_tiles, n_groups = counts_all.shape
+    span_want = _align8(cap_fb + counts_all)
+    offs, spans = [], []
+    off = torch.zeros((n_tiles,), dtype=torch.int32, device=counts_all.device)
+    for gi in range(n_groups):
+        reserve = SEG_CHUNK * (n_groups - 1 - gi)
+        s_eff = torch.minimum(span_want[:, gi], budget - off - reserve)
+        offs.append(off)
+        spans.append(s_eff)
+        off = off + s_eff
+    return torch.stack(offs, 1), torch.stack(spans, 1)
+
+
+def _pack_ids(off_arr, span_arr, ids_full, budget):
+    """Scatter each group's page ids (tiles, G, span_max) to its compact
+    offset -> (tiles, budget); truncated rows land on a dump column."""
+    n_tiles, n_groups, span_max = ids_full.shape
+    j = torch.arange(span_max, dtype=torch.int32, device=ids_full.device)
+    dst = torch.where(j < span_arr[..., None], off_arr[..., None] + j, budget)
+    ids = torch.zeros((n_tiles, budget + 1), dtype=torch.int32, device=ids_full.device)
+    ids.scatter_(1, dst.reshape(n_tiles, -1).long(), ids_full.reshape(n_tiles, -1))
+    return ids[:, :budget]
+
+
+def _plan_and_stage(atlas, tex_t, u_t, v_t, lod_t, act_t, *, trilinear, cap_lo, cap_hi,
+                    block_cap, stage_budget, cascade=False, cap_casc=12,
+                    block_cap_casc=4, casc_mip=3):
+    """The texture cache's per-frame plan in tiled layout: mip selection,
+    tap addressing, page covers (kernel B) and the compact staged-page block.
+    Per-pixel inputs are (tiles, 5, blocks, 128).
+
+    Returns (off_arr (tiles, G), cnts (tiles, G[+1]; with cascade the last
+    column is the per-tile any-cascade flag), staged (tiles, B*4, 128) int32
+    page block (page p channel c at row p*4+c), rec/fx/fy (tiles, G, blocks,
+    128), tl (tiles, 5, blocks, 128) trilinear fracs, covered (tiles, 5,
+    blocks, 128) bool, sel (tiles, 5, blocks, 128) int32 cascade mask or
+    None)."""
+    n_tiles = tex_t.shape[0]
+    for c in (cap_lo, cap_hi, cap_casc):
+        if (c + CAP_FB) % SEG_CHUNK:
+            raise ValueError(f"cap {c} + {CAP_FB} fallback pages must be a multiple "
+                             f"of {SEG_CHUNK}")
+
+    base_w, base_h, pb, fb_page0, mips, tfrac_t, n_mips_t = _mip_plan(
+        atlas, tex_t, lod_t, trilinear)
+
+    # guaranteed fallback tap: the coarsest mip (1x1, the texture's average)
+    fb_fx_t = (u_t - 0.5) - torch.floor(u_t - 0.5)
+    fb_fy_t = (v_t - 0.5) - torch.floor(v_t - 0.5)
+    fb_list, _, fb_slot_t, _ = _cover_and_match(fb_page0, act_t, CAP_FB, CAP_FB)
+
+    bc_halves = block_cap if isinstance(block_cap, tuple) else (block_cap, block_cap)
+    halves = []
+    for i, (m, cap) in enumerate(zip(mips, (cap_lo, cap_hi))):
+        page, intra, fx, fy = _tap_addresses(base_w, base_h, select_mip(pb, m), m, u_t, v_t)
+        page_list, count, slot, found = _cover_and_match(page, act_t, cap, bc_halves[i])
+        halves.append((page_list, count, slot, intra, fx, fy, found))
+
+    groups = list(halves)
+    caps_list = list((cap_lo, cap_hi)[: len(halves)])
+    if cascade:
+        foundall = halves[0][6]
+        for h in halves[1:]:
+            foundall = foundall & h[6]
+        mip_c = torch.minimum(mips[0] + casc_mip, n_mips_t - 1)
+        page_c, intra_c, fx_c, fy_c = _tap_addresses(
+            base_w, base_h, select_mip(pb, mip_c), mip_c, u_t, v_t)
+        pl_c, cnt_c, slot_c, found_c = _cover_and_match(
+            page_c, act_t & ~foundall, cap_casc, block_cap_casc)
+        groups.append((pl_c, cnt_c, slot_c, intra_c, fx_c, fy_c, found_c))
+        caps_list.append(cap_casc)
+
+    # compact staging: each group's [fb(4) | cover(count)] span at a dynamic
+    # offset under the per-tile budget B (truncated spans fall back, counted)
+    n_halves = len(halves)
+    n_groups = len(groups) * 5
+    span_max_h = [_align8(CAP_FB + c) for c in caps_list]
+    full_budget = 5 * sum(span_max_h)
+    budget = full_budget if stage_budget is None else min(stage_budget, full_budget)
+    if budget % SEG_CHUNK or budget < SEG_CHUNK * n_groups:
+        raise ValueError(f"stage budget {budget} must be a multiple of {SEG_CHUNK} "
+                         f"and at least {SEG_CHUNK * n_groups}")
+    counts_all = torch.cat([h[1] for h in groups], 1)             # (tiles, G)
+    off_arr, span_arr = _compact_layout(counts_all, CAP_FB, budget)
+    count_eff = torch.minimum(counts_all, span_arr - CAP_FB)
+
+    # a tap is exact only if every mip half made its cover AND its slot fits
+    # the staged span; otherwise the whole tap resolves via the fallback
+    covered_t = None
+    for hi, h in enumerate(halves):
+        ce = count_eff[:, hi * 5:(hi + 1) * 5][..., None, None]
+        f = h[6] & (h[2] < ce)
+        covered_t = f if covered_t is None else covered_t & f
+
+    cnts, recs, fxs, fys, ids_full = [], [], [], [], []
+    span_max = max(span_max_h)
+    sel_t = None
+    for hi, (page_list, count, slot, intra_t, fx_t1, fy_t1, found) in enumerate(groups):
+        if hi < n_halves:
+            ok = covered_t
+        else:
+            # cascade group: resolve where its own (budget-fit) cover held
+            ce_c = count_eff[:, hi * 5:(hi + 1) * 5][..., None, None]
+            ok = found & (slot < ce_c)
+            sel_t = (ok & act_t & ~covered_t).to(torch.int32)
+        recs.append(torch.where(ok, (CAP_FB + slot) * 128 + intra_t, fb_slot_t * 128))
+        fxs.append(torch.where(ok, fx_t1, fb_fx_t))
+        fys.append(torch.where(ok, fy_t1, fb_fy_t))
+        idg = torch.cat([fb_list, page_list], -1)
+        ids_full.append(torch.nn.functional.pad(idg, (0, span_max - idg.shape[-1])))
+        cnts.append(CAP_FB + count_eff[:, hi * 5:(hi + 1) * 5])
+    rec_t = torch.cat(recs, 1)
+    fx_t = torch.cat(fxs, 1)
+    fy_t = torch.cat(fys, 1)
+    cnts = torch.cat(cnts, 1)
+    if cascade:
+        # per-tile any-cascade flag: kernel C skips the cascade resolve on
+        # clean tiles
+        casc_any = sel_t.reshape(n_tiles, -1).any(1).to(torch.int32)
+        cnts = torch.cat([cnts, casc_any[:, None]], 1)
+    ids = _pack_ids(off_arr, span_arr, torch.cat(ids_full, 1), budget)
+
+    # stage: one gather of whole pages from the channel-major atlas view
+    n_pages = atlas.data.shape[0] // 128
+    pages_cm = atlas.data.reshape(n_pages, 128, 4).transpose(1, 2)   # (P, 4, 128)
+    staged = pages_cm[ids.reshape(-1).long()].reshape(n_tiles, budget * 4, 128)
+    return off_arr, cnts, staged, rec_t, fx_t, fy_t, tfrac_t, covered_t, sel_t
+
+
+def _quad_deltas(uv_t, tile_h, tile_w):
+    """(ddx, ddy) of tiled uv (tiles, 2, blocks, 128): 2x2-quad differences
+    (gbuffer._quad_derivatives). Tile origins are even in both axes, so quads
+    never straddle tiles; y-pairs are blocks b and b + tile_w/128."""
+    n_tiles, _, blocks, _ = uv_t.shape
+    wb = tile_w // 128
+    x = uv_t.reshape(n_tiles, 2, blocks * 64, 2)
+    ddx = (x[..., 1:2] - x[..., 0:1]).expand(x.shape).reshape(uv_t.shape)
+    y = uv_t.reshape(n_tiles, 2, tile_h // 2, 2, wb * 128)
+    ddy = (y[..., 1:2, :] - y[..., 0:1, :]).expand(y.shape).reshape(uv_t.shape)
+    return ddx, ddy
+
+
+def shade_planes_fused(atlas: AtlasDevice, pl_tiles, id_tiles, height: int, width: int,
+                       tile_h: int, tile_w: int, filter: str = "trilinear",
+                       cap_lo: int = 92, cap_hi: int = 44, block_cap=16,
+                       stage_budget: int | None = None, cascade: bool = False,
+                       cascade_caps: tuple = (20, 8, 3), return_tiled: bool = False):
+    """The fused G-buffer back half: raster plane blocks pl_tiles (tiles, p,
+    24) and ids (tiles, p, 1) -> quantized G-buffer planes. Quad-derivative
+    LOD, the plan (kernel B) and the resolve + pixel shade (kernel C), in
+    tiled layout throughout.
+
+    Returns (gb9 (9, H, W) f32 [albedo(3), emission, oct(2), roughness,
+    metallic, ao], approx_count () int32); with return_tiled=True,
+    (gb_tiles (tiles, 9, blocks, 128), approx_count)."""
+    trilinear = filter != "bilinear"
+    n_tiles, p, _ = pl_tiles.shape
+    if p % 128 or tile_w % 128 or tile_h % 2:
+        raise ValueError(f"fused tiles need tile_w % 128 == 0 and an even tile_h, "
+                         f"got {tile_h}x{tile_w}")
+    blocks = p // 128
+    planes_t = pl_tiles.reshape(n_tiles, blocks, 128, 24).permute(0, 3, 1, 2)
+    mask_t = id_tiles.reshape(n_tiles, 1, blocks, 128) >= 0
+
+    uv_t = torch.where(mask_t, planes_t[:, 0:2], 0.0)
+    use_t = planes_t[:, 14:19] > 0.5
+    tex_t = torch.clamp(planes_t[:, 19:24].to(torch.int32), min=0)
+    act_t = use_t & mask_t
+
+    # quad-derivative LOD (gbuffer.tap_lod) in tiled layout
+    ddx, ddy = _quad_deltas(uv_t, tile_h, tile_w)
+    size5 = onehot_lookup(atlas.base_size.float(), tex_t)
+    gx_u = ddx[:, 0][:, None] * size5[..., 0]
+    gx_v = ddx[:, 1][:, None] * size5[..., 1]
+    gy_u = ddy[:, 0][:, None] * size5[..., 0]
+    gy_v = ddy[:, 1][:, None] * size5[..., 1]
+    rho2 = torch.maximum(gx_u * gx_u + gx_v * gx_v, gy_u * gy_u + gy_v * gy_v)
+    lod_t = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+    lod_t = torch.where(mask_t, lod_t, 99.0)
+
+    u5_t = uv_t[:, 0:1].expand(tex_t.shape)
+    v5_t = uv_t[:, 1:2].expand(tex_t.shape)
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t) = _plan_and_stage(
+        atlas, tex_t, u5_t, v5_t, lod_t, act_t, trilinear=trilinear, cap_lo=cap_lo,
+        cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
+        cap_casc=cascade_caps[0], block_cap_casc=cascade_caps[1],
+        casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+
+    srgb5 = onehot_lookup(atlas.srgb.float()[:, None], tex_t)[..., 0] > 0.5
+    flags = torch.cat([srgb5, mask_t], 1).to(torch.int32)          # (tiles, 6, b, 128)
+    attrs = planes_t[:, 2:19]                                      # (tiles, 17, b, 128)
+    gb_tiles = resolve_shade_cuda.resolve_shade(
+        off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, attrs, flags, sel_t,
+        trilinear=trilinear)
+    approx_count = (act_t & ~covered_t).sum().to(torch.int32)
+    if return_tiled:
+        return gb_tiles, approx_count
+    return _untile(gb_tiles, height, width, tile_h, tile_w), approx_count

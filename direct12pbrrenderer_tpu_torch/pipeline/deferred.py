@@ -8,10 +8,19 @@ in the constructor and latch as device tensors; every frame then runs the
 graph eagerly on `device`, with the average-luminance EMA carried across
 frames.
 
-Ported configuration: the direct-atlas G-buffer sampler, the dense deferred
-shading with its serial light sweep, and — with `use_pallas` — the fused
-raster + interpolation kernel (ops/raster_cuda.py, TPU kernel A). Knobs whose
-path is not ported yet raise NotImplementedError naming their ROADMAP item.
+Ported configurations:
+* the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
+  True there, False on the CPU, as the JAX package resolves them on an
+  accelerator): the fused raster + interpolation kernel (kernel A,
+  ops/raster_cuda.py) feeds the fused G-buffer (texture-cache plan with the
+  page-cover kernel B, then the resolve + pixel-shade kernel C) and the fused
+  deferred pass (env-cache plan with kernel B, then kernel D), all on tile
+  blocks;
+* `use_tex_kernel=False`: the direct-atlas G-buffer sampler and the dense
+  deferred shading with its serial light sweep, with kernel A when
+  `use_pallas`.
+Knobs whose path is not ported yet raise NotImplementedError naming their
+ROADMAP item; on a CUDA device nothing quietly takes a plain path.
 """
 
 from __future__ import annotations
@@ -34,7 +43,9 @@ from direct12pbrrenderer_tpu.scene.camera import Camera
 from direct12pbrrenderer_tpu.scene.scene import Scene
 
 from ..ops import bloom as bloom_ops
-from ..ops import clustered, common, gbuffer, ibl, postprocess, raster_cuda
+from ..ops import (clustered, common, cover_cuda, envcache, gbuffer, ibl, postprocess,
+                   raster_cuda, texcache)
+from ..ops.texcache import not_ported
 from . import stages
 
 _F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
@@ -50,10 +61,6 @@ class FrameStats:
     env_approx_taps: int = 0  # env-cache taps resolved via fallback/cascade
     lights_truncated: int = 0  # visible lights beyond max_active_lights
     light_tile_overflow: int = 0  # per-tile culled lights beyond light_cap
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 class DeferredRenderPipeline:
@@ -83,12 +90,15 @@ class DeferredRenderPipeline:
         device: torch.device | str,
     ):
         """Same knobs as the JAX pipeline, plus the explicit `device`.
-        `use_pallas=None` means "on a CUDA device". The kernel path needs a
-        bin_cap that is a multiple of raster_cuda.CHUNK: on a CUDA device any
-        other bin_cap raises, on the CPU it turns use_pallas off as the JAX
-        package does. `pallas_interpret` is accepted for signature parity
-        with the JAX pipeline and has no effect (a CPU device takes each
-        kernel's plain version)."""
+        `use_pallas=None` and `use_tex_kernel=None` mean "on a CUDA device".
+        The kernel path needs a bin_cap that is a multiple of
+        raster_cuda.CHUNK: on a CUDA device any other bin_cap raises, on the
+        CPU it turns use_pallas off as the JAX package does. `use_tex_kernel`
+        is ported only where the JAX package fuses both passes (use_pallas,
+        tile_w a multiple of 128, even tile_h, at most 4096 tile pixels, at
+        most 64 active lights); elsewhere it raises. `pallas_interpret` is
+        accepted for signature parity with the JAX pipeline and has no
+        effect (a CPU device takes each kernel's plain version)."""
         self.device = device = torch.device(device)
         self.config = config or RenderConfig()
         cfg = self.config
@@ -104,25 +114,27 @@ class DeferredRenderPipeline:
         ):
             light_tile = (tile_h, tile_w)
         if light_tile is not None:
-            raise _not_ported("the tile-clustered light kernel (light_tile, "
-                              "max_active_lights > 64)", "kernel queue G")
+            raise not_ported("the tile-clustered light kernel (light_tile, "
+                             "max_active_lights > 64)", "kernel queue G")
         self.light_tile = None
         self.light_cap = light_cap if light_cap is not None else max(
             128, -(-min(max_active_lights, 1024) // 128) * 128)
         if texture_filter not in ("trilinear", "bilinear"):
-            raise _not_ported(f"texture_filter={texture_filter!r}", "module queue: "
-                              "off-default paths")
+            raise not_ported(f"texture_filter={texture_filter!r}", "module queue: "
+                             "off-default paths")
         self.texture_filter = texture_filter
-        if use_tex_kernel:
-            raise _not_ported("the texture-cache kernels (use_tex_kernel=True)",
-                              "kernel queue B/C")
-        self.use_tex_kernel = False
         if fused_light_dtype is not None:
-            raise _not_ported("fused_light_dtype", "kernel queue D")
-        # stored and unused on this configuration, as in the JAX package
-        # (they size the texture/env caches of the kernel paths)
-        self.tex_caps = None if tex_caps == "auto" else tex_caps
+            raise not_ported("fused_light_dtype", "module queue 8")
+        if tex_caps == "auto":
+            raise not_ported('tex_caps="auto" (the tap-census tools)', "module queue 3")
+        # texture/env cache budgets: used by the texture-cache path only
+        self.tex_caps = tex_caps
         self.tex_cascade = tex_cascade
+        cover_caps = (tuple(tex_caps[:2]) if tex_caps is not None else ()) + (
+            (tex_cascade[0],) if isinstance(tex_cascade, tuple) else ())
+        if cover_caps and max(cover_caps) > cover_cuda.MAX_CAP:
+            raise not_ported(f"texture-cache caps above {cover_cuda.MAX_CAP} "
+                             f"({cover_caps})", "kernel queue I")
         self.env_budget = env_budget
         self.raster_caps = raster_caps
         if use_pallas is None:
@@ -136,6 +148,24 @@ class DeferredRenderPipeline:
                                  "use_pallas=False)")
             use_pallas = False  # the JAX package's rule, kept for CPU parity
         self.use_pallas = use_pallas
+        if use_tex_kernel is None:
+            use_tex_kernel = on_gpu
+        self.use_tex_kernel = (bool(use_tex_kernel)
+                               and texcache.pick_tile(self.render_h, self.render_w) is not None)
+        # the fused G-buffer needs the raster tile to be the cache tile
+        # (128-pixel lane rows, even height for the 2x2 quads)
+        self.use_fused_gbuffer = (self.use_pallas and self.use_tex_kernel and tile_w % 128 == 0
+                                  and tile_h % 2 == 0)
+        if self.use_tex_kernel and not self.use_fused_gbuffer:
+            raise not_ported("the planar texture-cache path (use_tex_kernel without "
+                             "use_pallas, or with a tile that is not 128k wide and even "
+                             "high)", "kernel queue E")
+        self.use_fused_deferred = (self.use_fused_gbuffer and max_active_lights <= 64
+                                   and tile_h * tile_w <= 4096)
+        if self.use_fused_gbuffer and not self.use_fused_deferred:
+            raise not_ported("the unfused deferred env cache (use_tex_kernel with more "
+                             "than 64 active lights or tiles above 4096 pixels)",
+                             "kernel queue F")
 
         self.scene = scene
         self.packed: PackedScene = pack_scene(scene, cfg, atlas_max_dim)
@@ -192,6 +222,19 @@ class DeferredRenderPipeline:
             "PrefilterEnvMap": common.CubeMipAtlas.from_mips(pf, device),
             "SkyBoxTexture": common.CubeMipAtlas.from_mips([base], device),
         }
+        # float page cache for the deferred taps (env cube trilinear halves,
+        # BRDF LUT, skybox): the texture-cache path's env atlas
+        self.env_ids = None
+        if self.use_tex_kernel:
+            b = envcache.FloatAtlasBuilder()
+            pf_np = [m.cpu().numpy() for m in pf]
+            env_base = b.add_cube([[m[f] for m in pf_np] for f in range(6)])
+            sky_np = base.cpu().numpy()
+            sky_base = b.add_cube([[sky_np[f]] for f in range(6)])
+            lut_tid = b.add([self.brdf_lut.cpu().numpy()])
+            self.buffers["EnvCache"] = b.build(device)
+            has_env = scene.skybox is not None and scene.skybox.cubemap is not None
+            self.env_ids = (env_base, sky_base, lut_tid, len(pf_np), has_env)
         self.graph = self._build_graph()
         self.avg_luminance = torch.zeros((), dtype=torch.float32, device=device)
         self.last_stats: FrameStats | None = None
@@ -242,6 +285,26 @@ class DeferredRenderPipeline:
             setup, vattrs = stages.geometry(env, env["ModelMats"], env["NormalMats"],
                                             env["InstanceVisible"], env["ViewProj"], w, h)
             bins = stages.binning(setup, rw, rh, self.tile_h, self.tile_w, self.bin_cap)
+            if self.use_fused_gbuffer:
+                # kernel A's tile blocks feed the plan (kernel B) and the
+                # resolve + pixel shade (kernel C); the deferred pass reads
+                # the G-buffer tile blocks, the (H, W) planes are for parity
+                tri_id, depth, pl_tiles, id_tiles, z_tiles = stages.rasterize_interp(
+                    setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
+                    return_tiled=True, raster_caps=self.raster_caps)
+                gb, gb_tiles = gbuffer.gbuffer_shade_fused(
+                    tri_id, depth, pl_tiles, id_tiles, env["atlas"], rh, rw, self.tile_h,
+                    self.tile_w, self.texture_filter, tex_caps=self.tex_caps,
+                    tex_cascade=self.tex_cascade, return_tiled=True)
+                return {
+                    "GBufferA": gb.albedo_emission,
+                    "GBufferB": gb.normal_oct,
+                    "GBufferC": gb.rough_metal_ao,
+                    "GBufferDepthStencil": (gb.depth, gb.mask),
+                    "GBufferTiles": (gb_tiles, z_tiles, id_tiles),
+                    "BinCounts": bins.counts,
+                    "TexApproxCount": gb.tex_approx,
+                }
             if self.use_pallas:
                 # fused raster + attribute interpolation (kernel A): the
                 # winning row is gathered once per pixel inside the kernel
@@ -267,13 +330,25 @@ class DeferredRenderPipeline:
         def deferred_pass(env):
             depth, mask = env["GBufferDepthStencil"]
             _bounds, active = env["FrustumCluster"]
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            if self.use_fused_deferred:
+                # env resolve + SH + split-sum + clustered lights + sky in
+                # kernel D, on the G-buffer tile blocks
+                gb_tiles, z_tiles, id_tiles = env["GBufferTiles"]
+                rt, env_approx = stages.deferred_shade_fused(
+                    gb_tiles, z_tiles, id_tiles, env, active, env["InvView"],
+                    env["CameraPos"], cfg, rw, rh, self.tile_h, self.tile_w, self.env_ids,
+                    full_height=h, full_width=w, env_budget=self.env_budget)
+                if (rw, rh) != (w, h):
+                    rt = rt[:h, :w].contiguous()
+                return {"DeferredShadingRT": rt, "LightTruncCount": zero,
+                        "EnvApproxCount": env_approx}
             gb = gbuffer.GBuffer(env["GBufferA"], env["GBufferB"], env["GBufferC"],
                                  depth, mask)
             rt = stages.deferred_shade(gb, env, active, env["InvView"], env["CameraPos"],
                                        cfg, rw, rh, full_height=h, full_width=w)
             if (rw, rh) != (w, h):
                 rt = rt[:h, :w].contiguous()  # crop the pad-to-tile canvas
-            zero = torch.zeros((), dtype=torch.int32, device=self.device)
             return {"DeferredShadingRT": rt, "LightTruncCount": zero,
                     "EnvApproxCount": zero}
 
@@ -313,6 +388,7 @@ class DeferredRenderPipeline:
             "GBufferC": fg.ResourceDesc((rh, rw, 3), _F32),
         }
         rt_desc = {"DeferredShadingRT": fg.ResourceDesc((h, w, 3), _F32)}
+        tiles = ("GBufferTiles",) if self.use_fused_deferred else ()
         passes = [
             fg.RenderPass("Cull", ("FrustumPlanes", "InstanceBounds", "LightBounds"),
                           ("InstanceVisible", "LightValid", "VisibleCounts"), cull_pass),
@@ -326,12 +402,13 @@ class DeferredRenderPipeline:
                            "mat_rows", "atlas", "ModelMats", "NormalMats", "ViewProj",
                            "InstanceVisible"),
                           ("GBufferA", "GBufferB", "GBufferC", "GBufferDepthStencil",
-                           "BinCounts", "TexApproxCount"),
+                           "BinCounts", "TexApproxCount") + tiles,
                           gbuffer_pass, declares=gdesc),
             fg.RenderPass("DeferredShading",
                           ("GBufferA", "GBufferB", "GBufferC", "GBufferDepthStencil",
                            "SkyBoxSH", "PrecomputeBRDF", "PrefilterEnvMap", "SkyBoxTexture",
-                           "FrustumCluster", "InvView", "CameraPos"),
+                           "FrustumCluster", "InvView", "CameraPos")
+                          + (("EnvCache",) if self.env_ids is not None else ()) + tiles,
                           ("DeferredShadingRT", "LightTruncCount", "EnvApproxCount"),
                           deferred_pass, declares={**gdesc, **rt_desc}),
             fg.RenderPass("Skybox", (), ("DeferredShadingRT",), skybox_pass),

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import clustered, gbuffer, raster, raster_cuda, shading
+from ..ops import clustered, gbuffer, raster, raster_cuda, shade_fused, shading
 
 
 def geometry(buffers, model_mats, normal_mats, instance_visible, view_proj,
@@ -57,13 +57,16 @@ def pack_rows64(setup, buffers, vattrs):
 
 
 def rasterize_interp(setup, bins, buffers, vattrs, width: int, band_h: int, tile_h: int,
-                     tile_w: int, y_offset=0, raster_caps: tuple | None = None):
+                     tile_w: int, y_offset=0, return_tiled: bool = False,
+                     raster_caps: tuple | None = None):
     """Fused raster + attribute interpolation (kernel A): (tri_id, depth,
-    planes (24, band_h, width))."""
+    planes (24, band_h, width)); with return_tiled, (tri_id, depth, pl_tiles,
+    id_tiles, z_tiles) tile blocks for the fused G-buffer and deferred passes."""
     rows64 = pack_rows64(setup, buffers, vattrs)
     cs, hk = raster_caps if raster_caps is not None else (None, None)
     return raster_cuda.rasterize_interp(setup, bins, rows64, width, band_h, tile_h, tile_w,
-                                        y_offset=y_offset, cap_small=cs, hot_k=hk)
+                                        y_offset=y_offset, cap_small=cs, hot_k=hk,
+                                        return_tiled=return_tiled)
 
 
 def gbuffer_shade(tri_id, depth, setup, buffers, vattrs, width: int, band_h: int,
@@ -79,6 +82,20 @@ def active_lights(buffers, light_valid, view, max_active: int):
         buffers["light_pos"], buffers["light_color"], buffers["light_intensity"],
         buffers["light_attenuation"], light_valid, view, max_active,
     )
+
+
+def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos,
+                         config, width: int, band_h: int, tile_h: int, tile_w: int,
+                         env_ids: tuple, y_offset=0, full_height: int | None = None,
+                         full_width: int | None = None, env_budget: int | None = None):
+    """Fused deferred shading straight from the G-buffer tile blocks (env
+    resolve + SH + split-sum + clustered lights + sky in kernel D). Returns
+    ((band_h, width, 3) HDR RT, env_approx_count)."""
+    return shade_fused.deferred_shade_fused(
+        gb_tiles, z_tiles, id_tiles, buffers["SkyBoxSH"], buffers["EnvCache"], active,
+        inv_view, camera_pos, env_ids, config.fov, config.ratio, config.near, config.far,
+        width, band_h, tile_h, tile_w, y_offset=y_offset, full_height=full_height,
+        full_width=full_width, env_budget=env_budget)
 
 
 def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, config,

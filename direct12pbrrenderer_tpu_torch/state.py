@@ -16,6 +16,10 @@ Flat key schema (`name` for an array, `name.field` for a structured one):
   the LUT side);
 * `PrefilterEnvMap.{offsets,sizes_arr,flat}` and
   `SkyBoxTexture.{offsets,sizes_arr,flat}` (common.CubeMipAtlas);
+* with the texture-cache path, `EnvCache.data`, `EnvCache.page_base`,
+  `EnvCache.base_size`, `EnvCache.n_mips`, `EnvCache.fb_page`,
+  `EnvCache.fb_size` (envcache.FloatAtlas: the packed bf16 page atlas and
+  its tables), so both packages shade from the same env pages;
 * `avg_luminance` (the exposure EMA carry, a scalar).
 """
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from .ops.common import CubeMipAtlas
+from .ops.envcache import FloatAtlas
 from .ops.gbuffer import AtlasDevice
 
 ARRAY_KEYS = (
@@ -34,6 +39,7 @@ ARRAY_KEYS = (
 )
 ATLAS_FIELDS = AtlasDevice._fields
 CUBE_FIELDS = ("offsets", "sizes_arr", "flat")
+ENV_FIELDS = FloatAtlas._fields
 
 
 def state_from_jax(arrays: dict[str, np.ndarray], device) -> dict:
@@ -47,6 +53,9 @@ def state_from_jax(arrays: dict[str, np.ndarray], device) -> dict:
     out["PrecomputeBRDF"] = (t("PrecomputeBRDF.quad"), int(arrays["PrecomputeBRDF.size"]))
     for name in ("PrefilterEnvMap", "SkyBoxTexture"):
         out[name] = CubeMipAtlas(*(t(f"{name}.{f}") for f in CUBE_FIELDS))
+    if "EnvCache.data" in arrays:
+        out["EnvCache"] = FloatAtlas.from_numpy(
+            *(arrays[f"EnvCache.{f}"] for f in ENV_FIELDS), device=device)
     out["avg_luminance"] = torch.as_tensor(np.array(arrays["avg_luminance"], np.float32),
                                            device=device)
     return out

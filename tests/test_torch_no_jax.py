@@ -53,6 +53,18 @@ cam.move([0, 0, 4])
 cam.rotate(0, np.pi, 0)
 img = pipe.render(cam).numpy()
 assert img.shape == (48, 64, 3) and (img.max(-1) > 16).mean() > 0.05
+# the default path on an accelerator: texture and env caches, kernels A-D
+cfg = RenderConfig(width=128, height=48, max_triangles=1024, max_vertices=1024,
+                   max_instances=2, max_lights=4)
+pipe = DeferredRenderPipeline(scene, cfg, tile_h=24, tile_w=128, bin_cap=256,
+                              prefilter_size=8, brdf_lut_size=16, use_pallas=True,
+                              use_tex_kernel=True, device="cpu")
+assert pipe.use_fused_deferred
+cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
+cam.move([0, 0, 4])
+cam.rotate(0, np.pi, 0)
+img = pipe.render(cam).numpy()
+assert img.shape == (48, 128, 3) and (img.max(-1) > 16).mean() > 0.05
 print("jax imported:", any(m == "jax" or m.startswith("jax.") for m in sys.modules))
 """
 
@@ -69,6 +81,6 @@ def test_package_sources_name_no_jax():
     offenders = [str(p.relative_to(REPO)) for p in PACKAGE.rglob("*.py")
                  if pat.search(p.read_text())]
     assert offenders == []
-    # the kernel wrapper launches or raises: no fallback to the plain version
-    wrapper = (PACKAGE / "ops" / "raster_cuda.py").read_text()
-    assert "except" not in wrapper
+    # every kernel wrapper launches or raises: no fallback to the plain version
+    for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused"):
+        assert "except" not in (PACKAGE / "ops" / f"{name}.py").read_text(), name

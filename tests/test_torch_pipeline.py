@@ -1,15 +1,21 @@
 """The port's whole frame against the JAX package's, on the CPU.
 
-The slice configuration: the JAX pipeline with `use_pallas=True,
-use_tex_kernel=False, pallas_interpret=True` (fused raster+interpolation
-kernel in interpret mode, direct-atlas sampler, dense deferred shading), the
-port with `use_pallas=True` on a CPU device (the kernel's plain version). The
-scene is `__graft_entry__._tiny_pipeline`'s at 128x96, tile 12x64,
-bin_cap 512 (cap 512 > cap_small 128: the two-pass split runs), with and
-without a sky. With the JAX pipeline's buffers carried across
-(state.state_from_jax) both render from bit-identical inputs, so the frame
-must meet the JAX package's own fidelity bar, rmse <= 1e-3 on uint8/255, and
-FrameStats must be identical.
+Two configurations, each with and without a sky, the JAX pipeline's
+buffers carried across (state.state_from_jax) so both render from
+bit-identical inputs; the frame must meet the JAX package's own fidelity
+bar, rmse <= 1e-3 on uint8/255, and FrameStats must be identical:
+
+* the planar one: the JAX pipeline with `use_pallas=True,
+  use_tex_kernel=False, pallas_interpret=True` (fused raster+interpolation
+  kernel in interpret mode, direct-atlas sampler, dense deferred shading),
+  the port with `use_pallas=True` on a CPU device (the kernel's plain
+  version), on `__graft_entry__._tiny_pipeline`'s scene at 128x96, tile
+  12x64, bin_cap 512 (cap 512 > cap_small 128: the two-pass split runs);
+* the default one on an accelerator: the JAX pipeline with `use_pallas=True,
+  use_tex_kernel=True, pallas_interpret=True` (kernel A, the texture-cache
+  plan with kernel B and kernel C, the env plan with kernel B and kernel D),
+  the port with the same knobs on a CPU device (every kernel's plain
+  version), at 256x96, tile 24x128, bin_cap 512.
 """
 
 import copy
@@ -129,16 +135,88 @@ def test_render_sequence_matches_per_frame():
     assert float(a.avg_luminance) == float(b.avg_luminance)
 
 
-@pytest.mark.parametrize("knobs", [
-    dict(use_tex_kernel=True),
-    dict(light_tile=(12, 64)),
-    dict(max_active_lights=128, use_pallas=True),
-    dict(texture_filter="anisotropic"),
-    dict(fused_light_dtype="bfloat16"),
-])
-def test_unported_knobs_raise(knobs):
-    scene, _, cfg = _scene(False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+FUSED_KNOBS = dict(tile_h=24, tile_w=128, bin_cap=512, prefilter_size=16, brdf_lut_size=32)
+_FUSED_RUNS = {}
+
+
+def _fused_scene(sky: bool):
+    pipe, cam, cfg = graft._tiny_pipeline(width=256, height=96, tile_h=24, tile_w=128)
+    if sky:
+        res = CubeMapResource("mem/sky")
+        res.cubemap = _sky_cube(16)
+        pipe.scene.set_skybox(res)
+    return pipe.scene, cam, cfg
+
+
+def _jax_fused_run(sky: bool):
+    """The JAX default-path frames (2 poses), stats and state; cached."""
+    if sky not in _FUSED_RUNS:
+        scene, cam, cfg = _fused_scene(sky)
+        jp = JaxPipeline(scene, cfg, use_pallas=True, use_tex_kernel=True,
+                         pallas_interpret=True, **FUSED_KNOBS)
+        assert jp.use_fused_gbuffer and jp.use_fused_deferred
+        state = jax_state(jp)
+        frames, stats = [], []
+        for c in _poses(cam):
+            frames.append(np.asarray(jp.render(c)))
+            stats.append(jp.last_stats)
+        _FUSED_RUNS[sky] = (scene, cam, cfg, state, frames, stats, float(jp.avg_luminance))
+    return _FUSED_RUNS[sky]
+
+
+@pytest.mark.parametrize("sky", [False, True])
+def test_default_path_frame_matches_jax_fused_frame(sky):
+    scene, cam, cfg, state, frames, stats, avg = _jax_fused_run(sky)
+    assert "EnvCache.data" in state
+    tp = DeferredRenderPipeline(scene, cfg, use_pallas=True, use_tex_kernel=True,
+                                device="cpu", **FUSED_KNOBS)
+    assert tp.use_fused_gbuffer and tp.use_fused_deferred
+    tp.load_state(state_from_jax(state, "cpu"))
+    for c, want, want_stats in zip(_poses(cam), frames, stats):
+        got = tp.render(c).numpy()
+        assert got.shape == want.shape and got.dtype == np.uint8
+        assert (want.max(-1) > 16).mean() > 0.05
+        assert _rmse(got, want) <= RMSE_BAR
+        assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(want_stats)
+    np.testing.assert_allclose(float(tp.avg_luminance), avg, rtol=1e-5)
+
+
+def test_default_path_frame_with_own_env_atlas_matches_jax():
+    """The port's own precompute and env page atlas in the default frame."""
+    scene, cam, cfg, _, frames, stats, _ = _jax_fused_run(True)
+    tp = DeferredRenderPipeline(scene, cfg, use_pallas=True, use_tex_kernel=True,
+                                device="cpu", **FUSED_KNOBS)
+    for c, want, want_stats in zip(_poses(cam), frames, stats):
+        assert _rmse(tp.render(c).numpy(), want) <= RMSE_BAR
+        assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(want_stats)
+
+
+UNPORTED = [
+    (dict(use_tex_kernel=True), "kernel queue E"),
+    (dict(light_tile=(12, 64)), "kernel queue G"),
+    (dict(max_active_lights=128, use_pallas=True), "kernel queue G"),
+    (dict(texture_filter="anisotropic"), "module queue: off-default"),
+    (dict(fused_light_dtype="bfloat16"), "module queue 8"),
+    (dict(tex_caps="auto"), "module queue 3"),
+    (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_caps=(156, 44)),
+     "kernel queue I"),
+    (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_cascade=(132, 8, 3)),
+     "kernel queue I"),
+    (dict(use_tex_kernel=True, use_pallas=False, **FUSED_KNOBS), "kernel queue E"),
+    # the fused G-buffer without the fused deferred pass (tiles above 4096 px)
+    ({**FUSED_KNOBS, "tile_h": 48, "use_tex_kernel": True, "use_pallas": True},
+     "kernel queue F"),
+]
+
+
+@pytest.mark.parametrize("knobs,item", UNPORTED,
+                         ids=[f"knobs{i}" for i in range(len(UNPORTED))])
+def test_unported_knobs_raise(knobs, item):
+    """Every knob whose path needs a kernel that is not ported raises, naming
+    its ROADMAP item (on the CPU as on the card): use_tex_kernel at tile
+    12x64 needs the planar path's kernel E."""
+    scene, _, cfg = _fused_scene(False)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
         DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
 
 
@@ -146,6 +224,7 @@ def test_knob_defaults_follow_the_device():
     scene, _, cfg = _scene(False)
     p = DeferredRenderPipeline(scene, cfg, device="cpu", **KNOBS)
     assert not p.use_pallas and not p.use_tex_kernel and p.light_tile is None
+    assert "EnvCache" not in p.buffers and not p.use_fused_deferred
     # the kernel needs whole 128-candidate chunks: the CPU turns the kernel
     # path off as the JAX package does, a CUDA device refuses (it never gives
     # way to the plain path); the check comes before any device allocation

@@ -176,13 +176,43 @@ def test_pack_rows64_layout():
 
 
 def test_rasterize_interp_rejects_unported_and_foreign_devices():
+    """A device that is neither the CPU nor CUDA raises, planar or tiled
+    (return_tiled is ported: test_rasterize_interp_tiled_matches_pallas)."""
     js, ts, _ = _setups(30, 0)
     tb = tr.bin_triangles(ts, H // TILE_H, W // TILE_W, TILE_H, TILE_W, 128)
     rows = torch.zeros((30, 64))
-    with pytest.raises(NotImplementedError):
-        trc.rasterize_interp(ts, tb, rows, W, H, TILE_H, TILE_W, return_tiled=True)
-    with pytest.raises(ValueError):
-        trc.rasterize_interp(ts, tb, rows.to("meta"), W, H, TILE_H, TILE_W)
+    for tiled in (False, True):
+        with pytest.raises(ValueError, match="unsupported device"):
+            trc.rasterize_interp(ts, tb, rows.to("meta"), W, H, TILE_H, TILE_W,
+                                 return_tiled=tiled)
+
+
+def test_rasterize_interp_tiled_matches_pallas():
+    """return_tiled=True: the TPU kernel's raw tile blocks (tiles, p, 24),
+    (tiles, p, 1) ids and z (inf on background), next to the (H, W) images."""
+    n, seed = 300, 0
+    js, ts, _ = _setups(n, seed)
+    jb = jr.bin_triangles(js, H // TILE_H, W // TILE_W, TILE_H, TILE_W, 128)
+    tb = tr.Bins(_t(jb.ids), _t(jb.counts))
+    rows64 = _rows64(js, n, seed)
+    want = jrp.rasterize_interp_pallas(js, jb, rows64, W, H, TILE_H, TILE_W, interpret=True,
+                                       return_tiled=True)
+    got = trc.rasterize_interp(ts, tb, _t(rows64), W, H, TILE_H, TILE_W, return_tiled=True)
+    agree = _check_fold(got[0], got[1], want[0], want[1])
+    tiles = (H // TILE_H) * (W // TILE_W)
+    p = TILE_H * TILE_W
+    pl_t, id_t, z_t = (x.numpy() for x in got[2:])
+    pl_j, id_j, z_j = (np.asarray(x) for x in want[2:])
+    assert pl_t.shape == pl_j.shape == (tiles, p, 24)
+    assert id_t.shape == z_t.shape == id_j.shape == (tiles, p, 1)
+    agree_t = (id_t == id_j)[..., 0]
+    np.testing.assert_array_equal(agree_t.sum(), agree.sum())
+    np.testing.assert_array_equal(pl_t[agree_t][:, 8:], pl_j[agree_t][:, 8:])
+    np.testing.assert_allclose(pl_t[agree_t][:, :8], pl_j[agree_t][:, :8], rtol=1e-3,
+                               atol=1e-4)
+    bg = id_t[..., 0] < 0
+    assert bg.any() and np.isinf(z_t[bg]).all() and np.isinf(z_j[bg & agree_t]).all()
+    np.testing.assert_allclose(z_t[~bg & agree_t], z_j[~bg & agree_t], atol=1e-4)
 
 
 def test_exact_depth_ties_go_to_the_earliest_list_entry():

@@ -59,8 +59,9 @@ def test_kernel_matches_plain_version(device, n, seed, cap, caps, shape):
 
 @pytest.mark.parametrize("tile", [(24, 128), (12, 64)])
 def test_pipeline_frame_through_kernel_matches_plain_path(device, tile):
-    """A small frame on the card through kernel A against use_pallas=False,
-    at the JAX package's fidelity bar (rmse <= 1e-3 on uint8/255)."""
+    """A small frame of the use_tex_kernel=False path on the card through
+    kernel A against use_pallas=False, at the JAX package's fidelity bar
+    (rmse <= 1e-3 on uint8/255)."""
     import math
 
     from direct12pbrrenderer_tpu.config import RenderConfig
@@ -71,7 +72,7 @@ def test_pipeline_frame_through_kernel_matches_plain_path(device, tile):
     scene = build_stress_scene(64, 32)
     cfg = RenderConfig(256, 192, max_instances=2)
     knobs = dict(tile_h=tile[0], tile_w=tile[1], bin_cap=4096, atlas_max_dim=256,
-                 prefilter_size=16, brdf_lut_size=32, device=device)
+                 prefilter_size=16, brdf_lut_size=32, use_tex_kernel=False, device=device)
     kern = DeferredRenderPipeline(scene, cfg, use_pallas=True, **knobs)
     plain = DeferredRenderPipeline(scene, cfg, use_pallas=False, **knobs)
     cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
