@@ -4,22 +4,29 @@
 
 Builds the port's CUDA kernels from `direct12pbrrenderer_tpu_torch/csrc` (one
 nvcc per source, all at once), checks each against its plain PyTorch version
-on the card, then renders the 262,144-triangle stress scene with a
-procedural sky at 1920x1080 through both ported paths:
+on the card, then renders at 1920x1080 with a procedural sky:
 
-* the default path (`use_pallas` and `use_tex_kernel` resolve to True on the
-  card): kernel A (raster + interpolation), kernel B (page covers of the
-  texture and env caches), kernel C (texture resolve + pixel shade), kernel D
-  (fused deferred shading) — the main path;
-* the `use_tex_kernel=False` path: kernel A, the direct-atlas sampler and
-  the dense deferred shading.
+* the 262,144-triangle stress scene through the default path (`use_pallas`
+  and `use_tex_kernel` resolve to True on the card): kernel A (raster +
+  interpolation), kernel B (page covers of the texture and env caches),
+  kernel C (texture resolve + pixel shade), kernel D (fused deferred
+  shading) — the main path;
+* the same scene through the `use_tex_kernel=False` path: kernel A, the
+  direct-atlas sampler and the dense deferred shading;
+* the 1024-light stress scene (the JAX bench's third scene) through the
+  1024-light path: kernels A, B, C for the G-buffer, then the unfused
+  deferred pass with the env cache (plan with kernel B, resolve with kernel
+  F) and the tile-clustered point lights (kernel G).
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; each frame is checked against the all-plain pipeline
 (`use_pallas=False, use_tex_kernel=False`) on the card. Each phase prints
-one line; any failure exits non-zero. The last line is `{"ok": true,
-"device": {...}}`. There is no CPU path: without a CUDA device the script
-fails. It imports nothing of JAX.
+one line; any failure exits non-zero. The line before the last holds every
+kernel's numbers with its bound (the least time the card could take for the
+bytes and the operations of the call, from NVIDIA's H100 SXM data sheet),
+then comes the card's nvidia-smi name and power limit, and the last line is
+`{"ok": true, "device": {...}}`. There is no CPU path: without a CUDA device
+the script fails. It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -47,13 +54,20 @@ TILE_H, TILE_W, BIN_CAP = 24, 128, 8192
 # records the default knobs' frame, without gating it.
 TEX_CAPS = (92, 44, None, (32, 16))
 BRDF_LUT = 64
-FRAMES, WARMUP = 16, 2    # the default path
+FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
 RMSE_BAR = 1e-3          # uint8/255 frame rmse, the JAX package's fidelity bar
 ID_MISMATCH_BAR = 1e-4   # kernel-vs-plain winner disagreement (coverage ties)
 INTERP_RTOL, INTERP_ATOL, Z_ATOL = 1e-3, 1e-4, 1e-4
 SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of values
 D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
+G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
+                                                   # cluster edge flips a membership
+F_RTOL, F_ATOL = 1e-6, 1e-7   # kernel F: the same bf16 words and weights
+# the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
+L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, plain version)
     "raster_interp": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:157", "raster_cuda",
                       "rasterize_interp", "rasterize_interp_reference"),
@@ -63,6 +77,10 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, plain v
                       "resolve_shade", "resolve_shade_reference"),
     "deferred_shade": ("direct12pbrrenderer_tpu/ops/shade_pallas.py:61", "shade_fused",
                        "deferred_kernel", "deferred_kernel_reference"),
+    "env_resolve": ("direct12pbrrenderer_tpu/ops/envcache.py:291", "env_resolve_cuda",
+                    "env_resolve", "env_resolve_reference"),
+    "point_lights": ("direct12pbrrenderer_tpu/ops/lights_pallas.py:138", "lights_cuda",
+                     "point_lights_kernel", "point_lights_kernel_reference"),
 }
 
 
@@ -115,6 +133,36 @@ def compare(phase, kernel_out, plain_out) -> tuple[float, int]:
                      np.abs(z_k[agree] - z_p[agree]).max(initial=0.0))), int(mismatch.sum())
 
 
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among `xs`."""
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
+
+
+def staged_read_bytes(off, cnts, staged, rec, rows_per_page: int) -> int:
+    """Bytes of the staged page words that the taps `rec` (tiles, G, blocks,
+    128) address, each counted once: a tap reads `rows_per_page` words of
+    lane rec & 127 of page off + (rec >> 7) of its tile, when that page lies
+    inside its group's ceil8(cnt) span and the staged budget."""
+    tiles, g = rec.shape[:2]
+    budget = staged.shape[1] // rows_per_page
+    seg = rec >> 7
+    page = off[:, :g, None, None] + seg
+    ok = ((seg >= 0) & (seg < ((cnts[:, :g] + 7) // 8 * 8)[:, :, None, None])
+          & (page < budget))
+    t = torch.arange(tiles, device=rec.device).view(-1, 1, 1, 1)
+    key = ((t * budget + page).long() * 128 + (rec & 127))[ok]
+    return torch.unique(key).numel() * rows_per_page * 4
+
+
+def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """(least ms, what bounds it) for a call that must move `n_bytes` (each
+    input read once, each output written once) and do `flops` float32
+    operations: the larger of the two times at the H100's data-sheet rates."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def wrapper(name: str):
     """(module, wrapper function, plain version) of kernel `name`."""
     import importlib
@@ -157,7 +205,7 @@ class _RandomTexture:
     """A random RGBA8 texture with a full mip chain (scene_pack's atlas input)."""
 
     def __init__(self, rng, w, h, srgb):
-        from direct12pbrrenderer_tpu.resource.formats import ETextureFormat
+        from direct12pbrrenderer_tpu_torch.resource.formats import ETextureFormat
 
         self.format = (ETextureFormat.R8G8B8A8_UNORM_SRGB if srgb
                        else ETextureFormat.R8G8B8A8_UNORM)
@@ -175,7 +223,7 @@ class _RandomTexture:
 
 def stub_atlas(rng, device, specs=((32, 16, True), (16, 16, False), (8, 8, False))):
     """A texture atlas of random mip chains on `device`."""
-    from direct12pbrrenderer_tpu.pipeline import scene_pack
+    from direct12pbrrenderer_tpu_torch.pipeline import scene_pack
     from direct12pbrrenderer_tpu_torch.ops.gbuffer import AtlasDevice
 
     builder = scene_pack._AtlasBuilder()
@@ -230,9 +278,9 @@ def random_triangles(n: int, seed: int, device):
 def procedural_sky(size: int, sun_dir, sun_intensity: float):
     """HDR sky cubemap (horizon gradient + sun disc) with SH baked on the
     host, as the console's CreateProceduralSky builds it."""
-    from direct12pbrrenderer_tpu.resource.formats import ETextureFormat
-    from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
-    from direct12pbrrenderer_tpu.resource.storage import CubeMapTextureData, TextureData
+    from direct12pbrrenderer_tpu_torch.resource.formats import ETextureFormat
+    from direct12pbrrenderer_tpu_torch.resource.resources import CubeMapResource
+    from direct12pbrrenderer_tpu_torch.resource.storage import CubeMapTextureData, TextureData
     from direct12pbrrenderer_tpu_torch.ops.common import cubemap_face_dirs
 
     dirs = cubemap_face_dirs(size)
@@ -257,14 +305,16 @@ def procedural_sky(size: int, sun_dir, sun_intensity: float):
     return res
 
 
-def stress_scene(cells_x: int, cells_y: int, sky_size: int, sun_intensity: float):
-    """tools/stress_scene's terrain with its albedo map switched on (the
-    builder attaches the 256x256 sRGB checker but not the material's
-    UseAlbedoMap flag, which leaves the texture out of the atlas) and a
-    procedural HDR sky, so every cache and kernel of the frame does work."""
-    from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
+def stress_scene(cells_x: int, cells_y: int, sky_size: int, sun_intensity: float,
+                 n_lights: int = 8):
+    """tools/stress_scene's terrain and `n_lights` lights with its albedo map
+    switched on (build_stress_scene attaches the 256x256 sRGB checker but not the
+    material's UseAlbedoMap flag, which leaves the texture out of the atlas)
+    and a procedural HDR sky, so every cache and kernel of the frame does
+    work."""
+    from direct12pbrrenderer_tpu_torch.tools.stress_scene import build_stress_scene
 
-    scene = build_stress_scene(cells_x, cells_y)
+    scene = build_stress_scene(cells_x, cells_y, n_lights=n_lights)
     for sm in scene.models:
         for mat in sm.model.materials:
             mat.set_parameter("UseAlbedoMap", True)
@@ -309,7 +359,7 @@ def frame_inputs(pipe, cam):
 
 def timed_passes(pipe, cam, frames: int) -> dict[str, float]:
     """Mean device ms per graph pass (CUDA events around each pass)."""
-    from direct12pbrrenderer_tpu.graph import frame_graph as fg
+    from direct12pbrrenderer_tpu_torch.graph import frame_graph as fg
 
     graph = pipe.graph
     events: dict[str, list] = {}
@@ -453,6 +503,155 @@ def fidelity(pipe, ref, cam) -> tuple[float, int]:
     return float(np.sqrt(np.mean((a / 255.0 - b / 255.0) ** 2))), int((a != b).any(-1).sum())
 
 
+def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
+    """The 1024-light cell: the JAX bench's lights1k scene with the default
+    cell's sky and cache knobs, through the 1024-light path (kernels A, B, C,
+    F, G; not D). Checks F and G against their plain versions on one frame's
+    recorded inputs, times 16 frames, the passes, and the frame's fidelity.
+    Adds F's and G's (max abs error, ms, plain ms) to `measured` and their
+    bounds to `bounds`; returns the frames' launch counts."""
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, envcache, lights_cuda
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    t0 = time.perf_counter()
+    scene = stress_scene(*L1K_CELLS, 256, 80.0, n_lights=L1K_LIGHTS)
+    cfg = RenderConfig(W, H, max_instances=2, max_lights=L1K_LIGHTS)
+    l1k_knobs = dict(knobs, bin_cap=L1K_BIN_CAP, max_active_lights=L1K_LIGHTS)
+    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **l1k_knobs)
+    torch.cuda.synchronize()
+    if not (pipe.use_fused_gbuffer and pipe.light_tile == (TILE_H, TILE_W)
+            and not pipe.use_fused_deferred and "EnvCache" in pipe.buffers):
+        fail("scene-lights1k", "the pipeline on the card is not the 1024-light kernel path")
+    with recording(lights_cuda, "point_lights_kernel") as light_calls, \
+            recording(env_resolve_cuda, "env_resolve") as env_calls:
+        pipe.render(cam)
+        torch.cuda.synchronize()
+    if (len(light_calls), len(env_calls)) != (1, 1):
+        fail("scene-lights1k", f"a frame made {len(light_calls)} light and {len(env_calls)} "
+             "env-resolve calls, want 1 and 1")
+    (gargs, gkw), = light_calls
+    (fargs, _), = env_calls
+    listed = gargs[0].cpu().numpy()
+    say("scene-lights1k", f"stress scene {pipe.packed.tris.shape[0]} tris, "
+        f"{pipe.packed.light_count} lights ({pipe.last_stats.visible_lights} visible), sky 256, "
+        f"bin_cap {L1K_BIN_CAP}, max_active_lights {L1K_LIGHTS}, light_tile {pipe.light_tile}, "
+        f"light_cap {pipe.light_cap}, env tile {pipe.env_tile}; culled lights per light tile "
+        f"p50 {np.percentile(listed, 50):.0f} p99 {np.percentile(listed, 99):.0f} max "
+        f"{listed.max()} of {listed.size} tiles; pipeline built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- kernel G vs its plain version on the frame's inputs ----------------
+    got = lights_cuda.point_lights_kernel(*gargs, **gkw)
+    want = lights_cuda.point_lights_kernel_reference(*gargs, **gkw)
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    if not np.isfinite(a).all():
+        fail("kernel-lights", "non-finite kernel output")
+    same = a[..., 3] == b[..., 3]
+    masked = same & (gargs[3][..., 9].cpu().numpy() > 0.5)
+    bad = ~np.isclose(a[..., :3][masked], b[..., :3][masked], rtol=G_RTOL, atol=G_ATOL)
+    if (~same).mean() >= G_COUNTER_FRAC or bad.any():
+        fail("kernel-lights", f"{int((~same).sum())} pixels with another hit count (bar "
+             f"{G_COUNTER_FRAC} of {same.size}), {int(bad.sum())} rgb values outside rtol "
+             f"{G_RTOL}/atol {G_ATOL}")
+    err_g = float(np.abs(a[..., :3][masked] - b[..., :3][masked]).max(initial=0.0))
+    ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel(*gargs, **gkw), 20)
+    plain_ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel_reference(*gargs, **gkw), 2)
+    # every input once, the (tiles, p, 4) output; the work this frame's data
+    # needs (csrc/point_lights.cu, a sqrt or division counted as one): about
+    # 100 flops of setup per pixel, 18 for the cluster sphere test per pixel
+    # and listed light, and 100 for the Cook-Torrance terms per admitted light
+    # (the kernel's own hit counters, at most 32 per pixel)
+    p_g = gargs[3].shape[1]
+    pairs = float(p_g * np.minimum(listed, gargs[2].shape[-1]).sum())
+    admitted = float(a[..., 3].astype(np.float64).sum())
+    bounds["point_lights"] = bound(nbytes(*gargs) + a.size * 4,
+                                   a.shape[0] * p_g * 100 + pairs * 18 + admitted * 100)
+    measured["point_lights"] = (err_g, ms_g, plain_ms_g)
+    say("kernel-lights", f"{tuple(gargs[3].shape)} G-buffer, rows {tuple(gargs[2].shape)}, "
+        f"{pairs:.4g} pixel-light pairs, {admitted:.4g} admitted: ok, "
+        f"{int((~same).sum())} hit-count mismatches of "
+        f"{same.size}, max abs rgb diff {err_g:.3e} (rtol {G_RTOL}/atol {G_ATOL}), kernel "
+        f"{ms_g:.4f} ms, plain {plain_ms_g:.4f} ms, bound {bounds['point_lights'][0]:.4f} ms "
+        f"({bounds['point_lights'][1]})")
+    del got, want, a, b
+
+    # ---- kernel F vs its plain version on the frame's inputs ----------------
+    got = env_resolve_cuda.env_resolve(*fargs)
+    want = env_resolve_cuda.env_resolve_reference(*fargs)
+    if not torch.isfinite(got).all():
+        fail("kernel-env-resolve", "non-finite kernel output")
+    if not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
+        fail("kernel-env-resolve", f"outside rtol {F_RTOL}/atol {F_ATOL}: max abs diff "
+             f"{float((got - want).abs().max()):.3e}")
+    err_f = float((got - want).abs().max())
+    ms_f = cuda_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 20)
+    plain_ms_f = cuda_ms(lambda: env_resolve_cuda.env_resolve_reference(*fargs), 3)
+    # every input once (records, fracs, offsets, counts, and of the staged
+    # pages the words the taps address), the (tiles, G, 4, blocks, 128)
+    # output; about 36 flops per tap
+    bounds["env_resolve"] = bound(
+        nbytes(*fargs[:2], *fargs[3:]) + staged_read_bytes(*fargs[:4], 8) + nbytes(got),
+        fargs[3].numel() * 36)
+    measured["env_resolve"] = (err_f, ms_f, plain_ms_f)
+    say("kernel-env-resolve", f"{tuple(fargs[3].shape)} taps, staged {tuple(fargs[2].shape)}: "
+        f"ok (max abs diff {err_f:.3e}, rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_f:.4f} ms, "
+        f"plain {plain_ms_f:.4f} ms, bound {bounds['env_resolve'][0]:.4f} ms "
+        f"({bounds['env_resolve'][1]})")
+    del got, want, gargs, fargs, light_calls, env_calls
+
+    # ---- the 1024-light path: A, B, C, F, G; never D ------------------------
+    path = camera_path(cam, WARMUP + FRAMES)
+    for c in path[:WARMUP]:
+        pipe.render(c)
+    times, launches = run_frames("frame-lights1k", pipe, path[WARMUP:], {
+        "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
+        "env_resolve": FRAMES, "point_lights": FRAMES})
+    if launches["deferred_shade"]:
+        fail("frame-lights1k", f"kernel D launched {launches['deferred_shade']} times")
+    frame_line = check_frame("frame-lights1k", pipe, path[-1])
+    say("frame-lights1k", f"1024-light path, {FRAMES} frames {W}x{H}: mean "
+        f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "
+        f"frame); kernel launches {launches}; {frame_line}")
+    per_pass = timed_passes(pipe, path[-1], 3)
+    say("passes-lights1k", "1024-light path, mean device ms per pass (CUDA events): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_pass.items()))
+    wall, busy, n_act, top = profiled_frames(pipe, path[-1], 3)
+    say("profile-lights1k", f"1024-light path, torch.profiler, 3 frames: wall {wall:.2f} ms/frame, "
+        f"device busy {busy:.2f} ms/frame ({n_act:.0f} device activities), idle share "
+        f"{1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}" for ms, name in top))
+
+    # ---- against the all-plain pipeline (the dense 1024-light sweep) --------
+    ref = DeferredRenderPipeline(scene, cfg, use_pallas=False, use_tex_kernel=False,
+                                 device=dev, **l1k_knobs)
+    with recording(envcache, "sample_env_tiled") as env_calls:
+        rmse, ndiff = fidelity(pipe, ref, path[-1])
+    st = pipe.last_stats
+    counters = {k: getattr(st, k) for k in ("lights_truncated", "light_tile_overflow",
+                                            "tex_approx_taps", "env_approx_taps")}
+    (eargs, ekw), = env_calls   # the env taps' fallbacks by group, for the record
+    by_group = envcache.sample_env_tiled(*eargs, **ekw)[2].sum((0, 1)).tolist()
+    if rmse > RMSE_BAR or any(counters.values()):
+        fail("fidelity-lights1k", f"frame rmse vs use_pallas=False, use_tex_kernel=False "
+             f"{rmse:.6f} (bar {RMSE_BAR}); {counters} (all must be 0); env fallback taps by "
+             f"group (env lo, env hi, BRDF LUT, sky, cascade) {by_group}")
+    # with the JAX package's default knobs, for the record (not gated)
+    jax_knobs = dict(base_knobs, bin_cap=L1K_BIN_CAP, max_active_lights=L1K_LIGHTS)
+    pipe_j = DeferredRenderPipeline(scene, cfg, device=dev, **jax_knobs)
+    pipe_j.avg_luminance = pipe.avg_luminance.clone()
+    rmse_j, _ = fidelity(pipe_j, DeferredRenderPipeline(
+        scene, cfg, use_pallas=False, use_tex_kernel=False, device=dev, **jax_knobs), path[-1])
+    st_j = pipe_j.last_stats
+    say("fidelity-lights1k", f"1024-light frame (tex_caps {TEX_CAPS}, brdf_lut_size "
+        f"{BRDF_LUT}) rmse vs use_pallas=False, use_tex_kernel=False (the dense light sweep) "
+        f"on the card {rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ; {counters}; env "
+        f"fallback taps by group {by_group}; "
+        f"{st.visible_lights} visible lights; with the JAX default knobs (not gated): rmse "
+        f"{rmse_j:.6f}, tex_approx_taps {st_j.tex_approx_taps}, env_approx_taps "
+        f"{st_j.env_approx_taps}, light_tile_overflow {st_j.light_tile_overflow}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
@@ -465,8 +664,7 @@ def main() -> None:
     say("device", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    from direct12pbrrenderer_tpu.config import RenderConfig
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
     from direct12pbrrenderer_tpu_torch.ops import (
         cover_cuda,
         gbuffer,
@@ -476,6 +674,7 @@ def main() -> None:
         shade_fused,
     )
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 
     build_kernels()
 
@@ -532,10 +731,20 @@ def main() -> None:
     one_chunk_ms = cuda_ms(lambda: raster_cuda.rasterize_interp(
         *args, cap_small=raster_cuda.CHUNK, hot_k=0), 20)
     counts = bins.counts.cpu().numpy()
+    # output 26 words per pixel; each listed candidate's id once, each row
+    # once; about 23 flops per pixel and candidate (3 edge scores, the
+    # barycentric denominator and depth, one division) and 45 per pixel for
+    # the winner's 8 interpolated channels
+    tile_px, n_px = TILE_H * TILE_W, pipe.render_w * pipe.render_h
+    listed = float(np.minimum(counts, BIN_CAP).sum())
+    bounds = {"raster_interp": bound(
+        n_px * 26 * 4 + nbytes(rows64, bins.counts) + listed * 4,
+        tile_px * listed * 23 + n_px * 45)}
     say("kernel-frame", f"{W}x{H} {rows64.shape[0]} tris, bin counts p50 "
         f"{np.percentile(counts, 50):.0f} p99 {np.percentile(counts, 99):.0f} max "
         f"{counts.max()}: ok, id mismatches {nmis}, max_abs_err {err_a:.3e}, kernel "
-        f"{ms_a:.4f} ms, plain {plain_ms_a:.4f} ms; kernel with every list cut to "
+        f"{ms_a:.4f} ms, plain {plain_ms_a:.4f} ms, bound {bounds['raster_interp'][0]:.4f} ms "
+        f"({bounds['raster_interp'][1]}); kernel with every list cut to "
         f"{raster_cuda.CHUNK} candidates {one_chunk_ms:.4f} ms")
 
     # ---- kernels B, C, D vs plain versions on one default frame's inputs ---
@@ -549,7 +758,7 @@ def main() -> None:
         fail("kernel-cover", f"a default frame made {len(cover_calls)} cover, "
              f"{len(shade_calls)} resolve-shade and {len(deferred_calls)} deferred calls, "
              "want 4, 1, 1")
-    parts, cover_ms, cover_plain_ms = [], [], []
+    parts, cover_ms, cover_plain_ms, cover_bytes = [], [], [], 0
     for (cargs, ckw), what in zip(cover_calls, ("texture fallback", "texture lo half",
                                                 "texture hi half", "env")):
         got = cover_cuda.fused_cover(*cargs, **ckw)
@@ -557,6 +766,7 @@ def main() -> None:
         for g, r, out in zip(got, want, ("list", "count", "slot", "covered")):
             if not torch.equal(g, r):
                 fail("kernel-cover", f"{what}: {out} differs from the plain version")
+        cover_bytes += nbytes(cargs[0], cargs[1], *got)   # pages, act in; four outputs
         k_ms = cuda_ms(lambda: cover_cuda.fused_cover(*cargs, **ckw), 20)
         p_ms = cuda_ms(lambda: cover_cuda.fused_cover_reference(*cargs, **ckw), 5)
         cover_ms.append(k_ms)
@@ -566,26 +776,45 @@ def main() -> None:
                      f"{cargs[3]}; {float(cargs[1].float().mean()):.3f} active) kernel "
                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
     ms_b, plain_ms_b = sum(cover_ms), sum(cover_plain_ms)
+    bounds["fused_cover"] = bound(cover_bytes)
     say("kernel-cover", "4 calls of one default 1080p frame, all four outputs bit-equal: "
-        + "; ".join(parts) + f"; per frame kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms")
+        + "; ".join(parts) + f"; per frame kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, "
+        f"bound {bounds['fused_cover'][0]:.4f} ms (bytes)")
 
     (sargs, skw), = shade_calls
     err_c = check_shade("kernel-resolve-shade", resolve_shade_cuda.resolve_shade(*sargs, **skw),
                         resolve_shade_cuda.resolve_shade_reference(*sargs, **skw))
     ms_c = cuda_ms(lambda: resolve_shade_cuda.resolve_shade(*sargs, **skw), 20)
     plain_ms_c = cuda_ms(lambda: resolve_shade_cuda.resolve_shade_reference(*sargs, **skw), 3)
+    # every input once (of the staged pages, the words the taps address) and
+    # the (tiles, 9, blocks, 128) f32 output; a few dozen flops per pixel,
+    # far below the bytes' time
+    rec_c = sargs[3]
+    bounds["resolve_shade"] = bound(
+        nbytes(*sargs[:2], *sargs[3:]) + staged_read_bytes(*sargs[:4], 4)
+        + rec_c.shape[0] * 9 * rec_c.shape[2] * 128 * 4)
     say("kernel-resolve-shade", f"{tuple(sargs[3].shape)} taps, staged "
         f"{tuple(sargs[2].shape)}: ok (max diff {err_c:.3e} <= {SHADE_MAX:.3e}), kernel "
-        f"{ms_c:.4f} ms, plain {plain_ms_c:.4f} ms")
+        f"{ms_c:.4f} ms, plain {plain_ms_c:.4f} ms, bound {bounds['resolve_shade'][0]:.4f} ms "
+        f"({bounds['resolve_shade'][1]})")
 
     (dargs, dkw), = deferred_calls
     err_d, bad_d = check_deferred("kernel-deferred", shade_fused.deferred_kernel(*dargs, **dkw),
                                   shade_fused.deferred_kernel_reference(*dargs, **dkw))
     ms_d = cuda_ms(lambda: shade_fused.deferred_kernel(*dargs, **dkw), 20)
     plain_ms_d = cuda_ms(lambda: shade_fused.deferred_kernel_reference(*dargs, **dkw), 3)
+    # every input once (of the staged pages, the words the taps address),
+    # the (tiles, 4, blocks, 128) output; about 60 flops per pixel and active
+    # light
+    rec_d = dargs[5]
+    px_d = rec_d.shape[0] * rec_d.shape[2] * 128
+    bounds["deferred_shade"] = bound(
+        nbytes(*dargs[:4], *dargs[5:]) + staged_read_bytes(*dargs[2:6], 8) + px_d * 4 * 4,
+        px_d * float(dargs[0][21]) * 60)
     say("kernel-deferred", f"{tuple(dargs[5].shape)} env taps, {int(dargs[0][21])} active "
         f"lights: ok ({bad_d:.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, max abs "
-        f"diff {err_d:.3e}), kernel {ms_d:.4f} ms, plain {plain_ms_d:.4f} ms")
+        f"diff {err_d:.3e}), kernel {ms_d:.4f} ms, plain {plain_ms_d:.4f} ms, bound "
+        f"{bounds['deferred_shade'][0]:.4f} ms ({bounds['deferred_shade'][1]})")
     del cover_calls, shade_calls, deferred_calls, sargs, dargs
 
     # ---- GBuffer pass stages of both paths ---------------------------------
@@ -678,17 +907,22 @@ def main() -> None:
         fail("fidelity-planar", f"frame rmse vs use_pallas=False {rmse:.6f} > {RMSE_BAR}")
     say("fidelity-planar", f"use_tex_kernel=False frame rmse vs use_pallas=False on the card "
         f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ")
+    del pipe, planar, ref, scene
+    torch.cuda.empty_cache()
 
     measured = {"raster_interp": (err_a, ms_a, plain_ms_a),
                 "fused_cover": (0.0, ms_b, plain_ms_b),
                 "resolve_shade": (err_c, ms_c, plain_ms_c),
                 "deferred_shade": (err_d, ms_d, plain_ms_d)}
+    launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
+    launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"direct12pbrrenderer_tpu_torch/csrc/{name}.cu",
         "replaces": KERNELS[name][0], "launches": launches[name],
         "max_abs_err": measured[name][0], "ms": measured[name][1],
-        "plain_ms": measured[name][2]} for name in KERNELS]}))
+        "plain_ms": measured[name][2], "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1], "library_ms": None} for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

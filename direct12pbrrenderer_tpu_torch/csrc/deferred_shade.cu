@@ -13,7 +13,8 @@
 //   * a tap reads the 8 packed words at staged[t, (off + seg) * 8 + k, rec &
 //     127]; a segment at or beyond ceil8(cnt) resolves to 0. Value v of the
 //     quad is the bf16 in word v >> 1: low half << 16, high half & ~0xFFFF,
-//     bit cast to float (envcache.py:274-277);
+//     bit cast to float (envcache.py:274-277). The tap body is
+//     env_resolve.cuh, shared with kernel F (env_resolve.cu);
 //   * the light loop walks the frame's active rows in order with a per-pixel
 //     hit counter below 32 (MAX_LIGHTS_PER_CLUSTER): serial, so the cap is
 //     exact. A light's contribution is masked with a select (the TPU kernel's
@@ -34,6 +35,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "env_resolve.cuh"
 
 namespace {
 
@@ -65,30 +68,9 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) { return mi
 
 __device__ void resolve_env(const Args& a, int t, size_t pix, int gi, float rgba[4]) {
   const size_t at = ((size_t)t * a.n_groups + gi) * a.blocks * 128 + pix;
-  const int base = a.off[t * a.n_groups + gi];
-  const int cnt = a.cnts[t * a.n_groups + gi];
-  const int rc = a.rec[at];
-  const int seg = rc >> 7;
-  const int ln = rc & 127;
-  unsigned w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (seg >= 0 && seg < (cnt + 7) / 8 * 8 && base + seg < a.budget) {
-    const int* p = a.staged + ((size_t)t * a.budget * 8 + (size_t)(base + seg) * 8) * 128 + ln;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = (unsigned)p[k * 128];
-  }
-  auto val = [&](int v) {
-    const unsigned word = w[v >> 1];
-    return __uint_as_float((v & 1) ? (word & 0xFFFF0000u) : (word << 16));
-  };
-  const float fx = a.fx[at], fy = a.fy[at];
-  const float w00 = (1.f - fx) * (1.f - fy);
-  const float w01 = fx * (1.f - fy);
-  const float w10 = (1.f - fx) * fy;
-  const float w11 = fx * fy;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    rgba[c] = val(c) * w00 + val(4 + c) * w01 + val(8 + c) * w10 + val(12 + c) * w11;
-  }
+  resolve_env_tap(a.staged + (size_t)t * a.budget * 8 * 128, a.budget,
+                  a.off[t * a.n_groups + gi], a.cnts[t * a.n_groups + gi], a.rec[at], a.fx[at],
+                  a.fy[at], rgba);
 }
 
 __global__ void deferred_shade_kernel(Args a) {

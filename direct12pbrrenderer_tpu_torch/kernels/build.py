@@ -4,8 +4,8 @@ Each kernel source under `csrc/` is compiled by `nvcc` into a shared
 library with a plain C interface and loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use into
 `build/kernels/` at the repository root (git-ignored), keyed on a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.
+the source, the local headers it includes and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -42,9 +43,24 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and the local headers it includes, transitively."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in files:
+            continue
+        files.append(f)
+        todo.extend(f.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(f.read_bytes()))
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    blob = b"".join(f.read_bytes() for f in source_files(name))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

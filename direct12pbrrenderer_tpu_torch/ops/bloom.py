@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from direct12pbrrenderer_tpu.config import BLOOM_KNEE, BLOOM_STEPS, BLOOM_THRESHOLD, GAUSS_WEIGHTS
+from ..config import BLOOM_KNEE, BLOOM_STEPS, BLOOM_THRESHOLD, GAUSS_WEIGHTS
 
 from . import common
 

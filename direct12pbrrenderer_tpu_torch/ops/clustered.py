@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from direct12pbrrenderer_tpu.config import (
+from ..config import (
     CLUSTER_X,
     CLUSTER_Y,
     CLUSTER_Z,

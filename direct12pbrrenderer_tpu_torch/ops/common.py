@@ -154,7 +154,12 @@ def ggx_importance_sample(roughness, normal, xi):
     """
     a = roughness * roughness
     phi = 2.0 * PI * xi[..., 0]
-    cos_theta = torch.sqrt((1.0 - xi[..., 1]) / (1.0 + (a * a - 1.0) * xi[..., 1]))
+    q = (1.0 - xi[..., 1]) / (1.0 + (a * a - 1.0) * xi[..., 1])
+    # sin_theta = sqrt(1 - cos^2) turns one ulp of cos_theta near 1 into
+    # ~1e-4 of sin_theta at low roughness, so cos_theta must be the correctly
+    # rounded fp32 sqrt. Some CPU builds of torch.sqrt are off by an ulp; a
+    # float64 sqrt rounded to fp32 is exact on every backend.
+    cos_theta = torch.sqrt(q.double()).to(q.dtype)
     sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     h = torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1

@@ -1,6 +1,7 @@
 """Float page cache for the deferred-shading taps — counterpart of
-`ops/envcache.py` (the atlas builder and the plan; the resolve runs inside
-kernel D, `ops/shade_fused.py`).
+`ops/envcache.py`: `FloatAtlasBuilder`, the plan, and `sample_env_tiled` for
+the unfused deferred pass (the resolve is kernel F, `ops/env_resolve_cuda.py`;
+the fused pass resolves inside kernel D, `ops/shade_fused.py`).
 
 The float sibling of the texture cache: the prefiltered env cube's mips, the
 skybox faces and the BRDF LUT are stored page-major as clamp-addressed 2x2
@@ -20,12 +21,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import env_resolve_cuda
+from .env_resolve_cuda import REC_I32
 from .texcache import (
     MAX_MIPS,
     SEG_CHUNK,
     _compact_layout,
     _cover_and_match,
     _pack_ids,
+    _tile,
+    _untile,
     onehot_lookup,
     select_mip,
 )
@@ -34,7 +39,6 @@ PAGE_W = 16
 PAGE_H = 8
 PAGE_RECORDS = PAGE_W * PAGE_H
 REC_F32 = 16  # 4 clamp-quad corners x 4 channels
-REC_I32 = 8   # staged rows per record: bf16 value pairs packed in int32
 CAP_FB = 8    # fallback-page slots per group (a SEG_CHUNK-aligned static list)
 
 
@@ -272,3 +276,37 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
     pages_cm = atlas.data.reshape(n_pages, PAGE_RECORDS, REC_I32).transpose(1, 2)
     staged = pages_cm[ids.reshape(-1).long()].reshape(n_tiles, budget * REC_I32, PAGE_RECORDS)
     return off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t
+
+
+# -------------------------------------------------------------- sampling ----
+def sample_env_tiled(atlas: FloatAtlas, tex, mip, u, v, active, *, fb_tids: tuple,
+                     share: tuple = (), tile_h: int = 24, tile_w: int = 128,
+                     cap: int | tuple = 28, block_cap: int = 8,
+                     stage_budget: int | None = None):
+    """Clamp-quad sampling of G tap groups through per-tile page covers:
+    (H, W, G) tap stacks are tiled, planned (`plan_env_tiled`, kernel B),
+    resolved (kernel F, `env_resolve_cuda.env_resolve`) and untiled.
+    Returns (rgba (H, W, G, 4), covered (H, W, G), approx (H, W, G)).
+
+    `covered` taps are exact; `approx` taps (active, not covered) overflowed
+    the page budget and resolved as a bilinear tap on the texture's one-page
+    coarse fallback mip. Groups listed together in `share` (trilinear mip
+    halves) share one covered mask. The JAX package pads a tile's 128-pixel
+    rows to a multiple of 8 with inactive pixels; they change no cover and
+    are sliced off, so the port tiles without the pad."""
+    height, width, g = u.shape
+    if (tile_h * tile_w) % 128 or height % tile_h or width % tile_w:
+        raise ValueError(f"a {tile_h}x{tile_w} tile of 128-pixel rows must divide the "
+                         f"{height}x{width} frame")
+    caps = cap if isinstance(cap, tuple) else (cap,) * g
+
+    def tile_g(x):  # (H, W, G) -> (tiles, G, blocks, 128)
+        return _tile(x.permute(2, 0, 1), tile_h, tile_w)
+
+    off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = plan_env_tiled(
+        atlas, tile_g(tex), tile_g(mip), tile_g(u), tile_g(v), tile_g(active), fb_tids=fb_tids,
+        share=share, caps=caps, block_cap=block_cap, stage_budget=stage_budget)
+    out = env_resolve_cuda.env_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t)
+    rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)  # (H, W, G, 4)
+    covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
+    return rgba, covered, active & ~covered

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from direct12pbrrenderer_tpu.config import (
+from ..config import (
     BRDF_LUT_SIZE,
     IBL_SAMPLE_COUNT,
     PREFILTER_ENVMAP_MIP_LEVELS,

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from direct12pbrrenderer_tpu.config import (
+from ..config import (
     EXPOSURE_SMOOTH_TIME,
     INV_LOG_LUMINANCE_RANGE,
     LOG_LUMINANCE_RANGE,

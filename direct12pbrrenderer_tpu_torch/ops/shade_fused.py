@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from direct12pbrrenderer_tpu.config import (
+from ..config import (
     CLUSTER_X,
     CLUSTER_Y,
     CLUSTER_Z,
@@ -33,7 +33,7 @@ from direct12pbrrenderer_tpu.config import (
 )
 
 from . import common, envcache
-from .resolve_shade_cuda import staged_rows
+from .env_resolve_cuda import resolve_env_group
 from .shading import env_tap_groups
 from .texcache import _untile
 
@@ -120,24 +120,6 @@ def _library() -> ctypes.CDLL:
 
 
 # ------------------------------------------------------- plain version ----
-def _resolve_env_group(off, cnts, staged, rec, fx, fy, gi):
-    """Group gi's clamp-quad tap: bf16 pairs unpacked (low half << 16, high
-    half & ~0xFFFF, bit cast), bilinear blend -> 4 x (tiles, blocks, 128)."""
-    packed = staged_rows(off, cnts, staged, rec, gi, envcache.REC_I32)
-
-    def val(v):
-        p = packed[v >> 1]
-        return ((p & ~0xFFFF) if v & 1 else (p << 16)).view(torch.float32)
-
-    f_x, f_y = fx[:, gi], fy[:, gi]
-    w00 = (1 - f_x) * (1 - f_y)
-    w01 = f_x * (1 - f_y)
-    w10 = (1 - f_x) * f_y
-    w11 = f_x * f_y
-    return [val(c) * w00 + val(4 + c) * w01 + val(8 + c) * w10 + val(12 + c) * w11
-            for c in range(4)]
-
-
 def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb, *,
                               has_env: bool, tile_h: int, tile_w: int, tiles_x: int):
     """Plain PyTorch version of kernel D: the same per-pixel formulas in the
@@ -145,7 +127,7 @@ def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
     count is read to the host."""
     n_tiles, n_groups, blocks, _ = rec.shape
     dev = rec.device
-    res = [_resolve_env_group(off, cnts, staged, rec, fx, fy, g) for g in range(n_groups)]
+    res = [resolve_env_group(off, cnts, staged, rec, fx, fy, g) for g in range(n_groups)]
     alb = [gb[:, 0], gb[:, 1], gb[:, 2]]
     emission = gb[:, 3]
     nx, ny, nz = gb[:, 4], gb[:, 5], gb[:, 6]

@@ -1,11 +1,16 @@
-"""Deferred shading pass — counterpart of `ops/shading.py` (dense path).
+"""Deferred shading pass — counterpart of `ops/shading.py` (the unfused
+pass; the fused one is `ops/shade_fused.py`).
 
 Mirrors `deferred_shading.hlsl` with its quirks (the directional light is
 computed but never added, AO is read but unused): SH ambient diffuse +
 split-sum specular + clustered point lights + emission, and the deferred
-skybox on uncovered pixels. This is the JAX package's `env_ids is None`,
-`light_tile is None` branch: direct cube-atlas / LUT sampler taps and a
-serial sweep over the compacted active lights.
+skybox on uncovered pixels. Both of the JAX package's switches are kept:
+* `env_ids`: the env taps (trilinear halves, BRDF LUT, sky, mip+3 cascade)
+  through the float page cache (`envcache.sample_env_tiled`: kernel B plans,
+  kernel F resolves); without it, direct cube-atlas / LUT sampler taps;
+* `light_tile`: the tile-clustered point lights (`lights_cuda`, kernel G),
+  the 1024-light operating point; without it, a serial sweep over the
+  compacted active lights.
 """
 
 from __future__ import annotations
@@ -14,9 +19,9 @@ import math
 
 import torch
 
-from direct12pbrrenderer_tpu.config import MAX_LIGHTS_PER_CLUSTER, PREFILTER_ENVMAP_MIP_LEVELS
+from ..config import MAX_LIGHTS_PER_CLUSTER, PREFILTER_ENVMAP_MIP_LEVELS
 
-from . import common
+from . import common, envcache, lights_cuda
 from .clustered import CLUSTER_X, CLUSTER_Y, CLUSTER_Z
 
 
@@ -110,11 +115,23 @@ def deferred_shade(
     y_offset=0,
     full_height: int | None = None,
     full_width: int | None = None,
+    env_cache=None,                 # envcache.FloatAtlas (with env_ids), or None
+    env_ids: tuple | None = None,   # (env_base, sky_base, lut_tid, env_mips[, has_env])
+    env_tile: tuple | None = None,  # the env cache's (tile_h, tile_w)
+    env_budget: int | None = None,  # its staging page budget (None: worst case)
+    return_env_approx: bool = False,
+    light_tile: tuple | None = None,  # (tile_h, tile_w): tile-clustered lights
+    light_cap: int = 256,             # listed lights per light tile
+    return_light_counts: bool = False,
 ):
-    """-> (H, W, 3) HDR radiance. The point-light sweep walks the active
-    rows in order with a per-pixel `< MAX_LIGHTS_PER_CLUSTER` hit counter;
-    its trip count is the number of live rows this frame, read to the host
-    with `.item()` (the one host sync of this pass)."""
+    """-> (H, W, 3) HDR radiance, and with `return_env_approx` the env
+    fallback-tap count (() int32; 0 without the env cache), then with
+    `return_light_counts` the per-light-tile culled-light counts ((tiles,)
+    int32; None without `light_tile`; counts > light_cap is truncation). The dense
+    point-light sweep walks the active rows in order with a per-pixel
+    `< MAX_LIGHTS_PER_CLUSTER` hit counter; its trip count is the number of
+    live rows this frame, read to the host with `.item()`. The tiled lights
+    give the same cluster membership, order and cap."""
     albedo = gb_albedo_emission[..., :3]
     emission = gb_albedo_emission[..., 3]
     normal = common.decode_octahedron(gb_normal_oct)
@@ -140,14 +157,51 @@ def deferred_shade(
     env_diffuse = kd * irradiance
 
     # --- environment specular: split-sum (deferred_shading.hlsl:56-70) -----
-    env_irr = common.sample_cube_atlas_trilinear(
-        prefiltered, refl, roughness * PREFILTER_ENVMAP_MIP_LEVELS)[..., :3]
-    lut, lut_size = brdf_lut_quad
-    env_brdf = common.sample_quad_tex2d(lut, lut_size, lut_size, roughness, n_dot_v)
+    if env_ids is not None:
+        # the four sampler taps (env trilinear halves, BRDF LUT, background
+        # sky) and the cascade through one float page-cache plan + resolve
+        (tex5, mip5, uq, vq, act, fb_tids, caps, fracm,
+         has_env) = env_tap_groups(refl, ray, roughness, n_dot_v, mask, env_ids)
+        rgba, covered, env_approx = envcache.sample_env_tiled(
+            env_cache, tex5, mip5, uq, vq, act, fb_tids=fb_tids, share=((0, 1),), cap=caps,
+            tile_h=env_tile[0], tile_w=env_tile[1], stage_budget=env_budget)
+        env_exact = rgba[..., 0, :3] * (1 - fracm) + rgba[..., 1, :3] * fracm
+        # group 0 holds the coarse fallback; with env content the mip+3
+        # cascade (group 4) comes first
+        coarse = (torch.where(covered[..., 4, None], rgba[..., 4, :3], rgba[..., 0, :3])
+                  if has_env else rgba[..., 0, :3])
+        env_irr = torch.where(covered[..., 0, None], env_exact, coarse)
+        env_brdf = rgba[..., 2, :2]
+        sky = rgba[..., 3, :3]
+        env_approx_cnt = env_approx.sum(dtype=torch.int32)
+    else:
+        env_irr = common.sample_cube_atlas_trilinear(
+            prefiltered, refl, roughness * PREFILTER_ENVMAP_MIP_LEVELS)[..., :3]
+        lut, lut_size = brdf_lut_quad
+        env_brdf = common.sample_quad_tex2d(lut, lut_size, lut_size, roughness, n_dot_v)
+        sky = None
+        env_approx_cnt = torch.zeros((), dtype=torch.int32, device=depth.device)
     f0 = common.compute_f0(albedo, metallic[..., None])
     env_specular = env_irr * (f0 * env_brdf[..., 0:1] + env_brdf[..., 1:2])
 
+    def result(out, light_counts=None):
+        extra = ((env_approx_cnt,) if return_env_approx else ()) + (
+            (light_counts,) if return_light_counts else ())
+        return (out,) + extra if extra else out
+
     # --- clustered point lights (deferred_shading.hlsl:158-186) ------------
+    if light_tile is not None:
+        # the 1024-light operating point: O(lights per tile), kernel G
+        point_light, light_counts = lights_cuda.point_lights_tiled(
+            active_lights, albedo, normal, roughness, metallic, z_view, mask, inv_view,
+            camera_pos, fov, ratio, near, far, width, height, tile_h=light_tile[0],
+            tile_w=light_tile[1], y_offset=y_offset, full_height=full_height,
+            full_width=full_width, cap=light_cap)
+        lit = env_diffuse + env_specular + point_light + albedo * emission[..., None]
+        if sky is None:
+            sky = common._cube_atlas_bilinear(skybox, ray, 0)[..., :3]
+        return result(torch.where(mask[..., None], lit, sky), light_counts)
+
     # per-pixel cluster AABB in closed form (clustered_compute.hlsl:21-42)
     dev = depth.device
     fh = full_height if full_height is not None else height
@@ -211,5 +265,6 @@ def deferred_shade(
 
     lit = env_diffuse + env_specular + acc + albedo * emission[..., None]
     # --- skybox (skybox.hlsl): background pixels sample the cubemap --------
-    sky = common._cube_atlas_bilinear(skybox, ray, 0)[..., :3]
-    return torch.where(mask[..., None], lit, sky)
+    if sky is None:
+        sky = common._cube_atlas_bilinear(skybox, ray, 0)[..., :3]
+    return result(torch.where(mask[..., None], lit, sky))

@@ -2,11 +2,11 @@
 
 The ten passes of `DeferredPipeline.{h,cpp}` (precompute, Cull, Clustered,
 GBuffer, DeferredShading, Skybox, Bloom, AutoExposure, ToneMapping, Present)
-declared against the reused render graph (`graph/frame_graph.py`), which
-orders them from their read/write sets. The two precompute passes run once
-in the constructor and latch as device tensors; every frame then runs the
-graph eagerly on `device`, with the average-luminance EMA carried across
-frames.
+declared against the render graph (`graph/frame_graph.py`, the port's copy
+of the JAX package's), which orders them from their read/write sets. The
+two precompute passes run once in the constructor and latch as device
+tensors; every frame then runs the graph eagerly on `device`, with the
+average-luminance EMA carried across frames.
 
 Ported configurations:
 * the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
@@ -16,11 +16,19 @@ Ported configurations:
   page-cover kernel B, then the resolve + pixel-shade kernel C) and the fused
   deferred pass (env-cache plan with kernel B, then kernel D), all on tile
   blocks;
+* more than 64 active lights with `use_pallas` (the 1024-light operating
+  point): `light_tile` is set, the fused deferred pass is off, and the
+  unfused deferred pass runs the env taps through the float page cache
+  (plan with kernel B, resolve with kernel F, ops/envcache.py) and the
+  point lights per screen tile (kernel G, ops/lights_cuda.py), after the
+  fused G-buffer (kernels A, B, C);
 * `use_tex_kernel=False`: the direct-atlas G-buffer sampler and the dense
-  deferred shading with its serial light sweep, with kernel A when
-  `use_pallas`.
+  deferred shading with its serial light sweep (or kernel G with
+  `light_tile`), with kernel A when `use_pallas`.
 Knobs whose path is not ported yet raise NotImplementedError naming their
-ROADMAP item; on a CUDA device nothing quietly takes a plain path.
+ROADMAP item; on a CUDA device nothing quietly takes a plain path. The scene
+and the camera are read by attribute only, so the JAX package's objects
+render as well as the port's own.
 """
 
 from __future__ import annotations
@@ -31,22 +39,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from direct12pbrrenderer_tpu.config import (
+from ..config import (
     BRDF_LUT_SIZE,
     PREFILTER_ENVMAP_MIP_LEVELS,
     PREFILTER_ENVMAP_SIZE,
     RenderConfig,
 )
-from direct12pbrrenderer_tpu.graph import frame_graph as fg
-from direct12pbrrenderer_tpu.pipeline.scene_pack import PackedScene, pack_scene
-from direct12pbrrenderer_tpu.scene.camera import Camera
-from direct12pbrrenderer_tpu.scene.scene import Scene
-
+from ..graph import frame_graph as fg
 from ..ops import bloom as bloom_ops
 from ..ops import (clustered, common, cover_cuda, envcache, gbuffer, ibl, postprocess,
                    raster_cuda, texcache)
 from ..ops.texcache import not_ported
+from ..scene.camera import Camera
+from ..scene.scene import Scene
 from . import stages
+from .scene_pack import PackedScene, pack_scene
 
 _F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
 
@@ -94,11 +101,16 @@ class DeferredRenderPipeline:
         The kernel path needs a bin_cap that is a multiple of
         raster_cuda.CHUNK: on a CUDA device any other bin_cap raises, on the
         CPU it turns use_pallas off as the JAX package does. `use_tex_kernel`
-        is ported only where the JAX package fuses both passes (use_pallas,
-        tile_w a multiple of 128, even tile_h, at most 4096 tile pixels, at
-        most 64 active lights); elsewhere it raises. `pallas_interpret` is
-        accepted for signature parity with the JAX pipeline and has no
-        effect (a CPU device takes each kernel's plain version)."""
+        needs the fused G-buffer (use_pallas, tile_w a multiple of 128, even
+        tile_h); elsewhere it raises. The deferred pass is fused (kernel D)
+        as in the JAX package: with at most 64 active lights, no
+        `light_tile` and at most 4096 tile pixels; otherwise it is the
+        unfused pass, with the env cache (kernel F) under use_tex_kernel and
+        the tiled lights (kernel G) under `light_tile`, which is set
+        automatically above 64 active lights with use_pallas.
+        `pallas_interpret` is accepted for signature parity with the JAX
+        pipeline and has no effect (a CPU device takes each kernel's plain
+        version)."""
         self.device = device = torch.device(device)
         self.config = config or RenderConfig()
         cfg = self.config
@@ -113,10 +125,7 @@ class DeferredRenderPipeline:
             use_pallas if use_pallas is not None else on_gpu
         ):
             light_tile = (tile_h, tile_w)
-        if light_tile is not None:
-            raise not_ported("the tile-clustered light kernel (light_tile, "
-                             "max_active_lights > 64)", "kernel queue G")
-        self.light_tile = None
+        self.light_tile = light_tile
         self.light_cap = light_cap if light_cap is not None else max(
             128, -(-min(max_active_lights, 1024) // 128) * 128)
         if texture_filter not in ("trilinear", "bilinear"):
@@ -160,12 +169,11 @@ class DeferredRenderPipeline:
             raise not_ported("the planar texture-cache path (use_tex_kernel without "
                              "use_pallas, or with a tile that is not 128k wide and even "
                              "high)", "kernel queue E")
-        self.use_fused_deferred = (self.use_fused_gbuffer and max_active_lights <= 64
+        # the fused deferred pass's light loop is serial over every active
+        # light: it serves at most 64; more take the tiled lights (kernel G)
+        self.use_fused_deferred = (self.use_fused_gbuffer and self.light_tile is None
+                                   and max_active_lights <= 64
                                    and tile_h * tile_w <= 4096)
-        if self.use_fused_gbuffer and not self.use_fused_deferred:
-            raise not_ported("the unfused deferred env cache (use_tex_kernel with more "
-                             "than 64 active lights or tiles above 4096 pixels)",
-                             "kernel queue F")
 
         self.scene = scene
         self.packed: PackedScene = pack_scene(scene, cfg, atlas_max_dim)
@@ -223,8 +231,9 @@ class DeferredRenderPipeline:
             "SkyBoxTexture": common.CubeMipAtlas.from_mips([base], device),
         }
         # float page cache for the deferred taps (env cube trilinear halves,
-        # BRDF LUT, skybox): the texture-cache path's env atlas
-        self.env_ids = None
+        # BRDF LUT, skybox): the texture-cache path's env atlas, read by
+        # kernel D (fused pass) or kernel F (unfused pass)
+        self.env_ids = self.env_tile = None
         if self.use_tex_kernel:
             b = envcache.FloatAtlasBuilder()
             pf_np = [m.cpu().numpy() for m in pf]
@@ -235,6 +244,7 @@ class DeferredRenderPipeline:
             self.buffers["EnvCache"] = b.build(device)
             has_env = scene.skybox is not None and scene.skybox.cubemap is not None
             self.env_ids = (env_base, sky_base, lut_tid, len(pf_np), has_env)
+            self.env_tile = texcache.pick_tile(self.render_h, self.render_w)
         self.graph = self._build_graph()
         self.avg_luminance = torch.zeros((), dtype=torch.float32, device=device)
         self.last_stats: FrameStats | None = None
@@ -292,16 +302,22 @@ class DeferredRenderPipeline:
                 tri_id, depth, pl_tiles, id_tiles, z_tiles = stages.rasterize_interp(
                     setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
                     return_tiled=True, raster_caps=self.raster_caps)
-                gb, gb_tiles = gbuffer.gbuffer_shade_fused(
+                out = gbuffer.gbuffer_shade_fused(
                     tri_id, depth, pl_tiles, id_tiles, env["atlas"], rh, rw, self.tile_h,
                     self.tile_w, self.texture_filter, tex_caps=self.tex_caps,
-                    tex_cascade=self.tex_cascade, return_tiled=True)
+                    tex_cascade=self.tex_cascade, return_tiled=self.use_fused_deferred)
+                result = {}
+                if self.use_fused_deferred:
+                    gb, gb_tiles = out
+                    result["GBufferTiles"] = (gb_tiles, z_tiles, id_tiles)
+                else:
+                    gb = out
                 return {
+                    **result,
                     "GBufferA": gb.albedo_emission,
                     "GBufferB": gb.normal_oct,
                     "GBufferC": gb.rough_metal_ao,
                     "GBufferDepthStencil": (gb.depth, gb.mask),
-                    "GBufferTiles": (gb_tiles, z_tiles, id_tiles),
                     "BinCounts": bins.counts,
                     "TexApproxCount": gb.tex_approx,
                 }
@@ -345,12 +361,19 @@ class DeferredRenderPipeline:
                         "EnvApproxCount": env_approx}
             gb = gbuffer.GBuffer(env["GBufferA"], env["GBufferB"], env["GBufferC"],
                                  depth, mask)
-            rt = stages.deferred_shade(gb, env, active, env["InvView"], env["CameraPos"],
-                                       cfg, rw, rh, full_height=h, full_width=w)
+            rt, env_approx, light_counts = stages.deferred_shade(
+                gb, env, active, env["InvView"], env["CameraPos"], cfg, rw, rh,
+                full_height=h, full_width=w, env_ids=self.env_ids, env_tile=self.env_tile,
+                env_budget=self.env_budget, return_env_approx=True,
+                light_tile=self.light_tile, light_cap=self.light_cap,
+                return_light_counts=True)
             if (rw, rh) != (w, h):
                 rt = rt[:h, :w].contiguous()  # crop the pad-to-tile canvas
-            return {"DeferredShadingRT": rt, "LightTruncCount": zero,
-                    "EnvApproxCount": zero}
+            # per-tile culled-light counts beyond the cap: truncation
+            trunc = (zero if light_counts is None
+                     else torch.clamp(light_counts - self.light_cap, min=0).max())
+            return {"DeferredShadingRT": rt, "LightTruncCount": trunc,
+                    "EnvApproxCount": env_approx}
 
         def skybox_pass(env):
             # composited inside deferred_shade (sky where stencil == 0); the

@@ -100,11 +100,21 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, buffers, active, inv_view,
 
 def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, config,
                    width: int, band_h: int, y_offset=0, full_height: int | None = None,
-                   full_width: int | None = None):
+                   full_width: int | None = None, env_ids: tuple | None = None,
+                   env_tile: tuple | None = None, env_budget: int | None = None,
+                   return_env_approx: bool = False, light_tile: tuple | None = None,
+                   light_cap: int = 256, return_light_counts: bool = False):
+    """The unfused deferred pass on (H, W) G-buffer planes: env taps through
+    the float page cache when `env_ids` is given (kernels B and F), point
+    lights per light tile when `light_tile` is given (kernel G)."""
     return shading.deferred_shade(
         gb.albedo_emission, gb.normal_oct, gb.rough_metal_ao, gb.depth, gb.mask,
         buffers["SkyBoxSH"], buffers["PrecomputeBRDF"], buffers["PrefilterEnvMap"],
         buffers["SkyBoxTexture"], active, inv_view, camera_pos,
         config.fov, config.ratio, config.near, config.far, width, band_h,
         y_offset=y_offset, full_height=full_height, full_width=full_width,
+        env_cache=buffers.get("EnvCache") if env_ids is not None else None,
+        env_ids=env_ids, env_tile=env_tile, env_budget=env_budget,
+        return_env_approx=return_env_approx, light_tile=light_tile, light_cap=light_cap,
+        return_light_counts=return_light_counts,
     )

@@ -16,18 +16,31 @@ bar, rmse <= 1e-3 on uint8/255, and FrameStats must be identical:
   plan with kernel B and kernel C, the env plan with kernel B and kernel D),
   the port with the same knobs on a CPU device (every kernel's plain
   version), at 256x96, tile 24x128, bin_cap 512.
+
+The 1024-light path is checked on `tools/stress_scene` with 72 lights at
+256x96 and `max_active_lights=128`, `use_pallas=True, use_tex_kernel=True`:
+`light_tile` is set on both pipelines, the fused deferred pass is off, and
+the unfused one runs the env cache (kernels B and F) and the tiled lights
+(kernel G); the frames must agree within 1 LSB and rmse 1e-3, with equal
+FrameStats.
 """
 
 import copy
 import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import __graft_entry__ as graft
+from chip_smoke import recording
+from direct12pbrrenderer_tpu.config import RenderConfig
 from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as JaxPipeline
 from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
+from direct12pbrrenderer_tpu.scene.camera import Camera
+from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
+from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, lights_cuda
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.state import state_from_jax
 from test_env_isolation import _sky_cube
@@ -191,10 +204,42 @@ def test_default_path_frame_with_own_env_atlas_matches_jax():
         assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(want_stats)
 
 
+def test_light_tile_frame_matches_jax():
+    """The 1024-light path (tests/test_lights_pallas.py's pipeline scene):
+    fused G-buffer, then the unfused deferred pass with the env cache and the
+    tiled lights, against the JAX pipeline with the same knobs."""
+    scene = build_stress_scene(cells_x=16, cells_y=8, n_lights=72)
+    cfg = RenderConfig(width=256, height=96, max_instances=2, max_lights=128,
+                       max_triangles=2048, max_vertices=2048)
+    cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
+    cam.move([0, 4, 10])
+    cam.rotate(0, math.pi, 0.3)
+    knobs = dict(tile_h=24, tile_w=128, bin_cap=256, max_active_lights=128, atlas_max_dim=64,
+                 use_pallas=True, use_tex_kernel=True)
+    jp = JaxPipeline(scene, cfg, pallas_interpret=True, **knobs)
+    want = np.asarray(jp.render(cam))
+    tp = DeferredRenderPipeline(scene, cfg, device="cpu", **knobs)
+    with recording(env_resolve_cuda, "env_resolve") as env_calls, \
+            recording(lights_cuda, "point_lights_kernel") as light_calls:
+        got = tp.render(cam).numpy()
+    for p in (jp, tp):
+        assert p.light_tile == (24, 128) and p.light_cap == 128
+        assert p.use_fused_gbuffer and not p.use_fused_deferred
+    assert len(env_calls) == 1 and len(light_calls) == 1
+    assert (want.max(-1) > 16).mean() > 0.05
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert _rmse(got, want) <= RMSE_BAR
+    assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(jp.last_stats)
+    assert tp.last_stats.visible_lights > 32 and tp.last_stats.light_tile_overflow == 0
+
+
+# Each case names the ROADMAP item its knobs raise with, or, for a path that
+# is ported now, what the pipeline must take: (light_tile, use_fused_deferred,
+# env cache present)
 UNPORTED = [
     (dict(use_tex_kernel=True), "kernel queue E"),
-    (dict(light_tile=(12, 64)), "kernel queue G"),
-    (dict(max_active_lights=128, use_pallas=True), "kernel queue G"),
+    (dict(light_tile=(12, 64)), ((12, 64), False, False)),
+    (dict(max_active_lights=128, use_pallas=True), ((12, 64), False, False)),
     (dict(texture_filter="anisotropic"), "module queue: off-default"),
     (dict(fused_light_dtype="bfloat16"), "module queue 8"),
     (dict(tex_caps="auto"), "module queue 3"),
@@ -205,7 +250,7 @@ UNPORTED = [
     (dict(use_tex_kernel=True, use_pallas=False, **FUSED_KNOBS), "kernel queue E"),
     # the fused G-buffer without the fused deferred pass (tiles above 4096 px)
     ({**FUSED_KNOBS, "tile_h": 48, "use_tex_kernel": True, "use_pallas": True},
-     "kernel queue F"),
+     (None, False, True)),
 ]
 
 
@@ -214,10 +259,22 @@ UNPORTED = [
 def test_unported_knobs_raise(knobs, item):
     """Every knob whose path needs a kernel that is not ported raises, naming
     its ROADMAP item (on the CPU as on the card): use_tex_kernel at tile
-    12x64 needs the planar path's kernel E."""
-    scene, _, cfg = _fused_scene(False)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-        DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
+    12x64 needs the planar path's kernel E. The knobs of kernels F and G
+    take their path now: the unfused deferred pass, with the tiled lights
+    and/or the env cache, renders a frame through them."""
+    scene, cam, cfg = _fused_scene(False)
+    if isinstance(item, str):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
+        return
+    light_tile, fused, env_cache = item
+    p = DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
+    assert (p.light_tile, p.use_fused_deferred, "EnvCache" in p.buffers) == item
+    with recording(env_resolve_cuda, "env_resolve") as env_calls, \
+            recording(lights_cuda, "point_lights_kernel") as light_calls:
+        img = p.render(cam).numpy()
+    assert img.shape == (cfg.height, cfg.width, 3) and (img.max(-1) > 16).mean() > 0.05
+    assert (len(light_calls), len(env_calls)) == (light_tile is not None, env_cache)
 
 
 def test_knob_defaults_follow_the_device():

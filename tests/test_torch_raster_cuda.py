@@ -64,9 +64,9 @@ def test_pipeline_frame_through_kernel_matches_plain_path(device, tile):
     (rmse <= 1e-3 on uint8/255)."""
     import math
 
-    from direct12pbrrenderer_tpu.config import RenderConfig
-    from direct12pbrrenderer_tpu.scene.camera import Camera
-    from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
+    from direct12pbrrenderer_tpu_torch.tools.stress_scene import build_stress_scene
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 
     scene = build_stress_scene(64, 32)

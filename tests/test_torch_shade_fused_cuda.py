@@ -36,8 +36,8 @@ def device():
 
 
 def _scene(w, h):
-    from direct12pbrrenderer_tpu.config import RenderConfig
-    from direct12pbrrenderer_tpu.scene.camera import Camera
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 
     from chip_smoke import stress_scene
 
