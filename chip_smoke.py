@@ -13,6 +13,15 @@ on the card, then renders at 1920x1080 with a procedural sky:
   shading) — the main path;
 * the same scene through the `use_tex_kernel=False` path: kernel A, the
   direct-atlas sampler and the dense deferred shading;
+* the same scene through the planar texture-cache path at a 24x160 raster
+  tile (not 128 wide, so the fused G-buffer is off): kernel A's planes, the
+  texture cache on its own 24x128 tiling (plan with kernel B, resolve with
+  kernel E), the unfused deferred pass with the env cache (kernels B, F);
+* the default path with a lo-half texture cap of 156 pages: that cover
+  goes through the two-kernel cover (kernel I, block_cover + pix_match);
+* the anisotropic filter (the planar path without kernel E);
+* the depth-only raster stage, `stages.rasterize(use_pallas=True)`, on the
+  default frame's geometry (kernel H);
 * the 1024-light stress scene (the JAX bench's third scene) through the
   1024-light path: kernels A, B, C for the G-buffer, then the unfused
   deferred pass with the env cache (plan with kernel B, resolve with kernel
@@ -56,6 +65,9 @@ TEX_CAPS = (92, 44, None, (32, 16))
 BRDF_LUT = 64
 FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
+PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic paths
+PTEX_TILE = (24, 160)     # the planar-tex cell's raster tile: not 128 wide
+CAP156 = (156, 44, None, (32, 16))  # a lo-half cap above kernel B's 128: kernel I
 RMSE_BAR = 1e-3          # uint8/255 frame rmse, the JAX package's fidelity bar
 ID_MISMATCH_BAR = 1e-4   # kernel-vs-plain winner disagreement (coverage ties)
 INTERP_RTOL, INTERP_ATOL, Z_ATOL = 1e-3, 1e-4, 1e-4
@@ -63,7 +75,7 @@ SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of val
 D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
                                                    # cluster edge flips a membership
-F_RTOL, F_ATOL = 1e-6, 1e-7   # kernel F: the same bf16 words and weights
+F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
@@ -77,11 +89,25 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, plain v
                       "resolve_shade", "resolve_shade_reference"),
     "deferred_shade": ("direct12pbrrenderer_tpu/ops/shade_pallas.py:61", "shade_fused",
                        "deferred_kernel", "deferred_kernel_reference"),
+    "atlas_resolve": ("direct12pbrrenderer_tpu/ops/texcache.py:992", "atlas_resolve_cuda",
+                      "atlas_resolve", "atlas_resolve_reference"),
     "env_resolve": ("direct12pbrrenderer_tpu/ops/envcache.py:291", "env_resolve_cuda",
                     "env_resolve", "env_resolve_reference"),
     "point_lights": ("direct12pbrrenderer_tpu/ops/lights_pallas.py:138", "lights_cuda",
                      "point_lights_kernel", "point_lights_kernel_reference"),
+    "raster_depth": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:88", "raster_cuda",
+                     "rasterize_depth", "rasterize_depth_reference"),
+    "block_cover": ("direct12pbrrenderer_tpu/ops/texcache.py:278", "cover_two_cuda",
+                    "block_cover", "block_cover_reference"),
+    "pix_match": ("direct12pbrrenderer_tpu/ops/texcache.py:331", "cover_two_cuda",
+                  "pix_match", "pix_match_reference"),
 }
+SOURCES = {"pix_match": "block_cover"}   # kernel I's two kernels share one source
+
+
+def source_of(name: str) -> str:
+    """The csrc/ source (without .cu) that builds kernel `name`."""
+    return SOURCES.get(name, name)
 
 
 def say(phase: str, msg: str) -> None:
@@ -348,7 +374,8 @@ def frame_inputs(pipe, cam):
     setup, vattrs = geometry()
 
     def binning():
-        return stages.binning(setup, pipe.render_w, pipe.render_h, TILE_H, TILE_W, BIN_CAP)
+        return stages.binning(setup, pipe.render_w, pipe.render_h, pipe.tile_h, pipe.tile_w,
+                              pipe.bin_cap)
 
     bins = binning()
     rows64 = stages.pack_rows64(setup, pipe.buffers, vattrs)
@@ -417,8 +444,9 @@ def build_kernels() -> None:
         lib, log = build.build(name)
         return lib, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
-        futures = {name: ex.submit(timed, name) for name in KERNELS}
+    sources = sorted({source_of(name) for name in KERNELS})
+    with ThreadPoolExecutor(len(sources)) as ex:
+        futures = {name: ex.submit(timed, name) for name in sources}
     for name, fut in futures.items():
         lib, log, secs = fut.result()
         ptxas = " ".join(l.strip() for l in log.splitlines() if "registers" in l or "spill" in l)
@@ -462,10 +490,11 @@ def camera_path(cam, n):
     return path
 
 
-def run_frames(phase, pipe, path, want: dict[str, int]):
+def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
     """Render `path` with every launch count set to 0 just before and read
     just after; fail when a kernel of the path launched fewer times than
-    `want`. Returns (host ms per frame, launches)."""
+    `want`, or a kernel in `absent` launched at all. Returns (host ms per
+    frame, launches)."""
     torch.cuda.synchronize()
     reset_launches()
     times = []
@@ -479,6 +508,9 @@ def run_frames(phase, pipe, path, want: dict[str, int]):
         if launches[name] < n:
             fail(phase, f"kernel {name} launched {launches[name]} times in {len(path)} "
                  f"frames, want >= {n}")
+    for name in absent:
+        if launches[name]:
+            fail(phase, f"kernel {name} launched {launches[name]} times, want none")
     return times, launches
 
 
@@ -652,6 +684,271 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     return launches
 
 
+def compare_depth(phase, got, want) -> tuple[float, int]:
+    """Hold a depth-only raster's (tri_id, z) against another's with kernel
+    A's bars; returns (max abs z error where ids agree, id mismatches)."""
+    ids_k, z_k = (t.cpu().numpy() for t in got)
+    ids_p, z_p = (t.cpu().numpy() for t in want)
+    mismatch = ids_k != ids_p
+    if mismatch.mean() >= ID_MISMATCH_BAR:
+        fail(phase, f"{int(mismatch.sum())} winner-id mismatches of {mismatch.size}")
+    agree = ~mismatch
+    if not (agree & (ids_p >= 0)).any() or not np.isfinite(z_k).all():
+        fail(phase, "no covered pixels or non-finite depth")
+    err = float(np.abs(z_k[agree] - z_p[agree]).max(initial=0.0))
+    if err > Z_ATOL:
+        fail(phase, f"z differs: max {err:.3e}")
+    return err, int(mismatch.sum())
+
+
+def raster_depth_stage(phase, setup, bins, rows64, width, height, measured, bounds) -> int:
+    """Kernel H on the default frame's geometry: the depth-only raster stage
+    `stages.rasterize(use_pallas=True)` (its path, with the launch counts set
+    to 0 just before and read just after), then H against its plain version
+    and against kernel A's ids and depths. Returns H's launches on the path."""
+    from direct12pbrrenderer_tpu_torch.ops import raster_cuda
+    from direct12pbrrenderer_tpu_torch.pipeline import stages
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = stages.rasterize(setup, bins, width, height, TILE_H, TILE_W, True)
+    torch.cuda.synchronize()
+    n_h = read_launches()["raster_depth"]
+    if n_h != 1:
+        fail(phase, f"stages.rasterize(use_pallas=True) launched kernel H {n_h} times, want 1")
+    args = (setup, bins, width, height, TILE_H, TILE_W)
+    err, nmis = compare_depth(phase, got, raster_cuda.rasterize_depth_reference(*args))
+    ids_a, z_a, _ = raster_cuda.rasterize_interp(setup, bins, rows64, width, height, TILE_H,
+                                                 TILE_W)
+    err_a, nmis_a = compare_depth(phase, got, (ids_a, z_a))
+    del ids_a, z_a
+    ms = cuda_ms(lambda: raster_cuda.rasterize_depth(*args), 20)
+    plain_ms = cuda_ms(lambda: raster_cuda.rasterize_depth_reference(*args), 2)
+    # 2 words out per pixel; each listed candidate's id and its raster row
+    # (16 floats) and y-extents (2) once; about 23 flops per pixel and
+    # candidate (kernel A's fold without the winner's interpolation)
+    counts = bins.counts.cpu().numpy()
+    listed = float(np.minimum(counts, bins.ids.shape[1]).sum())
+    n_px = width * height
+    bounds["raster_depth"] = bound(n_px * 2 * 4 + setup.edges.shape[0] * 18 * 4 + listed * 4,
+                                   TILE_H * TILE_W * listed * 23)
+    measured["raster_depth"] = (err, ms, plain_ms)
+    say(phase, f"stages.rasterize(use_pallas=True) on the default {width}x{height} frame "
+        f"({setup.edges.shape[0]} tris, {listed:.0f} listed candidates): kernel H launched "
+        f"{n_h}; vs its plain version {nmis} id mismatches, max z diff {err:.3e}; vs kernel A "
+        f"{nmis_a} id mismatches, max z diff {err_a:.3e} (bars: {ID_MISMATCH_BAR} of pixels, "
+        f"z {Z_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bounds['raster_depth'][0]:.4f} ms ({bounds['raster_depth'][1]})")
+    return n_h
+
+
+def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
+                     bounds) -> dict[str, int]:
+    """The planar texture-cache, cap-156 and anisotropic configurations of
+    the textured stress cell. Checks kernel A at the 24x160 tile, E and I
+    against their plain versions (and I against B at caps up to 128 on the
+    default frame's recorded covers), times each path's frames, and holds
+    each frame against its all-plain pipeline. Adds E's and I's numbers to
+    `measured` and `bounds`; returns their launches on their paths."""
+    from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda,
+                                                   cover_two_cuda, raster_cuda, texcache)
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    t0 = time.perf_counter()
+    ptex_knobs = dict(knobs, tile_h=PTEX_TILE[0], tile_w=PTEX_TILE[1])
+    ptex = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **ptex_knobs)
+    torch.cuda.synchronize()
+    if not (ptex.use_pallas and ptex.use_tex_kernel and not ptex.use_fused_gbuffer
+            and not ptex.use_fused_deferred and "EnvCache" in ptex.buffers):
+        fail("frame-planar-tex", "the pipeline on the card is not the planar texture-cache "
+             "kernel path")
+
+    # ---- kernel A at the 24x160 raster tile --------------------------------
+    setup, bins, rows64, _ = frame_inputs(ptex, cam)
+    args = (setup, bins, rows64, ptex.render_w, ptex.render_h, *PTEX_TILE)
+    err, nmis = compare("kernel-frame-160", raster_cuda.rasterize_interp(*args),
+                        raster_cuda.rasterize_interp_reference(*args))
+    say("kernel-frame-160", f"{W}x{H} at tile {PTEX_TILE[0]}x{PTEX_TILE[1]} "
+        f"({bins.ids.shape[0]} tiles, bin counts max {int(bins.counts.max())}): ok, id "
+        f"mismatches {nmis}, max_abs_err {err:.3e}, kernel "
+        f"{cuda_ms(lambda: raster_cuda.rasterize_interp(*args), 10):.4f} ms")
+    del setup, bins, rows64, args
+
+    # ---- kernel E vs its plain version on one planar-tex frame's inputs ----
+    with recording(atlas_resolve_cuda, "atlas_resolve") as e_calls:
+        ptex.render(cam)
+        torch.cuda.synchronize()
+    (eargs, ekw), = e_calls
+    got = atlas_resolve_cuda.atlas_resolve(*eargs, **ekw)
+    want = atlas_resolve_cuda.atlas_resolve_reference(*eargs, **ekw)
+    if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
+        fail("kernel-atlas-resolve", f"outside rtol {F_RTOL}/atol {F_ATOL}: max abs diff "
+             f"{float((got - want).abs().max()):.3e}")
+    err_e = float((got - want).abs().max())
+    ms_e = cuda_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 20)
+    plain_ms_e = cuda_ms(lambda: atlas_resolve_cuda.atlas_resolve_reference(*eargs, **ekw), 3)
+    off, cnts, staged, rec = eargs[:4]
+    # every input once (offsets, counts, records, fracs, trilinear fracs, and
+    # of the staged pages the words the taps address), the (tiles, 5, 4,
+    # blocks, 128) output; about 80 flops per group tap (unpack, scale, blend)
+    bounds["atlas_resolve"] = bound(
+        nbytes(off, cnts, *eargs[3:]) + staged_read_bytes(off, cnts, staged, rec, 4)
+        + nbytes(got), rec.numel() * 80)
+    measured["atlas_resolve"] = (err_e, ms_e, plain_ms_e)
+    say("kernel-atlas-resolve", f"{tuple(rec.shape)} taps, staged {tuple(staged.shape)}, "
+        f"cache tile {ptex.env_tile}: ok (max abs diff {err_e:.3e}, bit-equal "
+        f"{bool(torch.equal(got, want))}; bar rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_e:.4f} "
+        f"ms, plain {plain_ms_e:.4f} ms, bound {bounds['atlas_resolve'][0]:.4f} ms "
+        f"({bounds['atlas_resolve'][1]})")
+    del got, want, eargs, e_calls, off, cnts, staged, rec
+
+    # ---- kernel I vs plain on the lo-half cover of the cap-156 frame --------
+    cap = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=CAP156, **knobs)
+    with recording(cover_two_cuda, "block_cover") as b_calls, \
+            recording(cover_two_cuda, "pix_match") as m_calls:
+        cap.render(cam)
+        torch.cuda.synchronize()
+    if (len(b_calls), len(m_calls)) != (1, 1):
+        fail("kernel-cover-two", f"a cap-156 frame made {len(b_calls)} block_cover and "
+             f"{len(m_calls)} pix_match calls, want 1 and 1")
+    (bargs, bkw), = b_calls
+    (margs, mkw), = m_calls
+    got = cover_two_cuda.block_cover(*bargs, **bkw)
+    for g_, w_, what in zip(got, cover_two_cuda.block_cover_reference(*bargs, **bkw),
+                            ("cand", "slotA")):
+        if not torch.equal(g_, w_):
+            fail("kernel-cover-two", f"block_cover {what} differs from the plain version")
+    cand = got[0]
+    n_lo = texcache._distinct_by_sort(cand.reshape(*cand.shape[:2], -1), CAP156[0])[1]
+    max_lo = int(n_lo.max())
+    got_m = cover_two_cuda.pix_match(*margs, **mkw)
+    for g_, w_, what in zip(got_m, cover_two_cuda.pix_match_reference(*margs, **mkw),
+                            ("slot", "covered")):
+        if not torch.equal(g_, w_):
+            fail("kernel-cover-two", f"pix_match {what} differs from the plain version")
+    ms_b = cuda_ms(lambda: cover_two_cuda.block_cover(*bargs, **bkw), 20)
+    plain_ms_b = cuda_ms(lambda: cover_two_cuda.block_cover_reference(*bargs, **bkw), 3)
+    ms_m = cuda_ms(lambda: cover_two_cuda.pix_match(*margs, **mkw), 20)
+    plain_ms_m = cuda_ms(lambda: cover_two_cuda.pix_match_reference(*margs, **mkw), 3)
+    # the slot half of pix_match as one PyTorch call (the covered half and
+    # the unmatched pixels' slot 0 are not in it): for the record only
+    block_cap = bargs[2]
+    idx = margs[0].clamp(0, block_cap - 1).long()
+    gather_ms = cuda_ms(lambda: torch.gather(margs[1], -1, idx), 20)
+    # block_cover: pages and act in, candidates and row slots out; the rounds
+    # the rows run (to their first dead one), about 256 compares a round and
+    # row, counted at the float32 rate. pix_match: its three inputs in, slot
+    # and covered out; a few operations per pixel
+    live = (cand != cover_two_cuda.SENTINEL).sum(-1)
+    rounds = float(torch.clamp(live + 1, max=block_cap).sum())
+    bounds["block_cover"] = bound(nbytes(*bargs[:2], *got), rounds * 256)
+    bounds["pix_match"] = bound(nbytes(*margs[:3], *got_m), margs[0].numel() * 4)
+    measured["block_cover"] = (0.0, ms_b, plain_ms_b)
+    measured["pix_match"] = (0.0, ms_m, plain_ms_m)
+    # kernel I against kernel B on the default frame's four covers (caps <= 128)
+    for cargs, ckw in cover_calls:
+        out_b = cover_cuda.fused_cover(*cargs, **ckw)
+        out_i = texcache._cover_and_match_2level(*cargs, **ckw)
+        for g_, w_, what in zip(out_i, out_b, ("list", "count", "slot", "covered")):
+            if not torch.equal(g_, w_):
+                fail("kernel-cover-two", f"two-kernel route vs kernel B: {what} differs")
+    say("kernel-cover-two", f"lo-half cover of the cap-156 frame ({tuple(bargs[0].shape)}, "
+        f"block_cap {block_cap}, distinct pages per tile max {max_lo} of cap {CAP156[0]}): "
+        f"both outputs of each kernel bit-equal to the plain versions; block_cover kernel "
+        f"{ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, bound {bounds['block_cover'][0]:.4f} ms "
+        f"({bounds['block_cover'][1]}); pix_match kernel {ms_m:.4f} ms, plain {plain_ms_m:.4f} "
+        f"ms, bound {bounds['pix_match'][0]:.4f} ms ({bounds['pix_match'][1]}); torch.gather "
+        f"of the slot half alone {gather_ms:.4f} ms (not the whole function: library_ms "
+        f"null); two-kernel route vs kernel B on the default frame's {len(cover_calls)} "
+        f"covers (caps <= 128): all four outputs bit-equal")
+    del got, got_m, cand, bargs, margs, b_calls, m_calls, idx
+
+    # ---- the planar texture-cache path: A, B, E, F -------------------------
+    path = camera_path(cam, 1 + PTEX_FRAMES)
+    ptex.render(path[0])
+    times, launches = run_frames("frame-planar-tex", ptex, path[1:], {
+        "raster_interp": PTEX_FRAMES, "fused_cover": 4 * PTEX_FRAMES,
+        "atlas_resolve": PTEX_FRAMES, "env_resolve": PTEX_FRAMES},
+        absent=("resolve_shade", "deferred_shade", "point_lights", "raster_depth",
+                "block_cover", "pix_match"))
+    out = {"atlas_resolve": launches["atlas_resolve"]}
+    frame_line = check_frame("frame-planar-tex", ptex, path[-1])
+    say("frame-planar-tex", f"planar texture-cache path, tile {PTEX_TILE[0]}x{PTEX_TILE[1]} "
+        f"(cache tile {ptex.env_tile}), {PTEX_FRAMES} frames {W}x{H}: mean "
+        f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "
+        f"frame); kernel launches {launches}; {frame_line}; pipeline built in "
+        f"{time.perf_counter() - t0:.2f} s with the checks above")
+    per_pass = timed_passes(ptex, path[-1], 2)
+    say("passes-planar-tex", "planar texture-cache path, mean device ms per pass (CUDA "
+        "events): " + ", ".join(f"{k} {v:.2f}" for k, v in per_pass.items()))
+    wall, busy, n_act, top = profiled_frames(ptex, path[-1], 2)
+    say("profile-planar-tex", f"planar texture-cache path, torch.profiler, 2 frames: wall "
+        f"{wall:.2f} ms/frame, device busy {busy:.2f} ms/frame ({n_act:.0f} device "
+        f"activities), idle share {1 - busy / wall:.3f}; top: " + "; ".join(
+            f"{ms:.2f} ms {name[:60]}" for ms, name in top))
+    ref = DeferredRenderPipeline(scene, cfg, use_pallas=False, use_tex_kernel=False,
+                                 device=dev, **ptex_knobs)
+    rmse, ndiff = fidelity(ptex, ref, path[-1])
+    st = ptex.last_stats
+    counters = {k: getattr(st, k) for k in ("bin_overflow", "tex_approx_taps",
+                                            "env_approx_taps", "lights_truncated",
+                                            "light_tile_overflow")}
+    if rmse > RMSE_BAR or any(counters.values()):
+        fail("fidelity-planar-tex", f"frame rmse vs use_pallas=False, use_tex_kernel=False "
+             f"{rmse:.6f} (bar {RMSE_BAR}); {counters} (all must be 0)")
+    say("fidelity-planar-tex", f"planar texture-cache frame (tex_caps {TEX_CAPS}, "
+        f"brdf_lut_size {BRDF_LUT}) rmse vs use_pallas=False, use_tex_kernel=False at tile "
+        f"{PTEX_TILE[0]}x{PTEX_TILE[1]} on the card {rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels "
+        f"differ; {counters}")
+    del ptex, ref
+
+    # ---- the cap-156 frame: I once, B three times ----------------------------
+    _, launches = run_frames("frame-cap156", cap, [cam], {
+        "raster_interp": 1, "fused_cover": 3, "block_cover": 1, "pix_match": 1,
+        "resolve_shade": 1, "deferred_shade": 1}, absent=("atlas_resolve", "env_resolve"))
+    if (launches["block_cover"], launches["pix_match"], launches["fused_cover"]) != (1, 1, 3):
+        fail("frame-cap156", f"kernel launches {launches}, want block_cover 1, pix_match 1, "
+             "fused_cover 3")
+    out.update({k: launches[k] for k in ("block_cover", "pix_match")})
+    rmse, ndiff = fidelity(cap, pipe, cam)
+    st = cap.last_stats
+    say("frame-cap156", f"default path with tex_caps {CAP156}, one frame: kernel launches "
+        f"{launches}; vs the default frame (tex_caps {TEX_CAPS}) of the same pose: {ndiff} "
+        f"pixels differ, rmse {rmse:.6f} (bit-equal expected while no lo-half cover exceeds "
+        f"{TEX_CAPS[0]} pages: max {max_lo}); tex_approx_taps {st.tex_approx_taps}, "
+        f"env_approx_taps {st.env_approx_taps}")
+    if max_lo <= TEX_CAPS[0] and ndiff:
+        fail("frame-cap156", f"{ndiff} pixels differ although no cover exceeds {TEX_CAPS[0]}")
+    del cap
+
+    # ---- the anisotropic filter: A, B (env), F; no E --------------------------
+    aniso = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS,
+                                   texture_filter="anisotropic", **knobs)
+    if aniso.use_fused_gbuffer or not aniso.use_tex_kernel:
+        fail("frame-aniso", "the anisotropic pipeline is not the planar path")
+    apath = camera_path(cam, 1 + ANISO_FRAMES)
+    aniso.render(apath[0])
+    times, launches = run_frames("frame-aniso", aniso, apath[1:], {
+        "raster_interp": ANISO_FRAMES, "fused_cover": ANISO_FRAMES,
+        "env_resolve": ANISO_FRAMES},
+        absent=("atlas_resolve", "resolve_shade", "deferred_shade", "block_cover"))
+    say("frame-aniso", f"texture_filter=anisotropic (tile {TILE_H}x{TILE_W}), {ANISO_FRAMES} "
+        f"frames: mean {np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms; kernel launches "
+        f"{launches}; {check_frame('frame-aniso', aniso, apath[-1])}")
+    ref = DeferredRenderPipeline(scene, cfg, use_pallas=False, use_tex_kernel=False,
+                                 texture_filter="anisotropic", device=dev, **knobs)
+    rmse, ndiff = fidelity(aniso, ref, apath[-1])
+    if rmse > RMSE_BAR or aniso.last_stats.env_approx_taps:
+        fail("fidelity-aniso", f"frame rmse vs the all-plain anisotropic frame {rmse:.6f} "
+             f"(bar {RMSE_BAR}); env_approx_taps {aniso.last_stats.env_approx_taps}")
+    say("fidelity-aniso", f"anisotropic frame rmse vs use_pallas=False, use_tex_kernel=False "
+        f"(anisotropic) on the card {rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ; "
+        f"env_approx_taps {aniso.last_stats.env_approx_taps}")
+    del aniso, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
@@ -746,6 +1043,9 @@ def main() -> None:
         f"{ms_a:.4f} ms, plain {plain_ms_a:.4f} ms, bound {bounds['raster_interp'][0]:.4f} ms "
         f"({bounds['raster_interp'][1]}); kernel with every list cut to "
         f"{raster_cuda.CHUNK} candidates {one_chunk_ms:.4f} ms")
+    measured = {"raster_interp": (err_a, ms_a, plain_ms_a)}
+    n_h = raster_depth_stage("kernel-raster-depth", setup, bins, rows64, pipe.render_w,
+                             pipe.render_h, measured, bounds)
 
     # ---- kernels B, C, D vs plain versions on one default frame's inputs ---
     with contextlib.ExitStack() as stack:
@@ -815,7 +1115,7 @@ def main() -> None:
         f"lights: ok ({bad_d:.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, max abs "
         f"diff {err_d:.3e}), kernel {ms_d:.4f} ms, plain {plain_ms_d:.4f} ms, bound "
         f"{bounds['deferred_shade'][0]:.4f} ms ({bounds['deferred_shade'][1]})")
-    del cover_calls, shade_calls, deferred_calls, sargs, dargs
+    del shade_calls, deferred_calls, sargs, dargs
 
     # ---- GBuffer pass stages of both paths ---------------------------------
     tri_id, depth, planes = raster_cuda.rasterize_interp(*args)
@@ -907,18 +1207,24 @@ def main() -> None:
         fail("fidelity-planar", f"frame rmse vs use_pallas=False {rmse:.6f} > {RMSE_BAR}")
     say("fidelity-planar", f"use_tex_kernel=False frame rmse vs use_pallas=False on the card "
         f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ")
-    del pipe, planar, ref, scene
+    del planar, ref
+    torch.cuda.empty_cache()
+    measured.update({"fused_cover": (0.0, ms_b, plain_ms_b),
+                     "resolve_shade": (err_c, ms_c, plain_ms_c),
+                     "deferred_shade": (err_d, ms_d, plain_ms_d)})
+
+    # ---- the planar texture-cache, cap-156 and anisotropic paths ------------
+    launches_ptex = planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls,
+                                     measured, bounds)
+    del pipe, scene, cover_calls, setup, bins, rows64, args
     torch.cuda.empty_cache()
 
-    measured = {"raster_interp": (err_a, ms_a, plain_ms_a),
-                "fused_cover": (0.0, ms_b, plain_ms_b),
-                "resolve_shade": (err_c, ms_c, plain_ms_c),
-                "deferred_shade": (err_d, ms_d, plain_ms_d)}
     launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
+    launches.update(launches_ptex, raster_depth=n_h)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"direct12pbrrenderer_tpu_torch/csrc/{name}.cu",
+        "source": f"direct12pbrrenderer_tpu_torch/csrc/{source_of(name)}.cu",
         "replaces": KERNELS[name][0], "launches": launches[name],
         "max_abs_err": measured[name][0], "ms": measured[name][1],
         "plain_ms": measured[name][2], "bound_ms": bounds[name][0],

@@ -8,12 +8,8 @@
 // G-buffer channels [albedo(3), emission, oct(2), roughness, metallic, ao].
 //
 // Semantics kept exactly (ops/resolve_shade_cuda.py has the plain version):
-//   * a tap reads the 4 corner words at staged[t, (off + seg) * 4 + k, rec &
-//     127] with seg = rec >> 7; a segment at or beyond ceil8(cnt) resolves to 0
-//     (the TPU kernel sweeps whole 8-page chunks of the group's span);
-//   * bilinear blend in _resolve_group's association order, trilinear as
-//     lo * (1 - frac) + hi * frac; with the cascade, a tap whose sel is set
-//     reads the cascade group instead (sel implies the tile's cascade flag);
+//   * the tap resolve is tex_resolve.cuh's, shared with kernel E
+//     (atlas_resolve.cu);
 //   * the shade is the TPU kernel's channel-form math in its order; RGBA8
 //     quantization rounds half to even (rintf, as jnp.round); background
 //     pixels are 0. Every product and sum is rounded separately (--fmad=false)
@@ -30,70 +26,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tex_resolve.cuh"
+
 namespace {
 
 #define F(x) ((float)(x))
 
 struct Args {
-  const int* off;      // (tiles, G)
-  const int* cnts;     // (tiles, cnt_cols)
-  const int* staged;   // (tiles, B * 4, 128)
-  const int* rec;      // (tiles, G, blocks, 128)
-  const float* fx;
-  const float* fy;
-  const float* tl;     // (tiles, 5, blocks, 128)
+  tex_resolve::Taps taps;
   const float* attrs;  // (tiles, 17, blocks, 128)
   const int* flags;    // (tiles, 6, blocks, 128)
-  const int* sel;      // (tiles, 5, blocks, 128) or null
   float* out;          // (tiles, 9, blocks, 128)
-  int n_groups, cnt_cols, budget, blocks, trilinear;
 };
 
 // NaN-propagating clamp and max (jnp.clip / jnp.maximum semantics)
 __device__ __forceinline__ float clip01(float x) { return x < 0.f ? 0.f : (x > 1.f ? 1.f : x); }
 __device__ __forceinline__ float maxf(float a, float b) { return (a > b || a != a) ? a : b; }
-
-__device__ void resolve_group(const Args& a, int t, size_t pix, int gi, float rgba[4]) {
-  const size_t plane = (size_t)a.blocks * 128;
-  const size_t at = ((size_t)t * a.n_groups + gi) * plane + pix;
-  const int base = a.off[t * a.n_groups + gi];
-  const int cnt = a.cnts[t * a.cnt_cols + gi];
-  const int rc = a.rec[at];
-  const int seg = rc >> 7;
-  const int ln = rc & 127;
-  const int lim = (cnt + 7) / 8 * 8;
-  int q[4] = {0, 0, 0, 0};
-  if (seg >= 0 && seg < lim && base + seg < a.budget) {
-    const int* p = a.staged + ((size_t)t * a.budget * 4 + (size_t)(base + seg) * 4) * 128 + ln;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = p[k * 128];
-  }
-  const float fx = a.fx[at], fy = a.fy[at];
-  const float ofx = 1.f - fx, ofy = 1.f - fy;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    float tc[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) tc[k] = (float)((q[k] >> (8 * c)) & 0xFF) * F(1.0 / 255.0);
-    rgba[c] = tc[0] * ofx * ofy + tc[1] * fx * ofy + tc[2] * ofx * fy + tc[3] * fx * fy;
-  }
-}
-
-__device__ void resolve_slot(const Args& a, int t, size_t pix, int s, float rgba[4]) {
-  const size_t plane = (size_t)a.blocks * 128;
-  if (a.sel != nullptr && a.sel[((size_t)t * 5 + s) * plane + pix] != 0) {
-    resolve_group(a, t, pix, a.n_groups - 5 + s, rgba);  // the cascade re-tap
-    return;
-  }
-  resolve_group(a, t, pix, s, rgba);
-  if (a.trilinear) {
-    float hi[4];
-    resolve_group(a, t, pix, 5 + s, hi);
-    const float frac = a.tl[((size_t)t * 5 + s) * plane + pix];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) rgba[c] = rgba[c] * (1.f - frac) + hi[c] * frac;
-  }
-}
 
 __device__ __forceinline__ float eotf(float c) {
   c = clip01(c);
@@ -114,7 +62,7 @@ __device__ __forceinline__ float q8(float x) { return rintf(clip01(x) * 255.f) *
 
 __global__ void resolve_shade_kernel(Args a) {
   const int t = blockIdx.y;
-  const size_t plane = (size_t)a.blocks * 128;
+  const size_t plane = (size_t)a.taps.blocks * 128;
   const size_t pix = (size_t)blockIdx.x * 128 + threadIdx.x;
   auto attr = [&](int c) { return a.attrs[((size_t)t * 17 + c) * plane + pix]; };
   auto flag = [&](int c) { return a.flags[((size_t)t * 6 + c) * plane + pix] != 0; };
@@ -122,7 +70,7 @@ __global__ void resolve_shade_kernel(Args a) {
   float smp[5][4];
 #pragma unroll
   for (int s = 0; s < 5; ++s) {
-    resolve_slot(a, t, pix, s, smp[s]);
+    tex_resolve::resolve_slot(a.taps, t, pix, s, smp[s]);
     if (flag(s)) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) smp[s][c] = eotf(smp[s][c]);
@@ -179,8 +127,9 @@ extern "C" int resolve_shade_launch(const int* off, const int* cnts, int cnt_col
                                     int tiles, int n_groups, int blocks, int trilinear,
                                     float* out, void* stream) {
   if (tiles < 1 || blocks < 1 || n_groups < 5) return (int)cudaErrorInvalidValue;
-  Args a{off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel, out,
-         n_groups, cnt_cols, budget, blocks, trilinear};
+  Args a{{off, cnts, staged, rec, fx, fy, tl, sel, n_groups, cnt_cols, budget, blocks,
+          trilinear},
+         attrs, flags, out};
   resolve_shade_kernel<<<dim3(blocks, tiles), 128, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,15 @@
-"""Deferred G-buffer pass — counterpart of `ops/gbuffer.py` (direct-atlas
-sampler path).
+"""Deferred G-buffer pass — counterpart of `ops/gbuffer.py`.
 
 The pixel-shader half of `gbuffer.hlsl` (ps_main, :89-148) over the whole
-frame after visibility: perspective-correct attribute interpolation, the
-LinearWrap trilinear atlas sampler with quad-difference LOD and sRGB
-linearization, TBN normal mapping, gamma decode, octahedral encode and RGBA8
-quantization. G-buffer layouts are the JAX package's: A (H, W, 4), B (H, W, 2),
-C (H, W, 3), depth (H, W), mask (H, W).
+frame after visibility: perspective-correct attribute interpolation, texture
+sampling with quad-difference LOD and sRGB linearization, TBN normal mapping,
+gamma decode, octahedral encode and RGBA8 quantization. Three samplers, as in
+the JAX package: the direct-atlas LinearWrap sampler (trilinear or
+bilinear), the software anisotropic filter (four trilinear taps along the
+major gradient), and the texture cache (`ops/texcache.py`: the plan with
+kernel B or I, the resolve with kernel E on the planar path or kernel C on
+the fused one). G-buffer layouts are the JAX package's: A (H, W, 4), B (H,
+W, 2), C (H, W, 3), depth (H, W), mask (H, W).
 """
 
 from __future__ import annotations
@@ -115,6 +118,33 @@ def sample_atlas_trilinear(atlas: AtlasDevice, tex_id, u, v, lod, filter: str = 
     return apply_srgb(atlas, tex_id, sample_atlas_raw(atlas, tex_id, u, v, lod, filter))
 
 
+def sample_atlas_anisotropic(atlas: AtlasDevice, tex, uv, ddx, ddy, size5, mask,
+                             n_taps: int = 4):
+    """Software anisotropic filtering (sRGB-linearized where flagged): `n_taps`
+    trilinear taps spread along the major-gradient axis, the mip chosen from
+    the footprint's minor axis sharpened by the aniso ratio.
+
+    tex (H, W, 5); uv (H, W, 2); ddx/ddy (H, W, 2) screen-space uv
+    derivatives; size5 (H, W, 5, 2) texture dims; mask (H, W) coverage."""
+    gx = ddx[..., None, :] * size5
+    gy = ddy[..., None, :] * size5
+    rx2 = (gx * gx).sum(-1)
+    ry2 = (gy * gy).sum(-1)
+    rho2 = torch.maximum(rx2, ry2)
+    rho_min2 = torch.clamp(torch.minimum(rx2, ry2), min=1e-12)
+    ratio = torch.clamp(torch.sqrt(rho2 / rho_min2), 1.0, float(n_taps))
+    lod_a = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)) - torch.log2(ratio)
+    lod_a = torch.where(mask[..., None], lod_a, 99.0)
+    major = torch.where((rx2 >= ry2)[..., None], ddx[..., None, :], ddy[..., None, :])
+    acc = 0.0
+    for i in range(n_taps):
+        t = (i + 0.5) / n_taps - 0.5
+        uv_i = uv[..., None, :] + major * t
+        acc = acc + sample_atlas_trilinear(atlas, tex, uv_i[..., 0], uv_i[..., 1], lod_a,
+                                           filter="trilinear")
+    return acc * (1.0 / n_taps)
+
+
 def _quad_derivatives(img):
     """2x2-quad screen derivatives like hardware ddx/ddy. img: (H, W, C) ->
     (ddx, ddy) with both pixels of a quad pair sharing the difference."""
@@ -135,7 +165,7 @@ class GBuffer(NamedTuple):
     depth: torch.Tensor            # (H, W) ndc z
     mask: torch.Tensor             # (H, W) bool coverage (stencil != 0 analog)
     tex_approx: torch.Tensor | None = None  # cache taps resolved via fallback; None
-    # on the direct-atlas sampler path
+    # on the direct-atlas and anisotropic sampler paths
 
 
 def _quantize8(x):
@@ -144,11 +174,13 @@ def _quantize8(x):
 
 
 def gbuffer_shade(tri_id, depth, tri_rows, atlas: AtlasDevice, width: int, height: int,
-                  y_offset=0, texture_filter: str = "trilinear") -> GBuffer:
+                  y_offset=0, texture_filter: str = "trilinear", use_tex_kernel: bool = False,
+                  tex_caps: tuple | None = None, tex_cascade=False) -> GBuffer:
     """G-buffer from the rasterized id map + the packed (T, 64) triangle rows
     (the gather path: one row gather per pixel)."""
     interp, matrow, mask = interp_from_rows(tri_id, tri_rows, width, height, y_offset)
-    return _shade_from_interp(interp, matrow, mask, depth, atlas, texture_filter)
+    return _shade_from_interp(interp, matrow, mask, depth, atlas, texture_filter,
+                              use_tex_kernel, tex_caps, tex_cascade)
 
 
 def interp_from_rows(tri_id, tri_rows, width, height, y_offset=0):
@@ -209,20 +241,29 @@ def gbuffer_shade_fused(tri_id, depth, pl_tiles, id_tiles, atlas: AtlasDevice, h
 
 
 def gbuffer_shade_planar(tri_id, depth, planes, atlas: AtlasDevice,
-                         texture_filter: str = "trilinear") -> GBuffer:
+                         texture_filter: str = "trilinear", use_tex_kernel: bool = False,
+                         tex_caps: tuple | None = None, tex_cascade=False) -> GBuffer:
     """G-buffer from the raster+interpolation kernel's (24, H, W) planes —
-    no per-pixel attribute gathers, only the texture-atlas taps remain."""
+    no per-pixel attribute gathers, only the texture taps remain."""
     mask = tri_id >= 0
     interp = planes[0:8].permute(1, 2, 0)
     matrow = planes[8:24].permute(1, 2, 0)
-    return _shade_from_interp(interp, matrow, mask, depth, atlas, texture_filter)
+    return _shade_from_interp(interp, matrow, mask, depth, atlas, texture_filter,
+                              use_tex_kernel, tex_caps, tex_cascade)
 
 
-def tap_lod(uv, tex, mask, atlas: AtlasDevice):
+def tap_lod(uv, tex, mask, atlas: AtlasDevice, use_tex_kernel: bool = True):
     """Per-slot mip LOD from the pixel-quad uv derivatives (gbuffer.hlsl's
-    implicit Sample LOD): (ddx, ddy, size5, lod5)."""
+    implicit Sample LOD): (ddx, ddy, size5, lod5). The texture dims are one
+    indexed load either way; with use_tex_kernel a tex id outside the table
+    reads a zero row, as the TPU's one-hot lookup does (both exact)."""
     ddx, ddy = _quad_derivatives(uv)
-    size5 = atlas.base_size[tex].float()                       # (H, W, 5, 2)
+    if use_tex_kernel:
+        from . import texcache
+
+        size5 = texcache.onehot_lookup(atlas.base_size.float(), tex)   # (H, W, 5, 2)
+    else:
+        size5 = atlas.base_size[tex].float()
     gx = ddx[..., None, :] * size5
     gy = ddy[..., None, :] * size5
     rx2 = (gx * gx).sum(-1)
@@ -234,11 +275,8 @@ def tap_lod(uv, tex, mask, atlas: AtlasDevice):
 
 
 def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
-                       texture_filter: str = "trilinear") -> GBuffer:
-    if texture_filter not in ("trilinear", "bilinear"):
-        raise NotImplementedError(
-            f"texture_filter={texture_filter!r} is not ported yet (ROADMAP.md, "
-            "module queue: off-default paths)")
+                       texture_filter: str = "trilinear", use_tex_kernel: bool = False,
+                       tex_caps: tuple | None = None, tex_cascade=False) -> GBuffer:
     # background pixels carry garbage interpolants -> pin them to one texel
     interp = torch.where(mask[..., None], interp, 0.0)
     uv = interp[..., 0:2]
@@ -252,9 +290,21 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
     use = matrow[..., 6:11] > 0.5
     tex = torch.clamp(matrow[..., 11:16].to(torch.int64), min=0)
 
-    _, _, _, lod5 = tap_lod(uv, tex, mask, atlas)
-    samples = sample_atlas_trilinear(atlas, tex, uv[..., 0:1], uv[..., 1:2], lod5,
-                                     filter=texture_filter)   # (H, W, 5, 4)
+    ddx, ddy, size5, lod5 = tap_lod(uv, tex, mask, atlas, use_tex_kernel)
+    approx_count = None
+    if texture_filter == "anisotropic":
+        samples = sample_atlas_anisotropic(atlas, tex, uv, ddx, ddy, size5, mask)
+    elif use_tex_kernel:
+        from . import texcache
+
+        samples, approx = texcache.sample_atlas_textured(
+            atlas, tex.to(torch.int32), uv[..., 0], uv[..., 1], lod5,
+            active=use & mask[..., None], filter=texture_filter,
+            **_cascade_kw(tex_cascade), **_cap_kw(tex_caps))
+        approx_count = approx.sum().to(torch.int32)
+    else:
+        samples = sample_atlas_trilinear(atlas, tex, uv[..., 0:1], uv[..., 1:2], lod5,
+                                         filter=texture_filter)   # (H, W, 5, 4)
     albedo_tex = samples[..., 0, :3]
     normal_tex = samples[..., 1, :3]
     metallic_tex = samples[..., 2, 0]
@@ -282,7 +332,7 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
 
     m = mask[..., None]
     return GBuffer(torch.where(m, gb_a, 0.0), torch.where(m, gb_b, 0.0),
-                   torch.where(m, gb_c, 0.0), depth, mask, None)
+                   torch.where(m, gb_c, 0.0), depth, mask, approx_count)
 
 
 def _bary(row, px, py):

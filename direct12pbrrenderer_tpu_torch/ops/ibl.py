@@ -21,10 +21,10 @@ from . import common
 from .common import PI, cubemap_face_dirs, geometry_smith, ggx_importance_sample, hammersley
 
 
-def brdf_lut(size: int = BRDF_LUT_SIZE, samples: int = IBL_SAMPLE_COUNT,
-             device="cpu") -> torch.Tensor:
-    """(size, size, 2) split-sum LUT; [y, x] = (NdotV row, roughness column)
-    (precompute_brdf.hlsl:23-61)."""
+def brdf_lut(size: int = BRDF_LUT_SIZE, samples: int = IBL_SAMPLE_COUNT, *,
+             device) -> torch.Tensor:
+    """(size, size, 2) split-sum LUT on `device`; [y, x] = (NdotV row,
+    roughness column) (precompute_brdf.hlsl:23-61)."""
     xi = torch.as_tensor(hammersley(samples), device=device)
     ar = torch.arange(size, dtype=torch.float32, device=device)
     roughness = (ar / (size - 1))[None, :].expand(size, size)

@@ -1,11 +1,13 @@
-"""Fused raster + attribute interpolation — counterpart of
-`ops/raster_pallas.py::rasterize_interp_pallas` (kernel A).
+"""Tile rasterizer kernels — counterparts of `ops/raster_pallas.py`:
+`rasterize_interp_pallas` (kernel A, fused raster + attribute
+interpolation) and `rasterize_pallas` (kernel H, depth only).
 
 `rasterize_interp` launches the hand-written CUDA kernel
-`csrc/raster_interp.cu` for CUDA tensors; for CPU tensors it runs
-`rasterize_interp_reference`, the plain PyTorch version of the same function.
+`csrc/raster_interp.cu` and `rasterize_depth` the kernel
+`csrc/raster_depth.cu` for CUDA tensors; for CPU tensors each runs its plain
+PyTorch version (`rasterize_interp_reference`, `rasterize_depth_reference`).
 There is no fallback between the two: a CUDA input either launches the kernel
-or raises.
+or raises. Both kernels share one depth fold (`csrc/raster_fold.cuh`).
 
 Two-pass semantics of the TPU kernel: every tile renders the first
 `min(count, cap_small)` entries of its bin list, and the `hot_k` tiles with
@@ -23,7 +25,6 @@ import torch
 from . import gbuffer, raster
 
 CHUNK = 128  # candidates per staged chunk (the TPU kernel's lane width)
-_KERNEL = "raster_interp"
 
 
 def split_caps(cap: int, num_tiles: int) -> tuple[int, int]:
@@ -116,10 +117,8 @@ def rasterize_interp(setup: raster.TriangleSetup, bins: raster.Bins, rows64: tor
 rasterize_interp.launches = 0  # kernel launches in this process (reset by callers)
 
 
-def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_small, hot_k):
-    if rows64.device.type != "cuda":
-        raise ValueError(f"rasterize_interp: unsupported device {rows64.device}")
-
+def _check_raster_args(rows, width, height, tile_h, tile_w, bins, row_cols):
+    """Validate a raster kernel's inputs; -> (num_tiles, cap)."""
     tiles_y, tiles_x = height // tile_h, width // tile_w
     num_tiles = tiles_y * tiles_x
     ids, counts = bins.ids, bins.counts
@@ -135,24 +134,31 @@ def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_sm
     if tuple(ids.shape) != (num_tiles, cap) or tuple(counts.shape) != (num_tiles,):
         raise ValueError(f"bins {tuple(ids.shape)}/{tuple(counts.shape)} do not match "
                          f"{num_tiles} tiles")
-    if rows64.dim() != 2 or rows64.shape[1] != 64:
-        raise ValueError(f"rows64 must be (T, 64), got {tuple(rows64.shape)}")
-    if rows64.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise TypeError(f"rows64 must be float32 and bin ids int32, got "
-                        f"{rows64.dtype}/{ids.dtype}")
-    for name, t in (("rows64", rows64), ("bin ids", ids), ("counts", counts)):
-        if t.device != rows64.device:
-            raise ValueError(f"{name} on {t.device}, rows64 on {rows64.device}")
+    if rows.dim() != 2 or rows.shape[1] != row_cols:
+        raise ValueError(f"rows must be (T, {row_cols}), got {tuple(rows.shape)}")
+    if rows.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise TypeError(f"rows must be float32 and bin ids int32, got "
+                        f"{rows.dtype}/{ids.dtype}")
+    for name, t in (("bin ids", ids), ("counts", counts)):
+        if t.device != rows.device:
+            raise ValueError(f"{name} on {t.device}, rows on {rows.device}")
+    return num_tiles, cap
+
+
+def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_small, hot_k):
+    if rows64.device.type != "cuda":
+        raise ValueError(f"rasterize_interp: unsupported device {rows64.device}")
+    num_tiles, cap = _check_raster_args(rows64, width, height, tile_h, tile_w, bins, 64)
     rows64 = rows64.contiguous()
-    ids = ids.contiguous()
+    ids = bins.ids.contiguous()
     cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
-    limits = tile_limits(counts, cap, cap_small, hot_k)
+    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
 
     dev = rows64.device
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     planes = torch.empty((24, height, width), dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = _library("raster_interp")
     with torch.cuda.device(dev):
         err = lib.raster_interp_launch(
             rows64.data_ptr(), ids.data_ptr(), cap, limits.data_ptr(), num_tiles,
@@ -166,16 +172,73 @@ def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_sm
     return tri_id, z, planes
 
 
-def _library() -> ctypes.CDLL:
+def rasterize_depth(setup: raster.TriangleSetup, bins: raster.Bins, width: int, height: int,
+                    tile_h: int, tile_w: int, y_offset=0, cap_small: int | None = None,
+                    hot_k: int | None = None):
+    """Depth-only raster (kernel H): -> (tri_id (H, W) int32 [-1 background],
+    z (H, W) f32 [1.0 background]), the outputs of raster.rasterize, with the
+    TPU kernel's two-pass list limits (every tile folds its first cap_small
+    entries, the hot_k fullest their full list)."""
+    if setup.edges.device.type == "cpu":
+        return rasterize_depth_reference(setup, bins, width, height, tile_h, tile_w,
+                                         y_offset, cap_small, hot_k)
+    if setup.edges.device.type != "cuda":
+        raise ValueError(f"rasterize_depth: unsupported device {setup.edges.device}")
+    rows = pack_raster_rows(setup)
+    num_tiles, cap = _check_raster_args(rows, width, height, tile_h, tile_w, bins, 16)
+    cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
+    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
+    # the y-extents feed the band skip; they never meet a band when invalid
+    yext = torch.stack([torch.where(setup.valid, setup.aabb[:, 1], 3e38),
+                        torch.where(setup.valid, setup.aabb[:, 3], -3e38)], 1).contiguous()
+    ids = bins.ids.contiguous()
+    dev = rows.device
+    tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    lib = _library("raster_depth")
+    with torch.cuda.device(dev):
+        err = lib.raster_depth_launch(
+            rows.data_ptr(), yext.data_ptr(), ids.data_ptr(), cap, limits.data_ptr(),
+            num_tiles, width, tile_h, tile_w, float(y_offset), tri_id.data_ptr(),
+            z.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"raster_depth kernel launch failed: CUDA error {err}")
+        rasterize_depth.launches += 1
+    return tri_id, z
+
+
+rasterize_depth.launches = 0  # kernel launches in this process (reset by callers)
+
+_ARGTYPES = {  # the launch functions' C arguments: pointer, int, float
+    "raster_interp": "ppipiiiiifpppp",
+    "raster_depth": "pppipiiiifppp",
+}
+
+
+def _library(name: str) -> ctypes.CDLL:
     from ..kernels import build
 
-    lib = build.load(_KERNEL)
-    fn = lib.raster_interp_launch
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, i, i, i, i, ctypes.c_float, p, p, p, p]
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
         fn.restype = ctypes.c_int
     return lib
+
+
+def rasterize_depth_reference(setup: raster.TriangleSetup, bins: raster.Bins, width: int,
+                              height: int, tile_h: int, tile_w: int, y_offset=0,
+                              cap_small: int | None = None, hot_k: int | None = None):
+    """Plain PyTorch version of kernel H: the plain chunked rasterizer on the
+    bin lists cut to the two-pass limits (padding past each tile's limit)."""
+    num_tiles = (height // tile_h) * (width // tile_w)
+    cap = bins.ids.shape[1]
+    cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
+    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
+    pos = torch.arange(cap, device=bins.ids.device)[None, :]
+    cut = raster.Bins(torch.where(pos < limits[:, None], bins.ids, -1), limits)
+    return raster.rasterize(setup, cut, width, height, tile_h, tile_w, y_offset=y_offset)
 
 
 def rasterize_interp_reference(setup: raster.TriangleSetup, bins: raster.Bins,
@@ -185,15 +248,8 @@ def rasterize_interp_reference(setup: raster.TriangleSetup, bins: raster.Bins,
     """Plain PyTorch version of the kernel: the same per-tile list limits,
     then the plain chunked rasterizer, the rows64[tri_id] gather and the
     `_bary` interpolation of the gather path."""
-    tiles_y, tiles_x = height // tile_h, width // tile_w
-    num_tiles = tiles_y * tiles_x
-    cap = bins.ids.shape[1]
-    cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
-    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
-    pos = torch.arange(cap, device=bins.ids.device)[None, :]
-    ids = torch.where(pos < limits[:, None], bins.ids, -1)
-    tri_id, z = raster.rasterize(setup, raster.Bins(ids, limits), width, height,
-                                 tile_h, tile_w, y_offset=y_offset)
+    tri_id, z = rasterize_depth_reference(setup, bins, width, height, tile_h, tile_w,
+                                          y_offset, cap_small, hot_k)
     interp, matrow, mask = gbuffer.interp_from_rows(tri_id, rows64, width, height, y_offset)
     planes = torch.where(mask[..., None], torch.cat([interp, matrow], -1), 0.0)
     return tri_id, z, planes.permute(2, 0, 1).contiguous()

@@ -34,32 +34,14 @@ def resolve_shade(off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel=None, *,
                                        trilinear=trilinear)
     if rec.device.type != "cuda":
         raise ValueError(f"resolve_shade: unsupported device {rec.device}")
-    tiles, n_groups, blocks, lanes = rec.shape
-    n_halves = 2 if trilinear else 1
-    want_groups = 5 * (n_halves + (sel is not None))
-    if lanes != 128 or n_groups != want_groups:
-        raise ValueError(f"rec must be (tiles, {want_groups}, blocks, 128), got "
-                         f"{tuple(rec.shape)}")
+    check_taps(off, cnts, staged, rec, fx, fy, tl, sel, trilinear)
+    tiles, n_groups, blocks, _ = rec.shape
     cnt_cols = n_groups + (sel is not None)
-    shapes = {"off": (off, (tiles, n_groups), torch.int32),
-              "cnts": (cnts, (tiles, cnt_cols), torch.int32),
-              "fx": (fx, tuple(rec.shape), torch.float32),
-              "fy": (fy, tuple(rec.shape), torch.float32),
-              "tl": (tl, (tiles, 5, blocks, 128), torch.float32),
-              "attrs": (attrs, (tiles, 17, blocks, 128), torch.float32),
-              "flags": (flags, (tiles, 6, blocks, 128), torch.int32)}
-    if sel is not None:
-        shapes["sel"] = (sel, (tiles, 5, blocks, 128), torch.int32)
-    for name, (x, shape, dtype) in shapes.items():
-        if tuple(x.shape) != shape or x.dtype != dtype or x.device != rec.device:
-            raise ValueError(f"{name} must be {shape} {dtype} on {rec.device}, got "
-                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    if (rec.dtype != torch.int32 or staged.dtype != torch.int32 or staged.dim() != 3
-            or staged.shape[0] != tiles or staged.shape[1] % 4 or staged.shape[2] != 128
-            or staged.device != rec.device):
-        raise ValueError(f"rec must be int32 and staged (tiles, B*4, 128) int32 on "
-                         f"{rec.device}, got {rec.dtype} and {tuple(staged.shape)} "
-                         f"{staged.dtype} on {staged.device}")
+    for name, x, c, dtype in (("attrs", attrs, 17, torch.float32),
+                              ("flags", flags, 6, torch.int32)):
+        if tuple(x.shape) != (tiles, c, blocks, 128) or x.dtype != dtype or x.device != rec.device:
+            raise ValueError(f"{name} must be {(tiles, c, blocks, 128)} {dtype} on "
+                             f"{rec.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
     args = [x.contiguous() for x in (off, cnts, staged, rec, fx, fy, tl, attrs, flags)]
     sel_c = sel.contiguous() if sel is not None else None
     dev = rec.device
@@ -81,6 +63,33 @@ def resolve_shade(off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel=None, *,
 
 
 resolve_shade.launches = 0  # kernel launches in this process (reset by callers)
+
+
+def check_taps(off, cnts, staged, rec, fx, fy, tl, sel, trilinear: bool):
+    """Raise unless the tap-resolve inputs have the layouts kernels C and E
+    take (see resolve_shade)."""
+    tiles, n_groups, blocks, lanes = rec.shape
+    want_groups = 5 * ((2 if trilinear else 1) + (sel is not None))
+    if lanes != 128 or n_groups != want_groups:
+        raise ValueError(f"rec must be (tiles, {want_groups}, blocks, 128), got "
+                         f"{tuple(rec.shape)}")
+    shapes = {"off": (off, (tiles, n_groups), torch.int32),
+              "cnts": (cnts, (tiles, n_groups + (sel is not None)), torch.int32),
+              "fx": (fx, tuple(rec.shape), torch.float32),
+              "fy": (fy, tuple(rec.shape), torch.float32),
+              "tl": (tl, (tiles, 5, blocks, 128), torch.float32)}
+    if sel is not None:
+        shapes["sel"] = (sel, (tiles, 5, blocks, 128), torch.int32)
+    for name, (x, shape, dtype) in shapes.items():
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != rec.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {rec.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if (rec.dtype != torch.int32 or staged.dtype != torch.int32 or staged.dim() != 3
+            or staged.shape[0] != tiles or staged.shape[1] % 4 or staged.shape[2] != 128
+            or staged.device != rec.device):
+        raise ValueError(f"rec must be int32 and staged (tiles, B*4, 128) int32 on "
+                         f"{rec.device}, got {rec.dtype} and {tuple(staged.shape)} "
+                         f"{staged.dtype} on {staged.device}")
 
 
 def _library() -> ctypes.CDLL:
@@ -126,6 +135,21 @@ def _resolve_group(off, cnts, staged, rec, fx, fy, gi):
     return out
 
 
+def resolve_slot(off, cnts, staged, rec, fx, fy, tl, sel, s, trilinear):
+    """Material slot s's tap in storage space (both trilinear halves, or the
+    cascade re-tap where sel is set): 4 x (tiles, blocks, 128). The plain tap
+    body of kernels C and E (csrc/tex_resolve.cuh)."""
+    rgba = _resolve_group(off, cnts, staged, rec, fx, fy, s)
+    if trilinear:
+        hi = _resolve_group(off, cnts, staged, rec, fx, fy, 5 + s)
+        frac = tl[:, s]
+        rgba = [lo * (1 - frac) + h * frac for lo, h in zip(rgba, hi)]
+    if sel is not None:
+        casc = _resolve_group(off, cnts, staged, rec, fx, fy, rec.shape[1] - 5 + s)
+        rgba = [torch.where(sel[:, s] != 0, cc, c) for cc, c in zip(casc, rgba)]
+    return rgba
+
+
 def _eotf(c):
     c = torch.clamp(c, 0.0, 1.0)
     return torch.where(c <= 0.04045, c / 12.92, torch.pow((c + 0.055) / 1.055, 2.4))
@@ -140,17 +164,9 @@ def resolve_shade_reference(off, cnts, staged, rec, fx, fy, tl, attrs, flags, se
                             trilinear: bool = True):
     """Plain PyTorch version of the kernel: the same channel-form math in
     the same order, over whole (tiles, blocks, 128) planes."""
-    n_groups = rec.shape[1]
     samples = []
     for s in range(5):
-        rgba = _resolve_group(off, cnts, staged, rec, fx, fy, s)
-        if trilinear:
-            hi = _resolve_group(off, cnts, staged, rec, fx, fy, 5 + s)
-            frac = tl[:, s]
-            rgba = [lo * (1 - frac) + h * frac for lo, h in zip(rgba, hi)]
-        if sel is not None:
-            casc = _resolve_group(off, cnts, staged, rec, fx, fy, n_groups - 5 + s)
-            rgba = [torch.where(sel[:, s] != 0, cc, c) for cc, c in zip(casc, rgba)]
+        rgba = resolve_slot(off, cnts, staged, rec, fx, fy, tl, sel, s, trilinear)
         srgb = flags[:, s] != 0
         samples.append([torch.where(srgb, _eotf(c), c) for c in rgba[:3]] + [rgba[3]])
     mask = flags[:, 5] != 0

@@ -1,14 +1,17 @@
-"""Software texture cache, the fused G-buffer's plan side — counterpart of
-`ops/texcache.py`.
+"""Software texture cache — counterpart of `ops/texcache.py`.
 
 Per 24x128-px screen tile the plan extracts the distinct atlas pages each
 (material slot, trilinear half) touches, plus up to CAP_FB guaranteed
 coarsest-mip fallback pages per group, and stages all tiles' pages in one
-gather. Two kernels run on the plan: kernel B (`ops/cover_cuda.py`, the page
-cover) and kernel C (`ops/resolve_shade_cuda.py`, the tap resolve plus the
-gbuffer.hlsl pixel shade). Layouts at module boundaries are the JAX
-package's: per-pixel planes are `(tiles, G, blocks, 128)`, 128 consecutive
-pixels of a tile row being one lane row.
+gather. The page covers run on kernel B (`ops/cover_cuda.py`) for group
+caps up to 128 and on the two-kernel cover, kernel I
+(`ops/cover_two_cuda.py`), above. Two resolves run on the plan: kernel C
+(`ops/resolve_shade_cuda.py`, the tap resolve plus the gbuffer.hlsl pixel
+shade) for the fused G-buffer (`shade_planes_fused`), and kernel E
+(`ops/atlas_resolve_cuda.py`, the storage-space taps) for the planar one
+(`sample_atlas_tiled`, `sample_atlas_textured`). Layouts at module
+boundaries are the JAX package's: per-pixel planes are `(tiles, G, blocks,
+128)`, 128 consecutive pixels of a tile row being one lane row.
 
 Differences from the TPU plan, none of which changes a value:
 * `onehot_lookup` is a plain indexed load `table[key]` (the TPU's one-hot
@@ -24,16 +27,13 @@ from __future__ import annotations
 
 import torch
 
-from . import cover_cuda, resolve_shade_cuda
+from . import (atlas_resolve_cuda, common, cover_cuda, cover_two_cuda, gbuffer,
+               resolve_shade_cuda)
 from .gbuffer import AtlasDevice
 
 MAX_MIPS = 13
 CAP_FB = 4       # guaranteed last-mip fallback pages per group
 SEG_CHUNK = 8    # staged-span granularity (the TPU kernel's sweep chunk)
-
-
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 # --------------------------------------------------------------- tiling ----
@@ -144,14 +144,59 @@ def _mip_plan(atlas, tex, lod, trilinear):
 
 
 def _cover_and_match(pages, act, cap, block_cap: int):
-    """pages/act (tiles, g, blocks, 128): the two-level page cover (kernel
-    B). `cap` is one int or a per-group tuple. Returns (page_list (tiles, g,
-    cap_max) ascending, 0-padded; count (tiles, g); slot; found)."""
+    """pages/act (tiles, g, blocks, 128): the two-level page cover. `cap` is
+    one int or a per-group tuple; caps up to 128 take the one-kernel cover
+    (kernel B), larger ones the two-kernel cover (kernel I). Returns
+    (page_list (tiles, g, cap_max) ascending, 0-padded; count (tiles, g);
+    slot; found)."""
     caps = cap if isinstance(cap, tuple) else (cap,) * pages.shape[1]
-    if max(caps) > cover_cuda.MAX_CAP:
-        raise not_ported(f"page covers above {cover_cuda.MAX_CAP} pages per group "
-                         f"(caps {caps})", "kernel queue I")
-    return cover_cuda.fused_cover(pages, act, caps, block_cap)
+    if max(caps) <= cover_cuda.MAX_CAP:
+        return cover_cuda.fused_cover(pages, act, caps, block_cap)
+    return _cover_and_match_2level(pages, act, caps, block_cap)
+
+
+def _distinct_by_sort(cand, cap_max: int, cap_arr=None):
+    """Distinct values per row of `cand` (..., L) int32 (SENTINEL = absent)
+    by a stable sort (lax.sort is stable). cap_arr (optional) broadcasts
+    against the leading dims: per-row caps <= cap_max. Returns (page_list
+    (..., cap_max) ascending distinct values, 0-padded; count (...,) clamped
+    to the row's cap; slot (..., L) each element's rank among the distinct
+    values, clamped to cap - 1; found (..., L) rank < cap, where a SENTINEL
+    element's rank is L)."""
+    n = cand.shape[-1]
+    dev = cand.device
+    if cap_arr is None:
+        cap_arr = torch.full((1,) * (cand.dim() - 1), cap_max, dtype=torch.int32, device=dev)
+    sv, sp = torch.sort(cand, dim=-1, stable=True)
+    live = sv != cover_cuda.SENTINEL
+    first = torch.cat([torch.ones_like(live[..., :1]), sv[..., 1:] != sv[..., :-1]], -1) & live
+    rank_sorted = torch.cumsum(first.to(torch.int32), -1, dtype=torch.int32) - 1
+    rank_sorted = torch.where(live, rank_sorted, n)
+    count = torch.minimum(first.sum(-1, dtype=torch.int32), cap_arr)
+    # the distinct values at their ranks (the sort by rank of the JAX glue)
+    width = max(n, cap_max) + 1
+    buf = torch.zeros((*cand.shape[:-1], width), dtype=torch.int32, device=dev)
+    buf.scatter_(-1, torch.where(first, rank_sorted, width - 1).long(), torch.where(first, sv, 0))
+    lane = torch.arange(cap_max, device=dev)
+    page_list = torch.where(lane < count[..., None], buf[..., :cap_max], 0)
+    rank = torch.empty_like(rank_sorted).scatter_(-1, sp, rank_sorted)
+    cap_e = cap_arr[..., None]
+    return page_list, count, torch.minimum(rank, cap_e - 1), rank < cap_e
+
+
+def _cover_and_match_2level(pages, act, caps: tuple, block_cap: int):
+    """The two-kernel cover (kernel I), for any caps: the row scan
+    (block_cover), the tile-level distinct sort, then each pixel's slot and
+    coverage through its row candidate (pix_match). At caps up to 128 it
+    gives kernel B's four outputs bit for bit."""
+    tiles, g, blocks, _ = pages.shape
+    cand, slot_a = cover_two_cuda.block_cover(pages, act, block_cap)
+    cap_arr = torch.tensor(caps, dtype=torch.int32, device=pages.device)[None, :]
+    page_list, count, slot_b, found_b = _distinct_by_sort(
+        cand.reshape(tiles, g, blocks * block_cap), max(caps), cap_arr)
+    slot, cov = cover_two_cuda.pix_match(
+        slot_a, slot_b.reshape(cand.shape), found_b.reshape(cand.shape), block_cap)
+    return page_list, count, slot, cov & act
 
 
 def _align8(x):
@@ -290,6 +335,67 @@ def _plan_and_stage(atlas, tex_t, u_t, v_t, lod_t, act_t, *, trilinear, cap_lo, 
     pages_cm = atlas.data.reshape(n_pages, 128, 4).transpose(1, 2)   # (P, 4, 128)
     staged = pages_cm[ids.reshape(-1).long()].reshape(n_tiles, budget * 4, 128)
     return off_arr, cnts, staged, rec_t, fx_t, fy_t, tfrac_t, covered_t, sel_t
+
+
+def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str = "trilinear",
+                       tile_h: int = 24, tile_w: int = 128, cap_lo: int = 92, cap_hi: int = 44,
+                       block_cap=16, stage_budget: int | None = None, cascade: bool = False,
+                       cascade_caps: tuple = (20, 8, 3)):
+    """The planar texture-cache sampler: tex (H, W, 5) int32 >= 0, u/v (H,
+    W), lod (H, W, 5), active (H, W, 5) bool taps that must resolve. The tap
+    planes are tiled on this function's own (tile_h, tile_w) cache tiling,
+    planned (kernel B, or I above cap 128) and resolved (kernel E).
+
+    Returns (rgba (H, W, 5, 4) storage space, covered (H, W, 5) bool, approx
+    (H, W, 5) bool): covered taps are exact (bit-equal to the direct-atlas
+    sampler); approx taps overflowed the tile's page budget and resolve at the
+    coarsest mip (or, with `cascade`, at the mip_lo+3 re-tap)."""
+    height, width = u.shape
+    trilinear = filter != "bilinear"
+
+    def tile_g(x):  # (H, W, 5) -> (tiles, 5, blocks, 128)
+        return _tile(x.permute(2, 0, 1), tile_h, tile_w)
+
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t) = _plan_and_stage(
+        atlas, tile_g(tex), tile_g(u[..., None].expand(tex.shape)),
+        tile_g(v[..., None].expand(tex.shape)), tile_g(lod), tile_g(active),
+        trilinear=trilinear, cap_lo=cap_lo, cap_hi=cap_hi, block_cap=block_cap,
+        stage_budget=stage_budget, cascade=cascade, cap_casc=cascade_caps[0],
+        block_cap_casc=cascade_caps[1],
+        casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+    out = atlas_resolve_cuda.atlas_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t,
+                                           sel_t, trilinear=trilinear)
+    rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)   # (H, W, 5, 4)
+    covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
+    return rgba, covered, active & ~covered
+
+
+def sample_atlas_textured(atlas: AtlasDevice, tex, u, v, lod, active,
+                          filter: str = "trilinear", block_cap=16, cap_lo: int = 92,
+                          cap_hi: int = 44, stage_budget: int | None = None,
+                          cascade: bool = False, cascade_caps: tuple = (20, 8, 3)):
+    """The texture cache's counterpart of gbuffer.sample_atlas_trilinear:
+    exact for covered taps, the coarsest-mip average (or the cascade re-tap)
+    for page-budget overflows. Returns (rgba (H, W, 5, 4) with sRGB applied,
+    approx (H, W, 5) overflow-tap mask).
+
+    A frame with no cache tiling (`pick_tile` None) samples every tap with
+    the direct-atlas sampler and reports no approx taps: that is the
+    reference function's contract (JAX texcache.py:1611-1616), not a device
+    fallback. The pipeline never reaches it: use_tex_kernel needs a tiling."""
+    height, width = u.shape
+    tile = pick_tile(height, width)
+    if tile is None:
+        rgba = gbuffer.sample_atlas_trilinear(atlas, tex.long(), u[..., None], v[..., None],
+                                              lod, filter=filter)
+        return rgba, torch.zeros(tex.shape, dtype=torch.bool, device=tex.device)
+    rgba, _, approx = sample_atlas_tiled(
+        atlas, tex, u, v, lod, active, filter=filter, tile_h=tile[0], tile_w=tile[1],
+        block_cap=block_cap, cap_lo=cap_lo, cap_hi=cap_hi, stage_budget=stage_budget,
+        cascade=cascade, cascade_caps=cascade_caps)
+    srgb = onehot_lookup(atlas.srgb.float()[:, None], tex)[..., 0] > 0.5
+    rgb = torch.where(srgb[..., None], common.srgb_eotf(rgba[..., :3]), rgba[..., :3])
+    return torch.cat([rgb, rgba[..., 3:]], -1), approx
 
 
 def _quad_deltas(uv_t, tile_h, tile_w):

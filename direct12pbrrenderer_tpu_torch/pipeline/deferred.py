@@ -8,25 +8,37 @@ two precompute passes run once in the constructor and latch as device
 tensors; every frame then runs the graph eagerly on `device`, with the
 average-luminance EMA carried across frames.
 
-Ported configurations:
+Ported configurations (every path of the JAX pipeline but the knobs below):
 * the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
   True there, False on the CPU, as the JAX package resolves them on an
   accelerator): the fused raster + interpolation kernel (kernel A,
   ops/raster_cuda.py) feeds the fused G-buffer (texture-cache plan with the
-  page-cover kernel B, then the resolve + pixel-shade kernel C) and the fused
-  deferred pass (env-cache plan with kernel B, then kernel D), all on tile
-  blocks;
+  page-cover kernel B, or the two-kernel cover I for caps above 128, then the
+  resolve + pixel-shade kernel C) and the fused deferred pass (env-cache plan
+  with kernel B, then kernel D), all on tile blocks;
 * more than 64 active lights with `use_pallas` (the 1024-light operating
   point): `light_tile` is set, the fused deferred pass is off, and the
   unfused deferred pass runs the env taps through the float page cache
   (plan with kernel B, resolve with kernel F, ops/envcache.py) and the
   point lights per screen tile (kernel G, ops/lights_cuda.py), after the
   fused G-buffer (kernels A, B, C);
-* `use_tex_kernel=False`: the direct-atlas G-buffer sampler and the dense
-  deferred shading with its serial light sweep (or kernel G with
-  `light_tile`), with kernel A when `use_pallas`.
+* the planar texture-cache G-buffer, where `use_tex_kernel` is on and the
+  fused G-buffer's conditions fail (a raster tile not 128k wide or odd-high,
+  `use_pallas=False`, or `texture_filter="anisotropic"`): kernel A's (H, W)
+  planes (or, without use_pallas, the plain raster and the row gather) feed
+  the texture cache on its own tiling (plan with kernel B or I, resolve with
+  kernel E, ops/texcache.sample_atlas_tiled), or the anisotropic filter;
+  the deferred pass is then the unfused one with the env cache (kernel F);
+* `use_tex_kernel=False`: the direct-atlas G-buffer sampler (or the
+  anisotropic filter) and the dense deferred shading with its serial light
+  sweep (or kernel G with `light_tile`), with kernel A when `use_pallas`.
+Without `use_pallas` the raster is the plain fold of
+`stages.rasterize(use_pallas=False)`, as in the JAX pipeline; the stage's
+kernel path (the depth-only kernel H) is taken by no pipeline path.
 Knobs whose path is not ported yet raise NotImplementedError naming their
-ROADMAP item; on a CUDA device nothing quietly takes a plain path. The scene
+ROADMAP item: `tex_caps="auto"` (module queue 3), `fused_light_dtype`
+(module queue 8); BC texture formats raise in resource/storage.py (module
+queue 9). On a CUDA device nothing quietly takes a plain path. The scene
 and the camera are read by attribute only, so the JAX package's objects
 render as well as the port's own.
 """
@@ -47,15 +59,18 @@ from ..config import (
 )
 from ..graph import frame_graph as fg
 from ..ops import bloom as bloom_ops
-from ..ops import (clustered, common, cover_cuda, envcache, gbuffer, ibl, postprocess,
-                   raster_cuda, texcache)
-from ..ops.texcache import not_ported
+from ..ops import (clustered, common, envcache, gbuffer, ibl, postprocess, raster_cuda,
+                   texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 from . import stages
 from .scene_pack import PackedScene, pack_scene
 
 _F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 @dataclass
@@ -101,8 +116,9 @@ class DeferredRenderPipeline:
         The kernel path needs a bin_cap that is a multiple of
         raster_cuda.CHUNK: on a CUDA device any other bin_cap raises, on the
         CPU it turns use_pallas off as the JAX package does. `use_tex_kernel`
-        needs the fused G-buffer (use_pallas, tile_w a multiple of 128, even
-        tile_h); elsewhere it raises. The deferred pass is fused (kernel D)
+        takes the fused G-buffer with use_pallas, tile_w a multiple of 128,
+        an even tile_h and trilinear or bilinear filtering, and the planar
+        texture-cache G-buffer otherwise. The deferred pass is fused (kernel D)
         as in the JAX package: with at most 64 active lights, no
         `light_tile` and at most 4096 tile pixels; otherwise it is the
         unfused pass, with the env cache (kernel F) under use_tex_kernel and
@@ -128,9 +144,6 @@ class DeferredRenderPipeline:
         self.light_tile = light_tile
         self.light_cap = light_cap if light_cap is not None else max(
             128, -(-min(max_active_lights, 1024) // 128) * 128)
-        if texture_filter not in ("trilinear", "bilinear"):
-            raise not_ported(f"texture_filter={texture_filter!r}", "module queue: "
-                             "off-default paths")
         self.texture_filter = texture_filter
         if fused_light_dtype is not None:
             raise not_ported("fused_light_dtype", "module queue 8")
@@ -139,11 +152,6 @@ class DeferredRenderPipeline:
         # texture/env cache budgets: used by the texture-cache path only
         self.tex_caps = tex_caps
         self.tex_cascade = tex_cascade
-        cover_caps = (tuple(tex_caps[:2]) if tex_caps is not None else ()) + (
-            (tex_cascade[0],) if isinstance(tex_cascade, tuple) else ())
-        if cover_caps and max(cover_caps) > cover_cuda.MAX_CAP:
-            raise not_ported(f"texture-cache caps above {cover_cuda.MAX_CAP} "
-                             f"({cover_caps})", "kernel queue I")
         self.env_budget = env_budget
         self.raster_caps = raster_caps
         if use_pallas is None:
@@ -162,13 +170,11 @@ class DeferredRenderPipeline:
         self.use_tex_kernel = (bool(use_tex_kernel)
                                and texcache.pick_tile(self.render_h, self.render_w) is not None)
         # the fused G-buffer needs the raster tile to be the cache tile
-        # (128-pixel lane rows, even height for the 2x2 quads)
+        # (128-pixel lane rows, even height for the 2x2 quads); anisotropic
+        # filtering stays on the planar path (the multi-tap sampler)
         self.use_fused_gbuffer = (self.use_pallas and self.use_tex_kernel and tile_w % 128 == 0
-                                  and tile_h % 2 == 0)
-        if self.use_tex_kernel and not self.use_fused_gbuffer:
-            raise not_ported("the planar texture-cache path (use_tex_kernel without "
-                             "use_pallas, or with a tile that is not 128k wide and even "
-                             "high)", "kernel queue E")
+                                  and tile_h % 2 == 0
+                                  and texture_filter in ("trilinear", "bilinear"))
         # the fused deferred pass's light loop is serial over every active
         # light: it serves at most 64; more take the tiled lights (kernel G)
         self.use_fused_deferred = (self.use_fused_gbuffer and self.light_tile is None
@@ -327,20 +333,26 @@ class DeferredRenderPipeline:
                 tri_id, depth, planes = stages.rasterize_interp(
                     setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
                     raster_caps=self.raster_caps)
-                gb = gbuffer.gbuffer_shade_planar(tri_id, depth, planes, env["atlas"],
-                                                  self.texture_filter)
+                gb = gbuffer.gbuffer_shade_planar(
+                    tri_id, depth, planes, env["atlas"], self.texture_filter,
+                    use_tex_kernel=self.use_tex_kernel, tex_caps=self.tex_caps,
+                    tex_cascade=self.tex_cascade)
             else:
                 tri_id, depth = stages.rasterize(setup, bins, rw, rh, self.tile_h,
-                                                 self.tile_w)
-                gb = stages.gbuffer_shade(tri_id, depth, setup, env, vattrs, rw, rh,
-                                          texture_filter=self.texture_filter)
+                                                 self.tile_w, self.use_pallas,
+                                                 raster_caps=self.raster_caps)
+                gb = stages.gbuffer_shade(
+                    tri_id, depth, setup, env, vattrs, rw, rh,
+                    texture_filter=self.texture_filter, use_tex_kernel=self.use_tex_kernel,
+                    tex_caps=self.tex_caps, tex_cascade=self.tex_cascade)
             return {
                 "GBufferA": gb.albedo_emission,
                 "GBufferB": gb.normal_oct,
                 "GBufferC": gb.rough_metal_ao,
                 "GBufferDepthStencil": (gb.depth, gb.mask),
                 "BinCounts": bins.counts,
-                "TexApproxCount": torch.zeros((), dtype=torch.int32, device=self.device),
+                "TexApproxCount": (gb.tex_approx if gb.tex_approx is not None else
+                                   torch.zeros((), dtype=torch.int32, device=self.device)),
             }
 
         def deferred_pass(env):

@@ -40,9 +40,15 @@ def binning(setup, width: int, band_h: int, tile_h: int, tile_w: int, bin_cap: i
                                 y_offset=y_offset)
 
 
-def rasterize(setup, bins, width: int, band_h: int, tile_h: int, tile_w: int, y_offset=0):
-    """Depth-only raster: (tri_id, z), the plain path (the depth-only kernel,
-    TPU kernel H, is not ported yet)."""
+def rasterize(setup, bins, width: int, band_h: int, tile_h: int, tile_w: int,
+              use_pallas: bool, y_offset=0, raster_caps: tuple | None = None):
+    """Depth-only raster: (tri_id, z). With use_pallas, the depth-only kernel
+    (kernel H) with the two-pass list limits `raster_caps` (cap_small,
+    hot_k); otherwise the plain chunked fold over the whole lists."""
+    if use_pallas:
+        cs, hk = raster_caps if raster_caps is not None else (None, None)
+        return raster_cuda.rasterize_depth(setup, bins, width, band_h, tile_h, tile_w,
+                                           y_offset=y_offset, cap_small=cs, hot_k=hk)
     return raster.rasterize(setup, bins, width, band_h, tile_h, tile_w, y_offset=y_offset)
 
 
@@ -70,11 +76,16 @@ def rasterize_interp(setup, bins, buffers, vattrs, width: int, band_h: int, tile
 
 
 def gbuffer_shade(tri_id, depth, setup, buffers, vattrs, width: int, band_h: int,
-                  texture_filter: str, y_offset=0) -> gbuffer.GBuffer:
-    """G-buffer through the row-gather path (the use_pallas=False frame)."""
+                  texture_filter: str, y_offset=0, use_tex_kernel: bool = False,
+                  tex_caps: tuple | None = None, tex_cascade=False) -> gbuffer.GBuffer:
+    """G-buffer through the row-gather path (the use_pallas=False frame),
+    sampling through the texture cache (kernels B or I, and E) with
+    use_tex_kernel."""
     tri_rows = pack_rows64(setup, buffers, vattrs)
     return gbuffer.gbuffer_shade(tri_id, depth, tri_rows, buffers["atlas"], width, band_h,
-                                 y_offset=y_offset, texture_filter=texture_filter)
+                                 y_offset=y_offset, texture_filter=texture_filter,
+                                 use_tex_kernel=use_tex_kernel, tex_caps=tex_caps,
+                                 tex_cascade=tex_cascade)
 
 
 def active_lights(buffers, light_valid, view, max_active: int):

@@ -120,7 +120,13 @@ def test_cube_atlas_and_quad_samplers_match():
 
 
 def test_brdf_lut_matches_jax():
-    _close(tibl.brdf_lut(size=32), jibl.brdf_lut(size=32), rtol=0, atol=2e-5)
+    _close(tibl.brdf_lut(size=32, device="cpu"), jibl.brdf_lut(size=32), rtol=0, atol=2e-5)
+
+
+def test_brdf_lut_needs_a_device():
+    """An entry point of the port runs where its caller says: no CPU default."""
+    with pytest.raises(TypeError, match="device"):
+        tibl.brdf_lut(size=8)
 
 
 def test_prefilter_env_map_matches_jax():

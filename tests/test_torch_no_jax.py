@@ -2,9 +2,10 @@
 it keeps its own copies of the host modules it needs.
 
 tests/conftest.py imports jax into the test process, so the frames (the
-default path on an accelerator and the 1024-light path) are rendered in a
-fresh interpreter from the port's own scene and camera, which then reports
-whether jax or the JAX package was ever imported.
+default path on an accelerator, the 1024-light path and the planar
+texture-cache path) are rendered in a fresh interpreter from the port's own
+scene and camera, which then reports whether jax or the JAX package was ever
+imported.
 """
 
 import pathlib
@@ -82,6 +83,18 @@ cam.rotate(0, np.pi, 0.3)
 img = pipe.render(cam).numpy()
 assert img.shape == (48, 128, 3) and (img.max(-1) > 16).mean() > 0.05
 assert pipe.last_stats.visible_lights > 32
+# the planar texture-cache path: kernel A's planes at a 24x64 tile, the
+# cache on its own tiling (kernels B, E), the env cache (B, F)
+for sm in scene.models:
+    for m in sm.model.materials:
+        m.set_parameter("UseAlbedoMap", True)
+cfg = RenderConfig(width=128, height=48, max_instances=2, max_lights=16)
+pipe = DeferredRenderPipeline(scene, cfg, tile_h=24, tile_w=64, bin_cap=256,
+                              prefilter_size=8, brdf_lut_size=16, atlas_max_dim=64,
+                              use_pallas=True, use_tex_kernel=True, device="cpu")
+assert pipe.use_tex_kernel and not pipe.use_fused_gbuffer
+img = pipe.render(cam).numpy()
+assert img.shape == (48, 128, 3) and (img.max(-1) > 16).mean() > 0.05
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu"))
 print("imported:", bad)
 """
@@ -103,5 +116,5 @@ def test_package_sources_name_no_jax():
     assert offenders == []
     # every kernel wrapper launches or raises: no fallback to the plain version
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
-                 "lights_cuda", "env_resolve_cuda"):
+                 "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two_cuda"):
         assert "except" not in (PACKAGE / "ops" / f"{name}.py").read_text(), name

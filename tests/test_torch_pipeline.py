@@ -40,7 +40,8 @@ from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as 
 from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
 from direct12pbrrenderer_tpu.scene.camera import Camera
 from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
-from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, lights_cuda
+from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_two_cuda, env_resolve_cuda,
+                                              lights_cuda)
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.state import state_from_jax
 from test_env_isolation import _sky_cube
@@ -235,46 +236,55 @@ def test_light_tile_frame_matches_jax():
 
 # Each case names the ROADMAP item its knobs raise with, or, for a path that
 # is ported now, what the pipeline must take: (light_tile, use_fused_deferred,
-# env cache present)
+# env cache present, kernel E calls, kernel I row-scan calls) in one frame
 UNPORTED = [
-    (dict(use_tex_kernel=True), "kernel queue E"),
-    (dict(light_tile=(12, 64)), ((12, 64), False, False)),
-    (dict(max_active_lights=128, use_pallas=True), ((12, 64), False, False)),
-    (dict(texture_filter="anisotropic"), "module queue: off-default"),
+    # the planar texture-cache path without use_pallas (kernels B, E, F)
+    (dict(use_tex_kernel=True), (None, False, True, 1, 0)),
+    (dict(light_tile=(12, 64)), ((12, 64), False, False, 0, 0)),
+    (dict(max_active_lights=128, use_pallas=True), ((12, 64), False, False, 0, 0)),
+    # anisotropic filtering on the direct-atlas sampler
+    (dict(texture_filter="anisotropic"), (None, False, False, 0, 0)),
     (dict(fused_light_dtype="bfloat16"), "module queue 8"),
     (dict(tex_caps="auto"), "module queue 3"),
+    # caps above 128: the lo-half cover goes through kernel I
     (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_caps=(156, 44)),
-     "kernel queue I"),
+     (None, True, True, 0, 1)),
+    # a cascade cap above 128: the cascade cover goes through kernel I
     (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_cascade=(132, 8, 3)),
-     "kernel queue I"),
-    (dict(use_tex_kernel=True, use_pallas=False, **FUSED_KNOBS), "kernel queue E"),
+     (None, True, True, 0, 1)),
+    (dict(use_tex_kernel=True, use_pallas=False, **FUSED_KNOBS), (None, False, True, 1, 0)),
     # the fused G-buffer without the fused deferred pass (tiles above 4096 px)
     ({**FUSED_KNOBS, "tile_h": 48, "use_tex_kernel": True, "use_pallas": True},
-     (None, False, True)),
+     (None, False, True, 0, 0)),
 ]
 
 
 @pytest.mark.parametrize("knobs,item", UNPORTED,
                          ids=[f"knobs{i}" for i in range(len(UNPORTED))])
 def test_unported_knobs_raise(knobs, item):
-    """Every knob whose path needs a kernel that is not ported raises, naming
-    its ROADMAP item (on the CPU as on the card): use_tex_kernel at tile
-    12x64 needs the planar path's kernel E. The knobs of kernels F and G
-    take their path now: the unfused deferred pass, with the tiled lights
-    and/or the env cache, renders a frame through them."""
+    """Every knob whose path needs a module that is not ported raises, naming
+    its ROADMAP item (on the CPU as on the card). The knobs of the kernels
+    ported since take their path: the planar texture cache (kernel E), caps
+    above 128 (kernel I), anisotropic filtering, the unfused deferred pass
+    with the tiled lights and/or the env cache each render a frame through
+    their kernels."""
     scene, cam, cfg = _fused_scene(False)
     if isinstance(item, str):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
             DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
         return
-    light_tile, fused, env_cache = item
+    light_tile, fused, env_cache, n_resolve, n_scan = item
     p = DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
-    assert (p.light_tile, p.use_fused_deferred, "EnvCache" in p.buffers) == item
+    assert (p.light_tile, p.use_fused_deferred, "EnvCache" in p.buffers) == item[:3]
     with recording(env_resolve_cuda, "env_resolve") as env_calls, \
-            recording(lights_cuda, "point_lights_kernel") as light_calls:
+            recording(lights_cuda, "point_lights_kernel") as light_calls, \
+            recording(atlas_resolve_cuda, "atlas_resolve") as resolve_calls, \
+            recording(cover_two_cuda, "block_cover") as scan_calls:
         img = p.render(cam).numpy()
     assert img.shape == (cfg.height, cfg.width, 3) and (img.max(-1) > 16).mean() > 0.05
-    assert (len(light_calls), len(env_calls)) == (light_tile is not None, env_cache)
+    assert (len(light_calls), len(env_calls)) == (light_tile is not None,
+                                                  env_cache and not fused)
+    assert (len(resolve_calls), len(scan_calls)) == (n_resolve, n_scan)
 
 
 def test_knob_defaults_follow_the_device():
