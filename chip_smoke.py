@@ -69,8 +69,6 @@ PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic pa
 PTEX_TILE = (24, 160)     # the planar-tex cell's raster tile: not 128 wide
 CAP156 = (156, 44, None, (32, 16))  # a lo-half cap above kernel B's 128: kernel I
 RMSE_BAR = 1e-3          # uint8/255 frame rmse, the JAX package's fidelity bar
-ID_MISMATCH_BAR = 1e-4   # kernel-vs-plain winner disagreement (coverage ties)
-INTERP_RTOL, INTERP_ATOL, Z_ATOL = 1e-3, 1e-4, 1e-4
 SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of values
 D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
@@ -132,31 +130,48 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(phase, kernel_out, plain_out) -> tuple[float, int]:
-    """Hold the kernel's (tri_id, z, planes) against the plain version's with
-    the CPU tests' bars; returns (max abs error over agreeing pixels, number
-    of winner-id mismatches)."""
-    ids_k, z_k, pl_k = (t.cpu().numpy() for t in kernel_out)
-    ids_p, z_p, pl_p = (t.cpu().numpy() for t in plain_out)
-    mismatch = ids_k != ids_p
-    if mismatch.mean() >= ID_MISMATCH_BAR:
-        fail(phase, f"{int(mismatch.sum())} winner-id mismatches of {mismatch.size}")
-    agree = ~mismatch
-    hits = agree & (ids_p >= 0)
-    if not hits.any():
+def device_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
+    """Mean device time per run of `fn` (torch.profiler, after one warm-up):
+    of the kernels whose name contains `kernel` (the kernel alone, without
+    the wrapper's own tensor work), and of all its device work. Where the
+    second is well under the run's CUDA-event time, the card waits on the
+    host between the run's launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    us = sum(t for name, t in spans if kernel in name)
+    if us <= 0:
+        fail("device", f"torch.profiler recorded no device time for {kernel}")
+    return us / 1e3 / reps, sum(t for _, t in spans) / 1e3 / reps
+
+
+def compare(phase, got, want) -> tuple[float, int]:
+    """Hold a raster's outputs (tri_id, z[, planes]) against another's bit for
+    bit: kernels A and H and their plain versions evaluate the same float32
+    formulas with every product and sum rounded on its own and one tie rule.
+    Returns (max abs error of z and planes where the ids agree, id
+    mismatches), both 0 when it passes."""
+    ids_k, ids_p = got[0], want[0]
+    agree = ids_k == ids_p
+    if not (agree & (ids_p >= 0)).any():
         fail(phase, "no covered pixels")
-    interp_k, interp_p = pl_k[:8][:, agree], pl_p[:8][:, agree]
-    mat_k, mat_p = pl_k[8:][:, agree], pl_p[8:][:, agree]
-    if not np.array_equal(mat_k, mat_p):
-        fail(phase, "material planes differ where winner ids agree")
-    if not np.allclose(interp_k, interp_p, rtol=INTERP_RTOL, atol=INTERP_ATOL):
-        fail(phase, f"interp planes differ: max {np.abs(interp_k - interp_p).max():.3e}")
-    if not np.allclose(z_k[agree], z_p[agree], rtol=0.0, atol=Z_ATOL):
-        fail(phase, f"z differs: max {np.abs(z_k[agree] - z_p[agree]).max():.3e}")
-    if not (np.isfinite(pl_k).all() and np.isfinite(z_k).all()):
-        fail(phase, "non-finite kernel output")
-    return float(max(np.abs(pl_k[:, agree] - pl_p[:, agree]).max(initial=0.0),
-                     np.abs(z_k[agree] - z_p[agree]).max(initial=0.0))), int(mismatch.sum())
+    err = max(float((k - p).abs()[..., agree].max()) for k, p in zip(got[1:], want[1:]))
+    nmis = int((~agree).sum())
+    for name, k, p in zip(("tri_id", "z", "planes"), got, want):
+        if not torch.isfinite(k.float()).all():
+            fail(phase, f"non-finite {name}")
+        if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+            fail(phase, f"{name} not bit-equal: {nmis} id mismatches of {ids_k.numel()}, max "
+                 f"abs error {err:.3e} where the ids agree")
+    return err, nmis
 
 
 def nbytes(*xs) -> int:
@@ -684,28 +699,92 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     return launches
 
 
-def compare_depth(phase, got, want) -> tuple[float, int]:
-    """Hold a depth-only raster's (tri_id, z) against another's with kernel
-    A's bars; returns (max abs z error where ids agree, id mismatches)."""
-    ids_k, z_k = (t.cpu().numpy() for t in got)
-    ids_p, z_p = (t.cpu().numpy() for t in want)
-    mismatch = ids_k != ids_p
-    if mismatch.mean() >= ID_MISMATCH_BAR:
-        fail(phase, f"{int(mismatch.sum())} winner-id mismatches of {mismatch.size}")
-    agree = ~mismatch
-    if not (agree & (ids_p >= 0)).any() or not np.isfinite(z_k).all():
-        fail(phase, "no covered pixels or non-finite depth")
-    err = float(np.abs(z_k[agree] - z_p[agree]).max(initial=0.0))
-    if err > Z_ATOL:
-        fail(phase, f"z differs: max {err:.3e}")
-    return err, int(mismatch.sum())
+def fold_census(setup, bins, width, height, tile_h, tile_w) -> dict[str, int]:
+    """The depth fold's work on this frame, counted on the card from the
+    AABBs, the bin lists and the per-tile list limits of kernels A and H
+    (defaults of `resolve_caps`): (pixel, listed candidate) pairs in all;
+    those a chunk-level band skip leaves (every listed entry of a 128-entry
+    chunk in which some entry's y-extents meet an 8-row band, times the
+    band's pixels: the earlier fold's only reject); those the per-warp AABB
+    reject leaves (candidates meeting the band and a warp's 16x8 rectangle,
+    times its pixels); and those whose
+    pixel lies inside the candidate's integer AABB, the only pairs a
+    candidate can cover. Also the longest list, the most survivors of any
+    band and of any warp rectangle, the kernels' work items at their slice
+    length ((tile, band, slice) items in all and bands split across blocks),
+    and the listed entries and the distinct triangles among them, the rows
+    the kernels read."""
+    from direct12pbrrenderer_tpu_torch.ops import raster_cuda
+
+    num_tiles, cap = bins.ids.shape
+    cap_small, hot_k = raster_cuda.resolve_caps(cap, num_tiles, None, None)
+    limits = raster_cuda.tile_limits(bins.counts, cap, cap_small, hot_k)
+    dev = bins.ids.device
+    bands = -(-tile_h // 8)
+    slices = (limits.long() + raster_cuda.SLICE - 1).div(raster_cuda.SLICE,
+                                                         rounding_mode="floor").clamp(min=1)
+    listed = ((torch.arange(cap, device=dev)[None, :] < limits[:, None].long())
+              & (bins.ids >= 0))
+    xmin, ymin, xmax, ymax = raster_cuda.raster_extents(setup)[
+        bins.ids.clamp(min=0).long()].unbind(-1)                   # each (tiles, cap)
+    t = torch.arange(num_tiles, device=dev)[:, None]
+    ox = (t % (width // tile_w) * tile_w).float()
+    oy = (t // (width // tile_w) * tile_h).float()
+
+    def span(lo, hi, a, b):  # integer pixels of [lo, hi) inside [a, b)
+        return (torch.minimum(hi, b) - torch.maximum(lo, a)).clamp(min=0).long()
+
+    out = {"all": tile_h * tile_w * int(listed.sum()),
+           "inside": int((span(xmin, xmax, ox, ox + tile_w) * span(ymin, ymax, oy, oy + tile_h)
+                          * listed).sum()),
+           "band_skip": 0, "warp_reject": 0, "longest_list": int(limits.max()),
+           "slice": raster_cuda.SLICE, "items": bands * int(slices.sum()),
+           "split_bands": bands * int((slices > 1).sum()),
+           "listed": int(listed.sum()),
+           "distinct": int(torch.unique(bins.ids[listed]).numel()),
+           "most_band_survivors": 0, "most_warp_survivors": 0}
+    for y0 in range(0, tile_h, 8):
+        rows = min(8, tile_h - y0)
+        lo, hi = oy + y0, oy + y0 + rows
+        meets_y = listed & (ymin < hi) & (ymax > lo)
+        chunk_hit = meets_y.view(num_tiles, -1, 128).any(-1)
+        per_chunk = listed.view(num_tiles, -1, 128).sum(-1)
+        out["band_skip"] += rows * tile_w * int((per_chunk * chunk_hit).sum())
+        band = meets_y & (xmin < ox + tile_w) & (xmax > ox)
+        out["most_band_survivors"] = max(out["most_band_survivors"], int(band.sum(1).max()))
+        for x0 in range(0, tile_w, 16):
+            x1 = min(x0 + 16, tile_w)
+            warp = (band & (xmin < ox + x1) & (xmax > ox + x0)).sum(1)
+            out["warp_reject"] += rows * (x1 - x0) * int(warp.sum())
+            out["most_warp_survivors"] = max(out["most_warp_survivors"], int(warp.max()))
+    return out
 
 
-def raster_depth_stage(phase, setup, bins, rows64, width, height, measured, bounds) -> int:
+def census_line(c: dict[str, int]) -> str:
+    return (f"(pixel, listed candidate) pairs: all {c['all']:.4g}, after a per-chunk band skip "
+            f"{c['band_skip']:.4g}, after the warp reject {c['warp_reject']:.4g}, inside the "
+            f"AABB {c['inside']:.4g}; longest list {c['longest_list']}, most survivors of a "
+            f"band {c['most_band_survivors']}, of a 16x8 warp rectangle "
+            f"{c['most_warp_survivors']}; work items at slices of {c['slice']} entries "
+            f"{c['items']}, bands split across blocks {c['split_bands']}; {c['listed']} listed "
+            f"entries of {c['distinct']} distinct triangles")
+
+
+def fold_read_bytes(census, bins) -> int:
+    """Bytes that kernels A's and H's fold must read on this frame: the bin
+    counts (the per-tile list limits come from them), each listed entry's id
+    once, and 20 words of each distinct listed triangle's row once (its 16
+    raster floats and its AABB); a triangle no list holds is never read."""
+    return nbytes(bins.counts) + census["listed"] * 4 + census["distinct"] * 20 * 4
+
+
+def raster_depth_stage(phase, setup, bins, rows64, width, height, census, smi, measured,
+                       bounds) -> int:
     """Kernel H on the default frame's geometry: the depth-only raster stage
     `stages.rasterize(use_pallas=True)` (its path, with the launch counts set
     to 0 just before and read just after), then H against its plain version
-    and against kernel A's ids and depths. Returns H's launches on the path."""
+    and against kernel A's ids and depths, bit for bit. Returns H's launches
+    on the path."""
     from direct12pbrrenderer_tpu_torch.ops import raster_cuda
     from direct12pbrrenderer_tpu_torch.pipeline import stages
 
@@ -717,28 +796,28 @@ def raster_depth_stage(phase, setup, bins, rows64, width, height, measured, boun
     if n_h != 1:
         fail(phase, f"stages.rasterize(use_pallas=True) launched kernel H {n_h} times, want 1")
     args = (setup, bins, width, height, TILE_H, TILE_W)
-    err, nmis = compare_depth(phase, got, raster_cuda.rasterize_depth_reference(*args))
+    err, _ = compare(phase, got, raster_cuda.rasterize_depth_reference(*args))
     ids_a, z_a, _ = raster_cuda.rasterize_interp(setup, bins, rows64, width, height, TILE_H,
                                                  TILE_W)
-    err_a, nmis_a = compare_depth(phase, got, (ids_a, z_a))
+    compare(phase, got, (ids_a, z_a))
     del ids_a, z_a
     ms = cuda_ms(lambda: raster_cuda.rasterize_depth(*args), 20)
+    alone_ms, busy_ms = device_ms(lambda: raster_cuda.rasterize_depth(*args), 10,
+                                  "raster_depth_kernel")
     plain_ms = cuda_ms(lambda: raster_cuda.rasterize_depth_reference(*args), 2)
-    # 2 words out per pixel; each listed candidate's id and its raster row
-    # (16 floats) and y-extents (2) once; about 23 flops per pixel and
-    # candidate (kernel A's fold without the winner's interpolation)
-    counts = bins.counts.cpu().numpy()
-    listed = float(np.minimum(counts, bins.ids.shape[1]).sum())
-    n_px = width * height
-    bounds["raster_depth"] = bound(n_px * 2 * 4 + setup.edges.shape[0] * 18 * 4 + listed * 4,
-                                   TILE_H * TILE_W * listed * 23)
-    measured["raster_depth"] = (err, ms, plain_ms)
+    # 2 words out per pixel and the fold's reads; 23 flops per (pixel,
+    # candidate) pair whose pixel lies inside the candidate's AABB (kernel
+    # A's fold without the winner's interpolation)
+    bounds["raster_depth"] = bound(width * height * 2 * 4 + fold_read_bytes(census, bins),
+                                   census["inside"] * 23)
+    measured["raster_depth"] = (err, ms, plain_ms, alone_ms)
     say(phase, f"stages.rasterize(use_pallas=True) on the default {width}x{height} frame "
-        f"({setup.edges.shape[0]} tris, {listed:.0f} listed candidates): kernel H launched "
-        f"{n_h}; vs its plain version {nmis} id mismatches, max z diff {err:.3e}; vs kernel A "
-        f"{nmis_a} id mismatches, max z diff {err_a:.3e} (bars: {ID_MISMATCH_BAR} of pixels, "
-        f"z {Z_ATOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bounds['raster_depth'][0]:.4f} ms ({bounds['raster_depth'][1]})")
+        f"({setup.edges.shape[0]} tris): kernel H launched {n_h}; ids and z bit-equal to its "
+        f"plain version and to kernel A's; kernel through its wrapper {ms:.4f} ms (CUDA "
+        f"events; device busy {busy_ms:.4f} ms of it, torch.profiler), the kernel alone "
+        f"{alone_ms:.4f} ms (torch.profiler), plain "
+        f"{plain_ms:.4f} ms, bound {bounds['raster_depth'][0]:.4f} ms "
+        f"({bounds['raster_depth'][1]}) on {smi}; {census_line(census)}")
     return n_h
 
 
@@ -769,8 +848,8 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     err, nmis = compare("kernel-frame-160", raster_cuda.rasterize_interp(*args),
                         raster_cuda.rasterize_interp_reference(*args))
     say("kernel-frame-160", f"{W}x{H} at tile {PTEX_TILE[0]}x{PTEX_TILE[1]} "
-        f"({bins.ids.shape[0]} tiles, bin counts max {int(bins.counts.max())}): ok, id "
-        f"mismatches {nmis}, max_abs_err {err:.3e}, kernel "
+        f"({bins.ids.shape[0]} tiles, bin counts max {int(bins.counts.max())}): bit-equal (id "
+        f"mismatches {nmis}, max_abs_err {err:.3e}), kernel "
         f"{cuda_ms(lambda: raster_cuda.rasterize_interp(*args), 10):.4f} ms")
     del setup, bins, rows64, args
 
@@ -990,7 +1069,7 @@ def main() -> None:
     err, nmis = compare("kernel-random", raster_cuda.rasterize_interp(*args, **caps),
                         raster_cuda.rasterize_interp_reference(*args, **caps))
     say("kernel-random", f"{w}x{h} 2500 tris cap {cap} cap_small 128 hot_k {caps['hot_k']} "
-        f"of {n_over} overfull: ok, id mismatches {nmis}, max_abs_err {err:.3e}, kernel "
+        f"of {n_over} overfull: bit-equal (id mismatches {nmis}, max_abs_err {err:.3e}), kernel "
         f"{cuda_ms(lambda: raster_cuda.rasterize_interp(*args, **caps), 20):.4f} ms, plain "
         f"{cuda_ms(lambda: raster_cuda.rasterize_interp_reference(*args, **caps), 5):.4f} ms")
 
@@ -1023,29 +1102,42 @@ def main() -> None:
                           raster_cuda.rasterize_interp_reference(*args))
     ms_a = cuda_ms(lambda: raster_cuda.rasterize_interp(*args), 20)
     plain_ms_a = cuda_ms(lambda: raster_cuda.rasterize_interp_reference(*args), 3)
-    # the same launch with every bin list cut to one chunk: what is left is
+
+    def alone(**caps):  # the kernel's own device time, and all the call's device work
+        return device_ms(lambda: raster_cuda.rasterize_interp(*args, **caps), 10,
+                         "raster_interp_kernel")
+
+    # the kernel alone with every bin list cut to one chunk: what is left is
     # the output and the first chunk, so the difference is the longer lists
-    one_chunk_ms = cuda_ms(lambda: raster_cuda.rasterize_interp(
-        *args, cap_small=raster_cuda.CHUNK, hot_k=0), 20)
+    (alone_ms_a, busy_ms_a), (one_chunk_ms, _) = alone(), alone(cap_small=raster_cuda.CHUNK,
+                                                                  hot_k=0)
     counts = bins.counts.cpu().numpy()
-    # output 26 words per pixel; each listed candidate's id once, each row
-    # once; about 23 flops per pixel and candidate (3 edge scores, the
-    # barycentric denominator and depth, one division) and 45 per pixel for
-    # the winner's 8 interpolated channels
-    tile_px, n_px = TILE_H * TILE_W, pipe.render_w * pipe.render_h
-    listed = float(np.minimum(counts, BIN_CAP).sum())
+    census = fold_census(setup, bins, pipe.render_w, pipe.render_h, TILE_H, TILE_W)
+    # output 26 words per pixel, the fold's reads and the 40 payload words of
+    # each distinct winner; 23 flops (3 edge scores, the barycentric
+    # denominator and depth, one division) per (pixel, candidate) pair whose
+    # pixel lies inside the candidate's AABB, and 45 per pixel for the
+    # winner's 8 interpolated channels
+    n_px = pipe.render_w * pipe.render_h
+    ids_a = raster_cuda.rasterize_interp(*args)[0]
+    winners = int(torch.unique(ids_a[ids_a >= 0]).numel())
+    del ids_a
     bounds = {"raster_interp": bound(
-        n_px * 26 * 4 + nbytes(rows64, bins.counts) + listed * 4,
-        tile_px * listed * 23 + n_px * 45)}
+        n_px * 26 * 4 + fold_read_bytes(census, bins) + winners * 40 * 4,
+        census["inside"] * 23 + n_px * 45)}
     say("kernel-frame", f"{W}x{H} {rows64.shape[0]} tris, bin counts p50 "
         f"{np.percentile(counts, 50):.0f} p99 {np.percentile(counts, 99):.0f} max "
-        f"{counts.max()}: ok, id mismatches {nmis}, max_abs_err {err_a:.3e}, kernel "
-        f"{ms_a:.4f} ms, plain {plain_ms_a:.4f} ms, bound {bounds['raster_interp'][0]:.4f} ms "
-        f"({bounds['raster_interp'][1]}); kernel with every list cut to "
-        f"{raster_cuda.CHUNK} candidates {one_chunk_ms:.4f} ms")
-    measured = {"raster_interp": (err_a, ms_a, plain_ms_a)}
+        f"{counts.max()}: ids, z and planes bit-equal to the plain version (id mismatches "
+        f"{nmis}, max_abs_err {err_a:.3e}); kernel through its wrapper {ms_a:.4f} ms (CUDA "
+        f"events; device busy {busy_ms_a:.4f} ms of it, torch.profiler), the kernel alone "
+        f"{alone_ms_a:.4f} ms (torch.profiler), plain "
+        f"{plain_ms_a:.4f} ms, bound {bounds['raster_interp'][0]:.4f} ms "
+        f"({bounds['raster_interp'][1]}; {winners} distinct winners) on {smi}; the kernel "
+        f"alone with every list cut to {raster_cuda.CHUNK} entries {one_chunk_ms:.4f} ms (full "
+        f"lists {alone_ms_a / one_chunk_ms:.2f}x); {census_line(census)}")
+    measured = {"raster_interp": (err_a, ms_a, plain_ms_a, alone_ms_a)}
     n_h = raster_depth_stage("kernel-raster-depth", setup, bins, rows64, pipe.render_w,
-                             pipe.render_h, measured, bounds)
+                             pipe.render_h, census, smi, measured, bounds)
 
     # ---- kernels B, C, D vs plain versions on one default frame's inputs ---
     with contextlib.ExitStack() as stack:
@@ -1228,7 +1320,9 @@ def main() -> None:
         "replaces": KERNELS[name][0], "launches": launches[name],
         "max_abs_err": measured[name][0], "ms": measured[name][1],
         "plain_ms": measured[name][2], "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1], "library_ms": None} for name in KERNELS]}))
+        "bound_by": bounds[name][1], "library_ms": None,
+        # A and H: the kernel's own device time beside "ms", the wrapper's
+        "kernel_ms": (measured[name] + (None,))[3]} for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@ or raises. Both kernels share one depth fold (`csrc/raster_fold.cuh`).
 Two-pass semantics of the TPU kernel: every tile renders the first
 `min(count, cap_small)` entries of its bin list, and the `hot_k` tiles with
 the largest counts render `min(count, cap)`. Here that is one limit per tile
-and one launch; the hot set is picked with a stable descending sort, so ties
-go to the lower tile index exactly like `lax.top_k`.
+and one launch (`tile_limits`, which the kernels compute from the bin counts
+themselves); ties go to the lower tile index exactly like `lax.top_k`.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from . import gbuffer, raster
 
 CHUNK = 128  # candidates per staged chunk (the TPU kernel's lane width)
+SLICE = 4 * CHUNK  # list entries one kernel block folds at most (raster_fold::kSlice)
 
 
 def split_caps(cap: int, num_tiles: int) -> tuple[int, int]:
@@ -49,16 +50,30 @@ def pack_raster_rows(setup: raster.TriangleSetup) -> torch.Tensor:
     return torch.cat([e[:, 0:2], ec0[:, None], e[:, 3:9], setup.z, setup.w_clip, tri_id], 1)
 
 
+def raster_extents(setup: raster.TriangleSetup) -> torch.Tensor:
+    """(T, 4) [xmin, ymin, xmax, ymax]: the conservative integer screen AABB
+    (binning's) that the kernels' band and per-warp rejects test; -3e38 for
+    an invalid triangle, whose xmax then exceeds no pixel edge, so it meets
+    no rectangle."""
+    return torch.where(setup.valid[:, None], setup.aabb, -3e38)
+
+
 def pack_rows64(setup: raster.TriangleSetup, payload: torch.Tensor) -> torch.Tensor:
-    """The kernel's (T, 64) per-triangle row: [raster row 16 | payload 40
-    (material 16, vertex attr rows 24) | aabb ymin/ymax 2 | pad 6]. The
-    y-extents feed the kernel's per-band chunk reject and never meet a band
-    for invalid triangles."""
+    """Kernel A's (T, 64) per-triangle row: [raster row 16 | payload 40
+    (material 16, vertex attr rows 24) | AABB 4 (`raster_extents`) | pad 4]."""
+    pad = torch.zeros((setup.edges.shape[0], 4), dtype=torch.float32, device=payload.device)
+    return torch.cat([pack_raster_rows(setup), payload, raster_extents(setup), pad], 1)
+
+
+def pack_depth_rows(setup: raster.TriangleSetup) -> torch.Tensor:
+    """Kernel H's (T, 20) per-triangle row, in two launches: [edges 9, z 3,
+    w 3 (`pack_raster_rows`' columns 0:15) | a copy of w2, not read | AABB 4
+    (`raster_extents`)], every column -3e38 for an invalid triangle (its AABB
+    meets nothing, so its row is never read)."""
     t = setup.edges.shape[0]
-    ymin = torch.where(setup.valid, setup.aabb[:, 1], 3e38)
-    ymax = torch.where(setup.valid, setup.aabb[:, 3], -3e38)
-    pad = torch.zeros((t, 6), dtype=torch.float32, device=payload.device)
-    return torch.cat([pack_raster_rows(setup), payload, ymin[:, None], ymax[:, None], pad], 1)
+    row = torch.cat([setup.edges.reshape(t, 9), setup.z, setup.w_clip, setup.w_clip[:, 2:],
+                     setup.aabb], 1)
+    return torch.where(setup.valid[:, None], row, -3e38)
 
 
 def resolve_caps(cap: int, num_tiles: int, cap_small: int | None, hot_k: int | None):
@@ -126,9 +141,9 @@ def _check_raster_args(rows, width, height, tile_h, tile_w, bins, row_cols):
     if width % tile_w or height % tile_h:
         raise ValueError(f"canvas {width}x{height} is not a whole number of "
                          f"{tile_h}x{tile_w} tiles")
-    if min(tile_h, 8) * tile_w > 4096:
-        raise ValueError(f"tile width {tile_w} exceeds the kernel's 512 (8-row bands of "
-                         "at most 4096 pixels)")
+    if tile_w > 512:
+        raise ValueError(f"tile width {tile_w} exceeds the kernel's 512 (one warp per 16 "
+                         "columns, at most 32 warps a block)")
     if cap % CHUNK:
         raise ValueError(f"bin cap {cap} must be a multiple of {CHUNK}")
     if tuple(ids.shape) != (num_tiles, cap) or tuple(counts.shape) != (num_tiles,):
@@ -145,26 +160,78 @@ def _check_raster_args(rows, width, height, tile_h, tile_w, bins, row_cols):
     return num_tiles, cap
 
 
+def merge_scratch(width: int, height: int, tile_h: int, num_tiles: int, device):
+    """The kernels' scratch for hot lists split across blocks, all -1 (all
+    ones): H * W per-pixel merge keys, then the work-queue counter, the
+    finished-blocks counter and one finished-slices counter per (tile,
+    8-row band). A launch leaves it all ones again."""
+    bands = -(-tile_h // 8)
+    return torch.full((height * width + 2 + num_tiles * bands,), -1, dtype=torch.int64,
+                      device=device)
+
+
+_SCRATCH: dict = {}  # (device, stream, width, height, tile_h, num_tiles) -> merge_scratch
+
+
+def _scratch(width: int, height: int, tile_h: int, num_tiles: int, device):
+    """The `merge_scratch` of this shape for launches on the device's current
+    stream: filled once, then reused, since every launch leaves it all ones."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream, width, height, tile_h,
+           num_tiles)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = merge_scratch(width, height, tile_h, num_tiles, device)
+    return _SCRATCH[key]
+
+
+def _check_kernel_tensors(rows, ext, ids, counts, scratch, num_tiles: int, height: int,
+                          width: int, tile_h: int):
+    """Check the tensors a raster launch hands its kernel: all on the rows'
+    device; rows (T, 20 or 64) and the AABBs (T, 4) float32, 16-byte aligned
+    with rows of whole float4s (the kernel copies raster rows with cp.async
+    and loads each AABB as one float4); bin ids (tiles, cap) and counts
+    (tiles,) int32; the `merge_scratch` int64. Rows, ids, counts and scratch
+    are contiguous; `ext` is a column slice of the rows (columns 56:60 of
+    kernel A's rows64, 16:20 of kernel H's rows)."""
+    t = rows.shape[0]
+    n_scratch = height * width + 2 + num_tiles * -(-tile_h // 8)
+    for name, x, dtype, shape in (("rows", rows, torch.float32, (t, rows.shape[1])),
+                                  ("AABBs", ext, torch.float32, (t, 4)),
+                                  ("bin ids", ids, torch.int32, (num_tiles, ids.shape[1])),
+                                  ("bin counts", counts, torch.int32, (num_tiles,)),
+                                  ("scratch", scratch, torch.int64, (n_scratch,))):
+        if x.device != rows.device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape} on {rows.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if x is not ext and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if ext.stride(1) != 1 or ext.stride(0) % 4 or rows.data_ptr() % 16 or ext.data_ptr() % 16:
+        raise ValueError("rows and AABBs must start 16-byte aligned, in rows of whole float4s")
+
+
 def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_small, hot_k):
     if rows64.device.type != "cuda":
         raise ValueError(f"rasterize_interp: unsupported device {rows64.device}")
     num_tiles, cap = _check_raster_args(rows64, width, height, tile_h, tile_w, bins, 64)
     rows64 = rows64.contiguous()
     ids = bins.ids.contiguous()
+    counts = bins.counts.contiguous()
+    # the kernel derives tile_limits(counts, cap, cap_small, hot_k) itself
     cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
-    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
-
     dev = rows64.device
+    scratch = _scratch(width, height, tile_h, num_tiles, dev)
+    # the AABB rides rows64 columns 56:60 (pack_rows64)
+    _check_kernel_tensors(rows64, rows64[:, 56:60], ids, counts, scratch, num_tiles, height,
+                          width, tile_h)
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     planes = torch.empty((24, height, width), dtype=torch.float32, device=dev)
     lib = _library("raster_interp")
     with torch.cuda.device(dev):
         err = lib.raster_interp_launch(
-            rows64.data_ptr(), ids.data_ptr(), cap, limits.data_ptr(), num_tiles,
-            width, height, tile_h, tile_w, float(y_offset),
-            tri_id.data_ptr(), z.data_ptr(), planes.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            rows64.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
+            num_tiles, width, height, tile_h, tile_w, float(y_offset), scratch.data_ptr(),
+            scratch[height * width:].data_ptr(), tri_id.data_ptr(), z.data_ptr(),
+            planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"raster_interp kernel launch failed: CUDA error {err}")
@@ -184,23 +251,24 @@ def rasterize_depth(setup: raster.TriangleSetup, bins: raster.Bins, width: int, 
                                          y_offset, cap_small, hot_k)
     if setup.edges.device.type != "cuda":
         raise ValueError(f"rasterize_depth: unsupported device {setup.edges.device}")
-    rows = pack_raster_rows(setup)
-    num_tiles, cap = _check_raster_args(rows, width, height, tile_h, tile_w, bins, 16)
+    rows = pack_depth_rows(setup)
+    num_tiles, cap = _check_raster_args(rows, width, height, tile_h, tile_w, bins, 20)
     cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
-    limits = tile_limits(bins.counts, cap, cap_small, hot_k)
-    # the y-extents feed the band skip; they never meet a band when invalid
-    yext = torch.stack([torch.where(setup.valid, setup.aabb[:, 1], 3e38),
-                        torch.where(setup.valid, setup.aabb[:, 3], -3e38)], 1).contiguous()
-    ids = bins.ids.contiguous()
+    ids, counts = bins.ids.contiguous(), bins.counts.contiguous()
     dev = rows.device
+    scratch = _scratch(width, height, tile_h, num_tiles, dev)
+    # the AABB rides columns 16:20 (pack_depth_rows)
+    _check_kernel_tensors(rows, rows[:, 16:20], ids, counts, scratch, num_tiles, height, width,
+                          tile_h)
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     lib = _library("raster_depth")
     with torch.cuda.device(dev):
         err = lib.raster_depth_launch(
-            rows.data_ptr(), yext.data_ptr(), ids.data_ptr(), cap, limits.data_ptr(),
-            num_tiles, width, tile_h, tile_w, float(y_offset), tri_id.data_ptr(),
-            z.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            rows.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
+            num_tiles, width, tile_h, tile_w, float(y_offset), scratch.data_ptr(),
+            scratch[height * width:].data_ptr(), tri_id.data_ptr(), z.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"raster_depth kernel launch failed: CUDA error {err}")
         rasterize_depth.launches += 1
@@ -210,8 +278,8 @@ def rasterize_depth(setup: raster.TriangleSetup, bins: raster.Bins, width: int, 
 rasterize_depth.launches = 0  # kernel launches in this process (reset by callers)
 
 _ARGTYPES = {  # the launch functions' C arguments: pointer, int, float
-    "raster_interp": "ppipiiiiifpppp",
-    "raster_depth": "pppipiiiifppp",
+    "raster_interp": "ppipiiiiiiifpppppp",
+    "raster_depth": "ppipiiiiiifppppp",
 }
 
 

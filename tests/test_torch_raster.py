@@ -159,7 +159,7 @@ def test_pack_raster_rows_matches():
 
 
 def test_pack_rows64_layout():
-    """Raster row, payload, y-extents (poisoned for invalid triangles), pad."""
+    """Raster row, payload, the AABB (poisoned for invalid triangles), pad."""
     _, ts, _ = _setups(300, 0)
     ts = ts._replace(valid=ts.valid & (torch.arange(300) % 7 != 0))
     payload = torch.as_tensor(np.random.default_rng(5).uniform(-1, 1, (300, 40)),
@@ -169,10 +169,9 @@ def test_pack_rows64_layout():
     np.testing.assert_array_equal(rows[:, :16].numpy(), trc.pack_raster_rows(ts).numpy())
     np.testing.assert_array_equal(rows[:, 16:56].numpy(), payload.numpy())
     v = ts.valid.numpy()
-    np.testing.assert_array_equal(rows[v, 56].numpy(), ts.aabb[v, 1].numpy())
-    np.testing.assert_array_equal(rows[v, 57].numpy(), ts.aabb[v, 3].numpy())
-    assert (rows[~v, 56] == 3e38).all() and (rows[~v, 57] == -3e38).all()
-    assert (rows[:, 58:] == 0).all()
+    np.testing.assert_array_equal(rows[v, 56:60].numpy(), ts.aabb[v].numpy())
+    assert (rows[~v, 56:60] == -3e38).all()
+    assert (rows[:, 60:] == 0).all()
 
 
 def test_rasterize_interp_rejects_unported_and_foreign_devices():
