@@ -130,18 +130,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call of `fn` without the host between its
+    launches: CUDA events around replays of a CUDA graph that captured one
+    call (after a warm-up call, which fills the kernels' grid caches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
 def device_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
     """Mean device time per run of `fn` (torch.profiler, after one warm-up):
     of the kernels whose name contains `kernel` (the kernel alone, without
     the wrapper's own tensor work), and of all its device work. Where the
     second is well under the run's CUDA-event time, the card waits on the
-    host between the run's launches."""
+    host between the run's launches. Host activities are recorded too: with
+    the device's alone, the trace lost kernels on an H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -571,13 +586,15 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
             and not pipe.use_fused_deferred and "EnvCache" in pipe.buffers):
         fail("scene-lights1k", "the pipeline on the card is not the 1024-light kernel path")
     with recording(lights_cuda, "point_lights_kernel") as light_calls, \
+            recording(lights_cuda, "point_lights_tiled") as tiled_calls, \
             recording(env_resolve_cuda, "env_resolve") as env_calls:
         pipe.render(cam)
         torch.cuda.synchronize()
-    if (len(light_calls), len(env_calls)) != (1, 1):
-        fail("scene-lights1k", f"a frame made {len(light_calls)} light and {len(env_calls)} "
-             "env-resolve calls, want 1 and 1")
+    if (len(light_calls), len(tiled_calls), len(env_calls)) != (1, 1, 1):
+        fail("scene-lights1k", f"a frame made {len(light_calls)} light, {len(tiled_calls)} "
+             f"tiled-light and {len(env_calls)} env-resolve calls, want 1, 1 and 1")
     (gargs, gkw), = light_calls
+    tiled_call, = tiled_calls
     (fargs, _), = env_calls
     listed = gargs[0].cpu().numpy()
     say("scene-lights1k", f"stress scene {pipe.packed.tris.shape[0]} tris, "
@@ -603,24 +620,43 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
              f"{G_RTOL}/atol {G_ATOL}")
     err_g = float(np.abs(a[..., :3][masked] - b[..., :3][masked]).max(initial=0.0))
     ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel(*gargs, **gkw), 20)
+    alone_g = graph_ms(lambda: lights_cuda.point_lights_kernel(*gargs, **gkw), 20)
     plain_ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel_reference(*gargs, **gkw), 2)
+    c = light_census(gargs, gkw, got[..., 3])
+    if c["list_mismatches"] >= G_COUNTER_FRAC * same.size:
+        fail("kernel-lights", f"{c['list_mismatches']} pixels whose plain cluster list "
+             f"(cluster_light_lists_reference) admits another count than the kernel")
     # every input once, the (tiles, p, 4) output; the work this frame's data
     # needs (csrc/point_lights.cu, a sqrt or division counted as one): about
-    # 100 flops of setup per pixel, 18 for the cluster sphere test per pixel
-    # and listed light, and 100 for the Cook-Torrance terms per admitted light
-    # (the kernel's own hit counters, at most 32 per pixel)
-    p_g = gargs[3].shape[1]
-    pairs = float(p_g * np.minimum(listed, gargs[2].shape[-1]).sum())
-    admitted = float(a[..., 3].astype(np.float64).sum())
-    bounds["point_lights"] = bound(nbytes(*gargs) + a.size * 4,
-                                   a.shape[0] * p_g * 100 + pairs * 18 + admitted * 100)
-    measured["point_lights"] = (err_g, ms_g, plain_ms_g)
-    say("kernel-lights", f"{tuple(gargs[3].shape)} G-buffer, rows {tuple(gargs[2].shape)}, "
-        f"{pairs:.4g} pixel-light pairs, {admitted:.4g} admitted: ok, "
+    # 100 flops of setup per pixel, 18 for the cluster sphere test per
+    # distinct (tile, cluster) and list position walked up to its 32nd hit,
+    # and 100 for the Cook-Torrance terms per admitted light of a pixel with
+    # mask 1. The earlier bound charged the sphere test to every (pixel,
+    # listed light) pair and the terms to every admitted light.
+    n_bytes = nbytes(*gargs) + a.size * 4
+    n_px = a.shape[0] * a.shape[1]
+    bounds["point_lights"] = bound(n_bytes, n_px * 100 + c["tile_cluster_tests"] * 18
+                                   + c["admitted_masked"] * 100)
+    old_bound = bound(n_bytes, n_px * 100 + c["pairs"] * 18 + c["admitted"] * 100)
+    measured["point_lights"] = (err_g, ms_g, plain_ms_g, alone_g)
+    say("kernel-lights", f"{tuple(gargs[3].shape)} G-buffer, rows {tuple(gargs[2].shape)}: ok, "
         f"{int((~same).sum())} hit-count mismatches of "
         f"{same.size}, max abs rgb diff {err_g:.3e} (rtol {G_RTOL}/atol {G_ATOL}), kernel "
-        f"{ms_g:.4f} ms, plain {plain_ms_g:.4f} ms, bound {bounds['point_lights'][0]:.4f} ms "
-        f"({bounds['point_lights'][1]})")
+        f"{ms_g:.4f} ms through its wrapper (CUDA events), the kernel alone {alone_g:.4f} ms "
+        f"(CUDA graph replays), plain {plain_ms_g:.4f} ms, bound "
+        f"{bounds['point_lights'][0]:.4f} ms "
+        f"({bounds['point_lights'][1]}; the earlier bound over every (pixel, listed light) "
+        f"pair {old_bound[0]:.4f} ms, {old_bound[1]}); census: {c['pairs']:.4g} (pixel, "
+        f"listed light) pairs, {c['tile_cluster_tests']:.4g} (tile, cluster) sphere tests up "
+        f"to the 32nd hit, {c['lane_tests']:.4g} lane tests of the kernel's (warp, cluster) "
+        f"walks ({c['warp_groups']} walks over {c['warps']} warps, at most {c['most_keys']} "
+        f"clusters in a warp); distinct clusters per tile p50 {c['clusters_p50']:.0f} max "
+        f"{c['clusters_max']} ({c['clusters']} in all); {c['admitted']:.4g} admitted "
+        f"({c['admitted_masked']:.4g} on pixels with mask 1), shaded in {c['shade_steps']:.4g} "
+        f"warp steps (lane use {c['admitted_masked'] / (32 * max(1, c['shade_steps'])):.3f})")
+    split = lights_pass_split(*tiled_call)
+    say("kernel-lights", "point_lights_tiled on the frame's inputs, device ms by step (CUDA "
+        "events): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     del got, want, a, b
 
     # ---- kernel F vs its plain version on the frame's inputs ----------------
@@ -645,7 +681,7 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
         f"ok (max abs diff {err_f:.3e}, rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_f:.4f} ms, "
         f"plain {plain_ms_f:.4f} ms, bound {bounds['env_resolve'][0]:.4f} ms "
         f"({bounds['env_resolve'][1]})")
-    del got, want, gargs, fargs, light_calls, env_calls
+    del got, want, gargs, fargs, light_calls, tiled_calls, tiled_call, env_calls
 
     # ---- the 1024-light path: A, B, C, F, G; never D ------------------------
     path = camera_path(cam, WARMUP + FRAMES)
@@ -697,6 +733,82 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
         f"{rmse_j:.6f}, tex_approx_taps {st_j.tex_approx_taps}, env_approx_taps "
         f"{st_j.env_approx_taps}, light_tile_overflow {st_j.light_tile_overflow}")
     return launches
+
+
+def light_census(args, kw, counter) -> dict[str, int]:
+    """Kernel G's work on one frame, counted on the card from the plain
+    versions of its steps: (pixel, listed light) pairs, the sphere tests of
+    one walk per distinct (tile, cluster) up to its 32nd hit, the lane tests
+    of the kernel's walks (one per distinct cluster of each warp, 32 lanes a
+    step; one staging window per tile at caps up to 1024), the distinct
+    clusters per tile, the admitted lights (all, and of pixels with mask 1),
+    the shading loop's warp steps (each warp as long as its longest lit
+    list), and the pixels whose list admits another count than the kernel's
+    `counter` (tiles, p)."""
+    from direct12pbrrenderer_tpu_torch.ops import lights_cuda
+
+    counts, const, rows_t, gb_t = args
+    tiles, p, _ = gb_t.shape
+    dev = gb_t.device
+    key = lights_cuda.pixel_cluster_keys(const, gb_t, **kw)
+    pos, n = lights_cuda.cluster_light_lists_reference(*args, **kw)
+    listed = torch.clamp(counts, max=rows_t.shape[-1]).long()[:, None].expand(tiles, p)
+    walked = torch.where(n == 32, pos[..., 31].long() + 1, listed)
+    tile = torch.arange(tiles, device=dev)[:, None]
+    warp = torch.arange(p, device=dev)[None, :] // 32
+    n_warps = -(-p // 32)
+
+    def groups(ids):  # distinct ids, each with its walk length
+        u, inv = torch.unique(ids, return_inverse=True)
+        return u, torch.zeros(u.numel(), dtype=torch.long, device=dev).scatter_(
+            0, inv.flatten(), walked.flatten())
+
+    per_tile, w_tile = groups(tile * lights_cuda.KEYS_PER_TILE + key)
+    per_tile = torch.bincount(per_tile // lights_cuda.KEYS_PER_TILE, minlength=tiles)
+    u_warp, w_warp = groups((tile * n_warps + warp) * lights_cuda.KEYS_PER_TILE + key)
+    keys_per_warp = torch.bincount(u_warp // lights_cuda.KEYS_PER_TILE)
+    mask = gb_t[..., 9] > 0.5
+    # the shading loop: a warp steps as often as its longest lit pixel's list
+    lit_n = torch.nn.functional.pad(torch.where(mask, n, 0), (0, n_warps * 32 - p))
+    shade_steps = int(lit_n.view(tiles, n_warps, 32).max(-1).values.sum())
+    return {"pairs": p * int(listed[:, 0].sum()), "tile_cluster_tests": int(w_tile.sum()),
+            "shade_steps": shade_steps,
+            "lane_tests": 32 * int(((w_warp + 31) // 32).sum()), "warp_groups": u_warp.numel(),
+            "warps": tiles * n_warps, "most_keys": int(keys_per_warp.max()),
+            "clusters": int(per_tile.sum()),
+            "clusters_p50": float(per_tile.float().median()),
+            "clusters_max": int(per_tile.max()), "admitted": int(n.long().sum()),
+            "admitted_masked": int(n[mask].long().sum()),
+            "list_mismatches": int((n.float() != counter).sum())}
+
+
+def lights_pass_split(args, kw) -> dict[str, float]:
+    """Device ms of each step of `point_lights_tiled` on one call's inputs
+    (CUDA events), from the steps it runs (`point_lights_steps`: the tile
+    light lists, the staging of the listed light rows, the G-buffer tiling,
+    the const vector, kernel G and the untiling); then the whole call."""
+    from direct12pbrrenderer_tpu_torch.ops import lights_cuda as lc
+
+    steps = lc.point_lights_steps(*args, **kw)
+    done = {}
+    for name, step in steps:
+        done[name] = step(done)
+    ms = {name: cuda_ms(lambda: step(done), 10) for name, step in steps}
+    return {**ms, "whole call": cuda_ms(lambda: lc.point_lights_tiled(*args, **kw), 10)}
+
+
+def cover_census(pages, act, block_cap: int):
+    """Kernel B's work on one call: the live candidates of each (tile,
+    group) item (each row's distinct active pages, at most block_cap) and
+    whether the item has no active pixel. -> ((tiles, g) int, (tiles, g)
+    bool)."""
+    from direct12pbrrenderer_tpu_torch.ops import cover_cuda
+
+    srt = torch.where(act, pages, cover_cuda.SENTINEL).sort(-1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[..., 1:] = srt[..., 1:] != srt[..., :-1]
+    per_row = (new & (srt != cover_cuda.SENTINEL)).sum(-1).clamp(max=block_cap)
+    return per_row.sum(-1), ~act.flatten(2).any(-1)
 
 
 def fold_census(setup, bins, width, height, tile_h, tile_w) -> dict[str, int]:
@@ -1150,7 +1262,8 @@ def main() -> None:
         fail("kernel-cover", f"a default frame made {len(cover_calls)} cover, "
              f"{len(shade_calls)} resolve-shade and {len(deferred_calls)} deferred calls, "
              "want 4, 1, 1")
-    parts, cover_ms, cover_plain_ms, cover_bytes = [], [], [], 0
+    parts, cover_ms, cover_alone_ms, cover_plain_ms = [], [], [], []
+    cover_bytes = plane_bytes = 0
     for (cargs, ckw), what in zip(cover_calls, ("texture fallback", "texture lo half",
                                                 "texture hi half", "env")):
         got = cover_cuda.fused_cover(*cargs, **ckw)
@@ -1158,20 +1271,37 @@ def main() -> None:
         for g, r, out in zip(got, want, ("list", "count", "slot", "covered")):
             if not torch.equal(g, r):
                 fail("kernel-cover", f"{what}: {out} differs from the plain version")
-        cover_bytes += nbytes(cargs[0], cargs[1], *got)   # pages, act in; four outputs
+        tiles, g_, blocks, _ = cargs[0].shape
+        live, empty = cover_census(cargs[0], cargs[1], cargs[3])
+        # act of every item in, the four outputs out, and the pages of the
+        # items with an active pixel only: an empty item's outputs are 0
+        # whatever its pages hold (the TPU kernel's whole-tile gate)
+        call_bytes = nbytes(cargs[1], *got) + (
+            int((~empty).sum()) * blocks * 128 * cargs[0].element_size())
+        cover_bytes += call_bytes
+        plane_bytes += nbytes(cargs[0], cargs[1], *got)
         k_ms = cuda_ms(lambda: cover_cuda.fused_cover(*cargs, **ckw), 20)
         p_ms = cuda_ms(lambda: cover_cuda.fused_cover_reference(*cargs, **ckw), 5)
+        alone = graph_ms(lambda: cover_cuda.fused_cover(*cargs, **ckw), 20)
         cover_ms.append(k_ms)
+        cover_alone_ms.append(alone)
         cover_plain_ms.append(p_ms)
-        tiles, g_, blocks, _ = cargs[0].shape
         parts.append(f"{what} ({tiles}x{g_}x{blocks}x128, caps {max(cargs[2])}, block_cap "
-                     f"{cargs[3]}; {float(cargs[1].float().mean()):.3f} active) kernel "
-                     f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+                     f"{cargs[3]}; {float(cargs[1].float().mean()):.3f} active; live "
+                     f"candidates per item p50 {float(live.float().median()):.0f} max "
+                     f"{int(live.max())}, empty items {float(empty.float().mean()):.3f}) kernel "
+                     f"{k_ms:.4f} ms (the kernel alone {alone:.4f}), "
+                     f"plain {p_ms:.4f} ms, bound {bound(call_bytes)[0]:.4f} ms "
+                     f"({call_bytes / 1e6:.1f} MB)")
     ms_b, plain_ms_b = sum(cover_ms), sum(cover_plain_ms)
     bounds["fused_cover"] = bound(cover_bytes)
     say("kernel-cover", "4 calls of one default 1080p frame, all four outputs bit-equal: "
-        + "; ".join(parts) + f"; per frame kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, "
-        f"bound {bounds['fused_cover'][0]:.4f} ms (bytes)")
+        + "; ".join(parts) + f"; per frame kernel {ms_b:.4f} ms through its wrapper (CUDA "
+        f"events), the kernel alone {sum(cover_alone_ms):.4f} ms (CUDA graph replays), plain "
+        f"{plain_ms_b:.4f} ms, "
+        f"bound {bounds['fused_cover'][0]:.4f} ms (bytes: act, outputs and the pages of "
+        f"non-empty items, {cover_bytes / 1e6:.1f} MB; {bound(plane_bytes)[0]:.4f} ms over "
+        f"every item's pages, {plane_bytes / 1e6:.1f} MB)")
 
     (sargs, skw), = shade_calls
     err_c = check_shade("kernel-resolve-shade", resolve_shade_cuda.resolve_shade(*sargs, **skw),
@@ -1301,7 +1431,7 @@ def main() -> None:
         f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ")
     del planar, ref
     torch.cuda.empty_cache()
-    measured.update({"fused_cover": (0.0, ms_b, plain_ms_b),
+    measured.update({"fused_cover": (0.0, ms_b, plain_ms_b, sum(cover_alone_ms)),
                      "resolve_shade": (err_c, ms_c, plain_ms_c),
                      "deferred_shade": (err_d, ms_d, plain_ms_d)})
 
@@ -1321,7 +1451,8 @@ def main() -> None:
         "max_abs_err": measured[name][0], "ms": measured[name][1],
         "plain_ms": measured[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,
-        # A and H: the kernel's own device time beside "ms", the wrapper's
+        # the kernel's own device time beside "ms", the wrapper's: A and H by
+        # torch.profiler, B and G by CUDA graph replays of the wrapper's call
         "kernel_ms": (measured[name] + (None,))[3]} for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -69,7 +69,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include <mutex>
+#include "persistent_grid.cuh"
 
 namespace raster_fold {
 
@@ -448,44 +448,16 @@ __device__ __forceinline__ void fold_tiles(const Args& a, Write write) {
   }
 }
 
-// Launch `kernel` (a fold_tiles loop) with the persistent grid: as many
-// blocks of `threads` as fit on the current device at once, and the dynamic
-// shared memory of the tiles' limits and work prefix. The grid of the last (kernel,
-// device, threads, shared memory) is kept, so a repeated call makes no
-// attribute or occupancy query. Returns the CUDA error (0 = launched).
+// Launch `kernel` (a fold_tiles loop) with the persistent grid
+// (persistent_grid.cuh) and the dynamic shared memory of the tiles' limits
+// and work prefix. Returns the CUDA error (0 = launched).
 template <class Kernel, class... Params>
 inline int launch_persistent(Kernel kernel, int threads, int num_tiles, cudaStream_t stream,
                              Params... params) {
-  struct Grid {
-    const void* fn;
-    int dev, threads;
-    size_t smem;
-    int blocks;
-  };
-  static std::mutex mu;
-  static Grid last{nullptr, -1, 0, 0, 0};
   const size_t smem = (size_t)(3 * num_tiles + 1) * sizeof(int);
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  int dev = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (last.fn == fn && last.dev == dev && last.threads == threads && last.smem == smem)
-      blocks = last.blocks;
-  }
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    blocks = sms * per_sm;
-    std::lock_guard<std::mutex> lock(mu);
-    last = Grid{fn, dev, threads, smem, blocks};
-  }
+  int blocks = 0;
+  const int e = persistent::grid(kernel, threads, smem, &blocks);
+  if (e != 0) return e;
   kernel<<<blocks, threads, smem, stream>>>(params...);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,11 @@
 `ops/texcache.py::_fused_cover_pallas` (kernel B).
 
 `fused_cover` launches the hand-written CUDA kernel `csrc/fused_cover.cu` for
-CUDA tensors; for CPU tensors it runs `fused_cover_reference`, the plain
-PyTorch version. There is no fallback between the two: a CUDA input either
-launches the kernel or raises.
+CUDA tensors (persistent blocks that read the planes in place through their
+strides, prefetch the next (tile, group) item and merge the rows' sorted
+candidates; its header says why); for CPU tensors it runs
+`fused_cover_reference`, the plain PyTorch version. There is no fallback
+between the two: a CUDA input either launches the kernel or raises.
 
 Per (tile, group) of `pages`/`act` (tiles, g, blocks, 128):
 * each 128-pixel row keeps its `block_cap` smallest distinct active pages
@@ -52,10 +54,11 @@ def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: 
     if len(caps) != g or g > MAX_GROUPS or not 0 < min(caps) <= cap_max <= MAX_CAP:
         raise ValueError(f"need {g} <= {MAX_GROUPS} group caps in 1..{MAX_CAP}, got {caps}")
     if not 0 < blocks <= 32 or block_cap < 1:
-        raise ValueError(f"the kernel takes 1..32 rows per tile (one warp each) and "
-                         f"block_cap >= 1, got {blocks} rows, block_cap {block_cap}")
-    pages = pages.contiguous()
-    act = act.contiguous()
+        raise ValueError(f"the kernel takes 1..32 rows per tile and block_cap >= 1, got "
+                         f"{blocks} rows, block_cap {block_cap}")
+    # the kernel reads both planes in place through their strides (the
+    # texture covers' arrive with the group innermost): no copy
+    strides = [(ctypes.c_longlong * 4)(*x.stride()) for x in (pages, act)]
     dev = pages.device
     page_list = torch.empty((tiles, g, cap_max), dtype=torch.int32, device=dev)
     count = torch.empty((tiles, g), dtype=torch.int32, device=dev)
@@ -67,9 +70,9 @@ def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: 
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.fused_cover_launch(
-            pages.data_ptr(), act.data_ptr(), tiles, g, blocks, block_cap, cap_max,
-            cap_struct, page_list.data_ptr(), count.data_ptr(), slot.data_ptr(),
-            cov.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            pages.data_ptr(), strides[0], act.data_ptr(), strides[1], tiles, g, blocks,
+            block_cap, cap_max, cap_struct, page_list.data_ptr(), count.data_ptr(),
+            slot.data_ptr(), cov.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fused_cover kernel launch failed: CUDA error {err}")
         fused_cover.launches += 1
@@ -85,8 +88,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load(_KERNEL)
     fn = lib.fused_cover_launch
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, _Caps, p, p, p, p, p]
+        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [p, s, p, s, i, i, i, i, i, _Caps, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 

@@ -11,20 +11,25 @@ walks only the lights that can touch a screen tile:
    ascending light order, so the per-cluster cap of 32 admits the same
    lights as the dense sweep's serial counter;
 2. `point_lights_tiled` stages each tile's listed light rows (lights on
-   lanes), the tile's G-buffer and a 32-float const vector, runs kernel G and
-   untiles its output.
+   lanes, `stage_light_rows`), the tile's G-buffer (`tile_gbuffer`) and a
+   32-float const vector (`light_constants`), runs kernel G and untiles its
+   output (`untile`).
 
 `point_lights_kernel` launches the hand-written CUDA kernel
 `csrc/point_lights.cu` for CUDA tensors; for CPU tensors it runs
 `point_lights_kernel_reference`, the plain PyTorch version, which follows
 the TPU kernel op for op, 128-light chunk sums included. There is no
 fallback between the two: a CUDA input either launches the kernel or raises.
+The CUDA kernel builds one admitted list per distinct cluster and shades
+only the admitted lights; `cluster_light_lists_reference` is the plain
+version of those lists (the tests and `chip_smoke.py`'s census use it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -34,6 +39,7 @@ CHUNK = 128      # lights per staged chunk (the TPU kernel's lane width)
 ROW_LEN = 16     # staged light row: the 14 active-light columns + 2 zero
 GB_CH = 12       # [albedo(3), normal(3), roughness, metallic, z_view, mask, pad(2)]
 CONST_LEN = 32
+MAX_CAP = 65536  # the kernel keeps admitted list positions as uint16
 _EPS = 1e-6
 _INV_PI = 0.31830988618
 _PI = 3.14159265359
@@ -121,8 +127,9 @@ def point_lights_kernel(counts, const, rows_t, gb_t, *, tile_h: int, tile_w: int
     if p != tile_h * tile_w or ch != GB_CH or tiles % tiles_x:
         raise ValueError(f"gb_t must be (tiles, {tile_h * tile_w}, {GB_CH}) over whole rows "
                          f"of {tiles_x} tiles, got {tuple(gb_t.shape)}")
-    if cap % CHUNK or cap < CHUNK:
-        raise ValueError(f"the light cap must be a positive multiple of {CHUNK}, got {cap}")
+    if cap % CHUNK or not CHUNK <= cap <= MAX_CAP:
+        raise ValueError(f"the light cap must be a multiple of {CHUNK} in {CHUNK}..{MAX_CAP}, "
+                         f"got {cap}")
     shapes = {"counts": (counts, (tiles,), torch.int32),
               "const": (const, (CONST_LEN,), torch.float32),
               "rows_t": (rows_t, (tiles, ROW_LEN, cap), torch.float32),
@@ -132,6 +139,8 @@ def point_lights_kernel(counts, const, rows_t, gb_t, *, tile_h: int, tile_w: int
             raise ValueError(f"{name} must be {shape} {dtype} on {gb_t.device}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
     c = [x.contiguous() for x in (counts, const, rows_t, gb_t)]
+    if c[3].data_ptr() % 16:   # the kernel reads each pixel's 12 floats as 3 float4
+        c[3] = c[3].clone()
     dev = gb_t.device
     out = torch.empty((tiles, p, 4), dtype=torch.float32, device=dev)
     lib = _library()
@@ -179,14 +188,48 @@ def point_lights_kernel_reference(counts, const, rows_t, gb_t, *, tile_h: int, t
         for s in range(0, tiles, per)])
 
 
-def _reference_tiles(counts, const, rows_t, gb_t, first: int, *, tile_h, tile_w, tiles_x):
+def _cluster_aabb(const, sx, sy, szf):
+    """A cluster's view-space AABB in closed form from its indices (sx, sy,
+    szf), the kernel's expressions in its order: (cminx, cmaxx, cminy,
+    cmaxy, znear_c, zfar_c), shaped as the indices."""
+    tan_half, ratio, near, fn_ratio = const[0], const[1], const[2], const[20]
+    znear_c = near * torch.pow(fn_ratio, szf / CLUSTER_Z)
+    zfar_c = near * torch.pow(fn_ratio, (szf + 1) / CLUSTER_Z)
+    min_nx = 2.0 * sx / CLUSTER_X - 1.0
+    min_ny = 2.0 * sy / CLUSTER_Y - 1.0
+    max_nx = 2.0 * (sx + 1) / CLUSTER_X - 1.0
+    max_ny = 2.0 * (sy + 1) / CLUSTER_Y - 1.0
+    xa, xb = min_nx * ratio * tan_half * znear_c, min_nx * ratio * tan_half * zfar_c
+    xc, xd = max_nx * ratio * tan_half * znear_c, max_nx * ratio * tan_half * zfar_c
+    ya, yb = min_ny * tan_half * znear_c, min_ny * tan_half * zfar_c
+    yc, yd = max_ny * tan_half * znear_c, max_ny * tan_half * zfar_c
+    return (torch.minimum(torch.minimum(xa, xb), torch.minimum(xc, xd)),
+            torch.maximum(torch.maximum(xa, xb), torch.maximum(xc, xd)),
+            torch.minimum(torch.minimum(ya, yb), torch.minimum(yc, yd)),
+            torch.maximum(torch.maximum(ya, yb), torch.maximum(yc, yd)),
+            znear_c, zfar_c)
+
+
+def _sphere_hits(aabb, pvx, pvy, pvz, cull):
+    """The cluster sphere test: a light's culling sphere (view-space center,
+    radius) meets the cluster AABB."""
+    cminx, cmaxx, cminy, cmaxy, znear_c, zfar_c = aabb
+    dx = pvx - torch.minimum(torch.maximum(pvx, cminx), cmaxx)
+    dy = pvy - torch.minimum(torch.maximum(pvy, cminy), cmaxy)
+    dz = pvz - torch.minimum(torch.maximum(pvz, znear_c), zfar_c)
+    return (dx * dx + dy * dy + dz * dz) < cull * cull
+
+
+def _pixel_setup(const, gb_t, first: int, *, tile_h, tile_w, tiles_x):
+    """Kernel G's per-pixel setup on tiles first.. of gb_t (n_t, p, 12):
+    world position, view vector, material terms, cluster indices (sx, sy,
+    szf) and cluster AABB, each (n_t, p, 1)."""
     n_t, p, _ = gb_t.shape
-    cap = rows_t.shape[-1]
     dev = gb_t.device
     tan_half, ratio, near, far = const[0], const[1], const[2], const[3]
     camx, camy, camz = const[4], const[5], const[6]
     yoff, width, full_h = const[7], const[17], const[18]
-    log_zr, fn_ratio = const[19], const[20]
+    log_zr = const[19]
 
     t = torch.arange(first, first + n_t, device=dev)[:, None, None]
     lin = torch.arange(p, device=dev)[None, :, None]
@@ -198,10 +241,9 @@ def _reference_tiles(counts, const, rows_t, gb_t, first: int, *, tile_h, tile_w,
     def ch(c):
         return gb_t[:, :, c:c + 1]                    # (n_t, p, 1)
 
-    alb_r, alb_g, alb_b = ch(0), ch(1), ch(2)
-    nx, ny, nz = ch(3), ch(4), ch(5)
+    s = SimpleNamespace(alb=(ch(0), ch(1), ch(2)), nx=ch(3), ny=ch(4), nz=ch(5),
+                        mask=ch(9) > 0.5)
     rough, metal, z_view = ch(6), ch(7), ch(8)
-    mask = ch(9) > 0.5
 
     # world position: cam + R @ ((u-.5)nw, (.5-v)nh, near) * z_view/near
     u = px / width
@@ -211,96 +253,191 @@ def _reference_tiles(counts, const, rows_t, gb_t, first: int, *, tile_h, tile_w,
     cx_ = (u - 0.5) * near_w
     cy_ = (0.5 - v) * near_h
     scale = z_view / near
-    posx = camx + (const[8] * cx_ + const[9] * cy_ + const[10] * near) * scale
-    posy = camy + (const[11] * cx_ + const[12] * cy_ + const[13] * near) * scale
-    posz = camz + (const[14] * cx_ + const[15] * cy_ + const[16] * near) * scale
-    vdx, vdy, vdz = camx - posx, camy - posy, camz - posz
+    s.posx = camx + (const[8] * cx_ + const[9] * cy_ + const[10] * near) * scale
+    s.posy = camy + (const[11] * cx_ + const[12] * cy_ + const[13] * near) * scale
+    s.posz = camz + (const[14] * cx_ + const[15] * cy_ + const[16] * near) * scale
+    vdx, vdy, vdz = camx - s.posx, camy - s.posy, camz - s.posz
     # 1 / sqrt, both correctly rounded, as the CUDA kernel computes it (the
     # TPU kernel's rsqrt is within an ulp of it)
     inv_vl = 1.0 / torch.sqrt(torch.clamp(vdx * vdx + vdy * vdy + vdz * vdz, min=1e-40))
-    vdx, vdy, vdz = vdx * inv_vl, vdy * inv_vl, vdz * inv_vl
-    n_dot_v = torch.clamp(nx * vdx + ny * vdy + nz * vdz, min=0.0)
+    s.vdx, s.vdy, s.vdz = vdx * inv_vl, vdy * inv_vl, vdz * inv_vl
+    s.n_dot_v = torch.clamp(s.nx * s.vdx + s.ny * s.vdy + s.nz * s.vdz, min=0.0)
 
-    # per-pixel cluster AABB (view space, closed form)
-    sx = torch.clamp(torch.floor(u * CLUSTER_X), 0, CLUSTER_X - 1)
-    sy = torch.clamp(torch.floor((1.0 - v) * CLUSTER_Y), 0, CLUSTER_Y - 1)
+    # per-pixel cluster indices and AABB (view space, closed form)
+    s.sx = torch.clamp(torch.floor(u * CLUSTER_X), 0, CLUSTER_X - 1)
+    s.sy = torch.clamp(torch.floor((1.0 - v) * CLUSTER_Y), 0, CLUSTER_Y - 1)
     zc_ = torch.minimum(torch.maximum(z_view, near), far)
-    szf = torch.clamp(torch.floor(CLUSTER_Z * torch.log(zc_ / near) / log_zr), 0, CLUSTER_Z - 1)
-    znear_c = near * torch.pow(fn_ratio, szf / CLUSTER_Z)
-    zfar_c = near * torch.pow(fn_ratio, (szf + 1) / CLUSTER_Z)
-    min_nx = 2.0 * sx / CLUSTER_X - 1.0
-    min_ny = 2.0 * sy / CLUSTER_Y - 1.0
-    max_nx = 2.0 * (sx + 1) / CLUSTER_X - 1.0
-    max_ny = 2.0 * (sy + 1) / CLUSTER_Y - 1.0
-    xa, xb = min_nx * ratio * tan_half * znear_c, min_nx * ratio * tan_half * zfar_c
-    xc, xd = max_nx * ratio * tan_half * znear_c, max_nx * ratio * tan_half * zfar_c
-    ya, yb = min_ny * tan_half * znear_c, min_ny * tan_half * zfar_c
-    yc, yd = max_ny * tan_half * znear_c, max_ny * tan_half * zfar_c
-    cminx = torch.minimum(torch.minimum(xa, xb), torch.minimum(xc, xd))
-    cmaxx = torch.maximum(torch.maximum(xa, xb), torch.maximum(xc, xd))
-    cminy = torch.minimum(torch.minimum(ya, yb), torch.minimum(yc, yd))
-    cmaxy = torch.maximum(torch.maximum(ya, yb), torch.maximum(yc, yd))
+    s.szf = torch.clamp(torch.floor(CLUSTER_Z * torch.log(zc_ / near) / log_zr), 0,
+                        CLUSTER_Z - 1)
+    s.aabb = _cluster_aabb(const, s.sx, s.sy, s.szf)
 
     # material precomputes
-    f0 = [0.04 * (1.0 - metal) + a * metal for a in (alb_r, alb_g, alb_b)]
-    kd_alb = [a * (1.0 - metal) * _INV_PI for a in (alb_r, alb_g, alb_b)]
+    s.f0 = [0.04 * (1.0 - metal) + a * metal for a in s.alb]
+    s.kd_alb = [a * (1.0 - metal) * _INV_PI for a in s.alb]
     a_r = rough * rough
-    a2 = a_r * a_r
-    k_geo = (rough + 1.0) * (rough + 1.0) * (1.0 / 8.0)
-    g_v = n_dot_v / torch.clamp(n_dot_v * (1.0 - k_geo) + k_geo, min=_EPS)
+    s.a2 = a_r * a_r
+    s.k_geo = (rough + 1.0) * (rough + 1.0) * (1.0 / 8.0)
+    s.g_v = s.n_dot_v / torch.clamp(s.n_dot_v * (1.0 - s.k_geo) + s.k_geo, min=_EPS)
+    return s
+
+
+def _light_terms(s, lp):
+    """The Cook-Torrance terms of lights lp (columns 0..9 of the light rows,
+    each broadcastable against the pixels of `s`): (lum, [f_c] * 3), a
+    light's contribution to channel c being f_c[c] * (color[c] * lum)."""
+    ldx, ldy, ldz = lp[0] - s.posx, lp[1] - s.posy, lp[2] - s.posz
+    dist = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
+    inv_d = 1.0 / torch.clamp(dist, min=1e-20)
+    ldx, ldy, ldz = ldx * inv_d, ldy * inv_d, ldz * inv_d
+    n_dot_l = torch.clamp(s.nx * ldx + s.ny * ldy + s.nz * ldz, min=0.0)
+    hx, hy, hz = ldx + s.vdx, ldy + s.vdy, ldz + s.vdz
+    inv_h = 1.0 / torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=_EPS)
+    n_dot_h = torch.clamp((s.nx * hx + s.ny * hy + s.nz * hz) * inv_h, min=0.0)
+    t_ = n_dot_h * n_dot_h * (s.a2 - 1.0) + 1.0
+    d_ggx = s.a2 / torch.clamp(_PI * t_ * t_, min=_EPS)
+    g_l = n_dot_l / torch.clamp(n_dot_l * (1.0 - s.k_geo) + s.k_geo, min=_EPS)
+    g_smith = s.g_v * g_l
+    spec_s = d_ggx * g_smith / torch.clamp(4.0 * n_dot_l * s.n_dot_v, min=1e-4)
+    one_m = torch.clamp(1.0 - n_dot_l, min=_EPS)
+    om2 = one_m * one_m
+    pow5 = om2 * om2 * one_m
+    att = 1.0 / torch.clamp(lp[7] + lp[8] * dist + lp[9] * (dist * dist), min=_EPS)
+    lum = lp[6] * att * n_dot_l
+    f_c = []
+    for k in range(3):
+        fres = s.f0[k] + (1.0 - s.f0[k]) * pow5
+        f_c.append((1.0 - fres) * s.kd_alb[k] + fres * spec_s)
+    return lum, f_c
+
+
+def _reference_tiles(counts, const, rows_t, gb_t, first: int, *, tile_h, tile_w, tiles_x):
+    n_t = gb_t.shape[0]
+    cap = rows_t.shape[-1]
+    dev = gb_t.device
+    s = _pixel_setup(const, gb_t, first, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)
 
     n_chunks = (torch.clamp(counts, max=cap) + CHUNK - 1) // CHUNK
     tri = (torch.arange(CHUNK, device=dev)[:, None]
            < torch.arange(CHUNK, device=dev)[None, :]).float()
-    acc = [torch.zeros_like(z_view) for _ in range(3)]
-    counter = torch.zeros_like(z_view)
+    acc = [torch.zeros_like(s.n_dot_v) for _ in range(3)]
+    counter = torch.zeros_like(s.n_dot_v)
     for c in range(int(n_chunks.max()) if n_t else 0):
         live = (c < n_chunks)[:, None, None]          # the tile's loop runs chunk c
         lp = rows_t[:, :, c * CHUNK:(c + 1) * CHUNK][:, :, None, :]   # (n_t, 16, 1, CHUNK)
-        lpx, lpy, lpz = lp[:, 0], lp[:, 1], lp[:, 2]
-        lc = lp[:, 3], lp[:, 4], lp[:, 5]
-        inten, kc, kl, kq = lp[:, 6], lp[:, 7], lp[:, 8], lp[:, 9]
-        pvx, pvy, pvz, cull = lp[:, 10], lp[:, 11], lp[:, 12], lp[:, 13]
+        lp = lp.unbind(1)
 
         # cluster sphere test (pixel x light)
-        dx = pvx - torch.minimum(torch.maximum(pvx, cminx), cmaxx)
-        dy = pvy - torch.minimum(torch.maximum(pvy, cminy), cmaxy)
-        dz = pvz - torch.minimum(torch.maximum(pvz, znear_c), zfar_c)
-        raw = (dx * dx + dy * dy + dz * dz) < cull * cull          # (n_t, p, CHUNK)
+        raw = _sphere_hits(s.aabb, *lp[10:14])                      # (n_t, p, CHUNK)
         excl = raw.float() @ tri                                    # exclusive lane prefix sum
         ok = raw & (counter + excl < float(MAX_LIGHTS_PER_CLUSTER))
 
-        ldx, ldy, ldz = lpx - posx, lpy - posy, lpz - posz
-        dist = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
-        inv_d = 1.0 / torch.clamp(dist, min=1e-20)
-        ldx, ldy, ldz = ldx * inv_d, ldy * inv_d, ldz * inv_d
-        n_dot_l = torch.clamp(nx * ldx + ny * ldy + nz * ldz, min=0.0)
-        hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
-        inv_h = 1.0 / torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=_EPS)
-        n_dot_h = torch.clamp((nx * hx + ny * hy + nz * hz) * inv_h, min=0.0)
-        t_ = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
-        d_ggx = a2 / torch.clamp(_PI * t_ * t_, min=_EPS)
-        g_l = n_dot_l / torch.clamp(n_dot_l * (1.0 - k_geo) + k_geo, min=_EPS)
-        g_smith = g_v * g_l
-        spec_s = d_ggx * g_smith / torch.clamp(4.0 * n_dot_l * n_dot_v, min=1e-4)
-        one_m = torch.clamp(1.0 - n_dot_l, min=_EPS)
-        om2 = one_m * one_m
-        pow5 = om2 * om2 * one_m
-        att = 1.0 / torch.clamp(kc + kl * dist + kq * (dist * dist), min=_EPS)
-        lum = inten * att * n_dot_l
+        lum, f_c = _light_terms(s, lp)
         okf = torch.where(ok, lum, 0.0)
         for k in range(3):
-            fres = f0[k] + (1.0 - f0[k]) * pow5
-            f_c = (1.0 - fres) * kd_alb[k] + fres * spec_s
-            acc[k] = torch.where(live, acc[k] + (f_c * (lc[k] * okf)).sum(-1, keepdim=True),
+            acc[k] = torch.where(live, acc[k] + (f_c[k] * (lp[3 + k] * okf)).sum(-1, keepdim=True),
                                  acc[k])
         counter = torch.where(live, counter + ok.float().sum(-1, keepdim=True), counter)
 
-    maskf = mask.float()
+    maskf = s.mask.float()
     return torch.cat([acc[0] * maskf, acc[1] * maskf, acc[2] * maskf, counter], -1)
 
 
+# ----------------------------------------------- the kernel's cluster lists ----
+_NAN_SLICE = CLUSTER_Z   # the key's slice for a NaN depth: its AABB is NaN, it admits nothing
+KEYS_PER_TILE = CLUSTER_X * CLUSTER_Y * (CLUSTER_Z + 1)
+
+
+def pixel_cluster_keys(const, gb_t, *, tile_h: int, tile_w: int, tiles_x: int):
+    """(tiles, p) int64 cluster key of every pixel within its tile, sx + 24
+    (sy + 16 szf): the CUDA kernel's grouping (it packs szf's bits instead;
+    a NaN slice gets key slice 8 here)."""
+    s = _pixel_setup(const, gb_t, 0, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)
+    szf = torch.where(torch.isnan(s.szf), float(_NAN_SLICE), s.szf)
+    return (s.sx + CLUSTER_X * (s.sy + CLUSTER_Y * szf))[..., 0].long()
+
+
+def cluster_light_lists_reference(counts, const, rows_t, gb_t, *, tile_h: int, tile_w: int,
+                                  tiles_x: int, batch: int = 1 << 22):
+    """Plain version of the CUDA kernel's admitted lists (step 2 of its
+    design). One list per distinct (tile, cluster): the cluster's AABB from
+    its indices, the sphere test against the first min(counts, cap) entries
+    of the tile's list, and the first 32 hits kept. -> (positions (tiles, p,
+    32) int32, each pixel's admitted list positions ascending, -1 padded;
+    count (tiles, p) int32). Clusters go in batches of `batch` tests."""
+    tiles, p, _ = gb_t.shape
+    cap = rows_t.shape[-1]
+    dev = gb_t.device
+    key = (torch.arange(tiles, device=dev)[:, None] * KEYS_PER_TILE
+           + pixel_cluster_keys(const, gb_t, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x))
+    uniq, inv = torch.unique(key, return_inverse=True)
+    tile_of, local = uniq // KEYS_PER_TILE, uniq % KEYS_PER_TILE
+    sx = (local % CLUSTER_X).float()
+    sy = (local // CLUSTER_X % CLUSTER_Y).float()
+    szf = (local // (CLUSTER_X * CLUSTER_Y)).float()
+    szf = torch.where(szf == _NAN_SLICE, float("nan"), szf)
+    listed = torch.clamp(counts, max=cap)[tile_of]
+    lane = torch.arange(cap, device=dev)
+    pos_u, n_u = [], []
+    step = max(1, batch // cap)
+    for b in range(0, uniq.numel(), step):
+        sl = slice(b, b + step)
+        aabb = _cluster_aabb(const, sx[sl, None], sy[sl, None], szf[sl, None])  # each (n, 1)
+        lp = rows_t[:, 10:14][tile_of[sl]]                         # (n, 4, cap)
+        hit = _sphere_hits(aabb, *lp.unbind(1))
+        hit = hit & (lane[None, :] < listed[sl, None])
+        adm = hit & (torch.cumsum(hit, 1) <= MAX_LIGHTS_PER_CLUSTER)
+        first = torch.sort(torch.where(adm, lane, cap), 1).values[:, :MAX_LIGHTS_PER_CLUSTER]
+        pos_u.append(torch.where(first < cap, first, -1).to(torch.int32))
+        n_u.append(adm.sum(1, dtype=torch.int32))
+    if not pos_u:
+        return (torch.full((tiles, p, MAX_LIGHTS_PER_CLUSTER), -1, dtype=torch.int32,
+                           device=dev), torch.zeros((tiles, p), dtype=torch.int32, device=dev))
+    return torch.cat(pos_u)[inv], torch.cat(n_u)[inv]
+
+
 # ------------------------------------------------------------- the pass ----
+def stage_light_rows(rows, ids):
+    """Per-tile light rows, lights on lanes: rows (N, 14), ids (tiles, cap)
+    -> (tiles, 16, cap); -1 pads get a zero row (cull_r = 0 never hits)."""
+    rows16 = torch.cat([rows, torch.zeros((rows.shape[0], ROW_LEN - 14), dtype=rows.dtype,
+                                          device=rows.device)], 1)
+    g = torch.where((ids >= 0)[..., None], rows16[torch.clamp(ids, min=0).long()], 0.0)
+    return g.transpose(1, 2).contiguous()
+
+
+def tile_gbuffer(albedo, normal, roughness, metallic, z_view, mask, tile_h: int, tile_w: int):
+    """The pass's per-pixel inputs (H, W[, 3]) -> gb_t (tiles, p, 12)."""
+    height, width = z_view.shape
+    tiles_y, tiles_x = height // tile_h, width // tile_w
+    zero = torch.zeros_like(roughness)
+    gb = torch.stack([albedo[..., 0], albedo[..., 1], albedo[..., 2], normal[..., 0],
+                      normal[..., 1], normal[..., 2], roughness, metallic, z_view,
+                      mask.float(), zero, zero], -1)                  # (H, W, 12)
+    return (gb.reshape(tiles_y, tile_h, tiles_x, tile_w, GB_CH).permute(0, 2, 1, 3, 4)
+            .reshape(tiles_y * tiles_x, tile_h * tile_w, GB_CH).contiguous())
+
+
+def light_constants(inv_view, camera_pos, fov: float, ratio: float, near: float, far: float,
+                    full_width: int, full_height: int, y_offset=0):
+    """Kernel G's (32,) const vector; f64 host constants rounded to f32, as
+    the JAX package builds them."""
+    f32 = dict(dtype=torch.float32, device=inv_view.device)
+    return torch.cat([
+        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+        camera_pos.float().reshape(3),
+        torch.tensor([y_offset], **f32),
+        inv_view[:3, :3].reshape(9).float(),
+        torch.tensor([full_width, full_height, math.log(far / near), far / near], **f32),
+        torch.zeros(11, **f32),
+    ])
+
+
+def untile(out, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):
+    """Kernel G's (tiles, p, 4) output -> (H, W, 4)."""
+    return (out.reshape(tiles_y, tiles_x, tile_h, tile_w, 4).permute(0, 2, 1, 3, 4)
+            .reshape(tiles_y * tile_h, tiles_x * tile_w, 4))
+
+
 def point_lights_tiled(rows, albedo, normal, roughness, metallic, z_view, mask, inv_view,
                        camera_pos, fov: float, ratio: float, near: float, far: float,
                        width: int, height: int, tile_h: int = 24, tile_w: int = 128,
@@ -310,44 +447,39 @@ def point_lights_tiled(rows, albedo, normal, roughness, metallic, z_view, mask, 
     int32 per-tile listed lights; counts > cap is truncation). Same cluster
     membership, light order and cap-32 counter as the dense sweep in
     ops/shading.py, to float32 re-association; cost O(lights per tile)."""
+    done = {}
+    for name, step in point_lights_steps(rows, albedo, normal, roughness, metallic, z_view,
+                                         mask, inv_view, camera_pos, fov, ratio, near, far,
+                                         width, height, tile_h, tile_w, y_offset, full_height,
+                                         full_width, cap):
+        done[name] = step(done)
+    return done["untiling"], done["lists"][1]
+
+
+def point_lights_steps(rows, albedo, normal, roughness, metallic, z_view, mask, inv_view,
+                       camera_pos, fov: float, ratio: float, near: float, far: float,
+                       width: int, height: int, tile_h: int = 24, tile_w: int = 128,
+                       y_offset=0, full_height: int | None = None,
+                       full_width: int | None = None, cap: int = 256):
+    """`point_lights_tiled`'s steps in the order it runs them: a list of
+    (name, step), where step(done) takes the results of the earlier steps by
+    name and returns its own. Kept apart so that each step can be timed on
+    its own on the inputs the pass gives it."""
     fh = full_height if full_height is not None else height
     fw = full_width if full_width is not None else width
     tiles_y, tiles_x = height // tile_h, width // tile_w
-    n_tiles = tiles_y * tiles_x
-    p = tile_h * tile_w
     if cap % CHUNK:
         raise ValueError(f"light cap {cap} is not a multiple of {CHUNK}")
-    dev = albedo.device
-
-    ids, counts = tile_light_lists(rows, tiles_y, tiles_x, tile_h, tile_w, fw, fh, fov, ratio,
-                                   near, far, cap, y_offset=y_offset)
-
-    # per-tile light rows, lights on lanes: (tiles, 16, cap); -1 pads get a
-    # zero row (cull_r = 0 never hits)
-    rows16 = torch.cat([rows, torch.zeros((rows.shape[0], ROW_LEN - 14), dtype=rows.dtype,
-                                          device=dev)], 1)
-    g = torch.where((ids >= 0)[..., None], rows16[torch.clamp(ids, min=0).long()], 0.0)
-    rows_t = g.transpose(1, 2).contiguous()
-
-    zero = torch.zeros_like(roughness)
-    gb = torch.stack([albedo[..., 0], albedo[..., 1], albedo[..., 2], normal[..., 0],
-                      normal[..., 1], normal[..., 2], roughness, metallic, z_view,
-                      mask.float(), zero, zero], -1)                  # (H, W, 12)
-    gb_t = (gb.reshape(tiles_y, tile_h, tiles_x, tile_w, GB_CH).permute(0, 2, 1, 3, 4)
-            .reshape(n_tiles, p, GB_CH).contiguous())
-
-    # f64 host constants rounded to f32, as the JAX package builds them
-    f32 = dict(dtype=torch.float32, device=dev)
-    const = torch.cat([
-        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
-        camera_pos.float().reshape(3),
-        torch.tensor([y_offset], **f32),
-        inv_view[:3, :3].reshape(9).float(),
-        torch.tensor([fw, fh, math.log(far / near), far / near], **f32),
-        torch.zeros(11, **f32),
-    ])
-    out = point_lights_kernel(torch.clamp(counts, max=cap), const, rows_t, gb_t,
-                              tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)
-    img = (out.reshape(tiles_y, tiles_x, tile_h, tile_w, 4).permute(0, 2, 1, 3, 4)
-           .reshape(height, width, 4))
-    return img[..., :3], counts
+    return [
+        ("lists", lambda d: tile_light_lists(rows, tiles_y, tiles_x, tile_h, tile_w, fw, fh,
+                                             fov, ratio, near, far, cap, y_offset=y_offset)),
+        ("row staging", lambda d: stage_light_rows(rows, d["lists"][0])),
+        ("G-buffer tiling", lambda d: tile_gbuffer(albedo, normal, roughness, metallic, z_view,
+                                                   mask, tile_h, tile_w)),
+        ("constants", lambda d: light_constants(inv_view, camera_pos, fov, ratio, near, far,
+                                                fw, fh, y_offset)),
+        ("kernel", lambda d: point_lights_kernel(
+            torch.clamp(d["lists"][1], max=cap), d["constants"], d["row staging"],
+            d["G-buffer tiling"], tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)),
+        ("untiling", lambda d: untile(d["kernel"], tiles_y, tiles_x, tile_h, tile_w)[..., :3]),
+    ]

@@ -8,7 +8,11 @@ without JAX).
 The kernel is held to chip_smoke's bar: hit counters equal on all but 1e-4
 of the pixels (a one-ulp difference in log or pow at a cluster slice edge
 can flip a membership; at most one pixel at these sizes), rgb within rtol
-1e-4 / atol 1e-5 on the masked pixels whose counters agree.
+1e-4 / atol 1e-5 on the masked pixels whose counters agree. The cases of its
+per-cluster lists: warps spanning many clusters and slices, clusters with
+exactly 31, 32 and 33 hits, admitted lights at list positions 127, 128 and
+129 (a chunk flush between them), a full 1024-entry list, every pixel
+masked, and a 64x48 frame whose two tiles span hundreds of clusters each.
 """
 
 import math
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from chip_smoke import recording
+from direct12pbrrenderer_tpu_torch.config import CLUSTER_X, CLUSTER_Y
 from direct12pbrrenderer_tpu_torch.ops import (
     cover_cuda,
     env_resolve_cuda,
@@ -63,6 +68,24 @@ def _inputs(seed, n, pool, covering):
             t(rng.uniform(0, 1, (H, W)) > 0.1))
 
 
+def _check_kernel(kargs, kw):
+    """Kernel G against its plain version on the same inputs, at the bar of
+    the module docstring. -> (kernel output, plain output) as numpy."""
+    before = lights_cuda.point_lights_kernel.launches
+    got = lights_cuda.point_lights_kernel(*kargs, **kw)
+    assert lights_cuda.point_lights_kernel.launches == before + 1
+    want = lights_cuda.point_lights_kernel_reference(*kargs, **kw)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(got).all()
+    same = got[..., 3] == want[..., 3]
+    assert (~same).sum() <= max(1, 1e-4 * same.size)
+    masked = same & (kargs[3][..., 9].cpu().numpy() > 0.5)
+    np.testing.assert_allclose(got[..., :3][masked], want[..., :3][masked], rtol=1e-4,
+                               atol=1e-5)
+    return got, want
+
+
 @pytest.mark.parametrize("seed,n,pool,covering", [
     (7, 130, 256, False),      # scattered: tens of lights per tile
     (8, 64, 128, True),        # every cluster reaches the cap of 32
@@ -76,22 +99,107 @@ def test_kernel_matches_plain_version(device, seed, n, pool, covering):
             args[0], *args[1:], torch.eye(4, device=device), torch.zeros(3, device=device),
             FOV, W / H, NEAR, FAR, W, H, tile_h=TILE[0], tile_w=TILE[1], cap=pool)
     (kargs, kw), = calls
-    before = lights_cuda.point_lights_kernel.launches
-    got = lights_cuda.point_lights_kernel(*kargs, **kw)
-    assert lights_cuda.point_lights_kernel.launches == before + 1
-    want = lights_cuda.point_lights_kernel_reference(*kargs, **kw)
-    torch.cuda.synchronize()
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    assert np.isfinite(got).all()
+    _, want = _check_kernel(kargs, kw)
     if n > 500:
         assert int(counts.max()) > 128
     if covering:
         assert (want[..., 3] == 32).any()
-    same = got[..., 3] == want[..., 3]
-    assert (~same).sum() <= max(1, 1e-4 * same.size)
-    masked = same & (kargs[3][..., 9].cpu().numpy() > 0.5)
-    np.testing.assert_allclose(got[..., :3][masked], want[..., :3][masked], rtol=1e-4,
-                               atol=1e-5)
+    # the warps span several clusters and slices (random depth per pixel)
+    keys = lights_cuda.pixel_cluster_keys(kargs[1], kargs[3], **kw)
+    per_warp = [torch.unique(w).numel() for w in keys.reshape(-1, 32)]
+    assert max(per_warp) >= 8
+    slices = keys // (CLUSTER_X * CLUSTER_Y)
+    assert max(torch.unique(w).numel() for w in slices.reshape(-1, 32)) >= 4
+
+
+def _uniform_inputs(device, light_rows, count, *, cap, depth=0.5, masked=True, h=H, w=W,
+                    tile=TILE):
+    """Kernel G's inputs with a G-buffer of one depth (each tile holds a few
+    clusters) and the staged light rows `light_rows` (count, 14) listed at
+    positions 0..count-1 of every tile."""
+    rng = np.random.default_rng(3)
+    nrm = rng.normal(size=(h, w, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    z_view = np.full((h, w), NEAR * FAR / (FAR - depth * (FAR - NEAR)))
+    t = lambda x, dt=np.float32: torch.as_tensor(np.asarray(x).astype(dt), device=device)  # noqa
+    gb_t = lights_cuda.tile_gbuffer(
+        t(rng.uniform(0.05, 1.0, (h, w, 3))), t(nrm), t(rng.uniform(0.05, 1.0, (h, w))),
+        t(rng.uniform(0.0, 1.0, (h, w))), t(z_view), t(np.full((h, w), masked), bool), *tile)
+    tiles = gb_t.shape[0]
+    rows_t = torch.zeros((tiles, lights_cuda.ROW_LEN, cap), device=device)
+    rows_t[:, :14, :count] = t(light_rows).T[None]
+    const = lights_cuda.light_constants(torch.eye(4, device=device), torch.zeros(3, device=device),
+                                        FOV, w / h, NEAR, FAR, w, h)
+    counts = torch.full((tiles,), count, dtype=torch.int32, device=device)
+    return (counts, const, rows_t, gb_t), dict(tile_h=tile[0], tile_w=tile[1],
+                                               tiles_x=w // tile[1])
+
+
+def _light_rows(rng, n, radius):
+    """n light rows in the frustum (identity view), culling radius `radius`
+    (a scalar or (lo, hi))."""
+    z = rng.uniform(1.0, 60.0, n)
+    th = math.tan(FOV / 2.0)
+    pos = np.stack([rng.uniform(-1, 1, n) * z * th * W / H, rng.uniform(-1, 1, n) * z * th, z],
+                   -1)
+    cull = np.full(n, radius) if np.isscalar(radius) else rng.uniform(*radius, n)
+    return np.concatenate([pos, rng.uniform(0.2, 1.0, (n, 3)), rng.uniform(1, 8, (n, 1)),
+                           np.tile([1.0, 0.1, 0.01], (n, 1)), pos, cull[:, None]], 1)
+
+
+@pytest.mark.parametrize("n_lights", [31, 32, 33])
+def test_kernel_caps_each_cluster_at_32_hits(device, n_lights):
+    rows = _light_rows(np.random.default_rng(11), n_lights, 500.0)   # every cluster hit
+    got, _ = _check_kernel(*_uniform_inputs(device, rows, n_lights, cap=128))
+    assert (got[..., 3] == min(n_lights, 32)).all()
+
+
+def test_kernel_flushes_chunk_sums_at_positions_127_128_129(device):
+    rng = np.random.default_rng(12)
+    rows = _light_rows(rng, 200, 0.0)                       # radius 0: never admitted
+    rows[[127, 128, 129], 13] = 500.0                        # but these three, everywhere
+    (counts, const, rows_t, gb_t), kw = _uniform_inputs(device, rows, 200, cap=256)
+    got, want = _check_kernel((counts, const, rows_t, gb_t), kw)
+    assert (got[..., 3] == 3).all() and (want[..., :3] > 0).any()
+    # the sum of the three associates as (127) + (128 + 129): chunk 0, then chunk 1
+    pos, n = lights_cuda.cluster_light_lists_reference(counts, const, rows_t, gb_t, **kw)
+    assert (n == 3).all() and (pos[..., :3] == torch.tensor([127, 128, 129],
+                                                             device=device)).all()
+
+
+def test_kernel_walks_a_full_1024_list(device):
+    rows = _light_rows(np.random.default_rng(13), 1024, (0.5, 3.0))
+    rows[-4:, 13] = 500.0                                    # the list's last entries hit all
+    got, want = _check_kernel(*_uniform_inputs(device, rows, 1024, cap=1024, depth=0.3))
+    assert (got[..., 3] >= 4).all()
+    assert (want[..., 3] < 32).any()                         # some walks reach the list's end
+
+
+def test_kernel_with_every_pixel_masked(device):
+    rows = _light_rows(np.random.default_rng(14), 300, (2.0, 15.0))
+    got, want = _check_kernel(*_uniform_inputs(device, rows, 300, cap=384, masked=False))
+    assert (got[..., :3] == 0).all()
+    assert (got[..., 3] == want[..., 3]).all() and got[..., 3].max() > 0
+
+
+def test_kernel_on_a_small_frame_with_hundreds_of_clusters_per_tile(device):
+    h, w, tile = 48, 64, (24, 64)
+    rng = np.random.default_rng(15)
+    rows = torch.as_tensor(_light_rows(rng, 500, (2.0, 20.0)).astype(np.float32), device=device)
+    nrm = rng.normal(size=(h, w, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    z_view = NEAR * FAR / (FAR - rng.uniform(0.05, 0.95, (h, w)) * (FAR - NEAR))
+    t = lambda x, dt=np.float32: torch.as_tensor(np.asarray(x).astype(dt), device=device)  # noqa
+    with recording(lights_cuda, "point_lights_kernel") as calls:
+        lights_cuda.point_lights_tiled(
+            rows, t(rng.uniform(0.05, 1.0, (h, w, 3))), t(nrm), t(rng.uniform(0.05, 1, (h, w))),
+            t(rng.uniform(0, 1, (h, w))), t(z_view), t(rng.uniform(0, 1, (h, w)) > 0.1, bool),
+            torch.eye(4, device=device), torch.zeros(3, device=device), FOV, w / h, NEAR, FAR,
+            w, h, tile_h=tile[0], tile_w=tile[1], cap=512)
+    (kargs, kw), = calls
+    keys = lights_cuda.pixel_cluster_keys(kargs[1], kargs[3], **kw)
+    assert min(torch.unique(k).numel() for k in keys) > 200
+    _check_kernel(kargs, kw)
 
 
 def _launches():
