@@ -118,7 +118,9 @@ def fail(phase: str, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` runs (CUDA events, after one warm-up)."""
+    """Mean device time of `fn` over `reps` runs (CUDA events, after one
+    warm-up). The runs repeat on the same inputs, so what fits in the 50 MB
+    L2 stays there: a warm-L2 time (`cold_ms` evicts it)."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -144,28 +146,134 @@ def graph_ms(fn, reps: int) -> float:
     return ms
 
 
-def device_ms(fn, reps: int, kernel: str) -> tuple[float, float]:
-    """Mean device time per run of `fn` (torch.profiler, after one warm-up):
-    of the kernels whose name contains `kernel` (the kernel alone, without
-    the wrapper's own tensor work), and of all its device work. Where the
-    second is well under the run's CUDA-event time, the card waits on the
-    host between the run's launches. Host activities are recorded too: with
-    the device's alone, the trace lost kernels on an H100."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def host_ms(fn, reps: int) -> float:
+    """Mean host time of one run of `fn` (perf_counter over `reps` runs
+    without synchronizing, after one warm-up): a wrapper's checks and launch.
+    Where it exceeds the device time, `cuda_ms` times the host."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+TRACE_TRIES = 5
+L2_EVICT_BYTES = 512 << 20    # ten times the H100's 50 MB L2
+TRACES = {"complete": 0, "partial": []}   # every kernel trace of this run
+EARLIER_BOUNDS: dict[str, float] = {}      # name -> ms of a kernel's earlier, looser bound
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of one run of `fn` with its inputs out of the L2:
+    CUDA events around each run, after a write of L2_EVICT_BYTES outside
+    them, which evicts the 50 MB L2 and keeps the card busy while the host
+    launches the run (so the events time the device work alone)."""
+    evict = torch.empty(L2_EVICT_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        evict.fill_(0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def traced(run):
+    """torch.profiler over `run()`: ([(name, us)] of its device activities,
+    {kernel: launches it made}, its wall ms). A warm-up cycle of the same
+    work, traced and dropped, comes first (the profiler's own schedule): on
+    an H100 the first launches of a trace have gone missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        run()
         torch.cuda.synchronize()
+        prof.step()
+        n0 = read_launches()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    launched = {k: n - n0[k] for k, n in read_launches().items()}
+    # the schedule's step annotation spans the device timeline: not an activity
     spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    us = sum(t for name, t in spans if kernel in name)
-    if us <= 0:
-        fail("device", f"torch.profiler recorded no device time for {kernel}")
+             if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
+    return spans, launched, wall
+
+
+def device_spans(fn, reps: int, name: str) -> list[tuple[str, float]]:
+    """(name, us) of every device activity (kernels, copies, memsets) of
+    `reps` runs of `fn`, a call of kernel `name`'s wrapper (`traced`). Only
+    a complete trace counts: one that holds exactly as many activities of
+    the kernel (`<name>_kernel`) as the wrapper launched during the traced
+    runs. torch.profiler on an H100 has returned traces without some or all
+    of them; a partial trace is recorded in TRACES and traced again, up to
+    TRACE_TRIES times."""
+    kernel = f"{name}_kernel"
+    for _ in range(TRACE_TRIES):
+        spans, launched, _ = traced(lambda: [fn() for _ in range(reps)])
+        got = sum(1 for n, _ in spans if kernel in n)
+        if got == launched[name] > 0:
+            TRACES["complete"] += 1
+            return spans
+        TRACES["partial"].append(f"{name} {got}/{launched[name]}")
+    fail("profiler", f"no complete trace of {kernel} in {TRACE_TRIES} tries: {TRACES['partial']}")
+
+
+def device_ms(fn, reps: int, name: str) -> tuple[float, float]:
+    """Mean device time per run of `fn`, a call of kernel `name`'s wrapper
+    (torch.profiler, `device_spans`; a warm-L2 time, as `cuda_ms`): of the
+    kernel alone, without the wrapper's own tensor work, and of all its
+    device work. Where the second is well under the run's CUDA-event time,
+    the card waits on the host between the run's launches."""
+    spans = device_spans(fn, reps, name)
+    us = sum(t for n, t in spans if f"{name}_kernel" in n)
     return us / 1e3 / reps, sum(t for _, t in spans) / 1e3 / reps
+
+
+OUTPUT_OPS = ("aten.empty.memory_format",)   # a wrapper allocating its output
+
+
+def dispatched_ops(fn) -> list[str]:
+    """The aten ops that one run of `fn` dispatches (a TorchDispatchMode):
+    every tensor operation, whether or not torch.profiler records its
+    device work."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return ops
+
+
+def only_kernel(phase, fn, name: str) -> list[str]:
+    """Fail unless a call of kernel `name`'s wrapper `fn` does no tensor
+    work but allocating its output (`dispatched_ops`) and puts nothing on
+    the device but its kernel: no layout copy, memcpy or memset (a complete
+    torch.profiler trace of 10 calls). Returns the dispatched ops."""
+    ops = dispatched_ops(fn)
+    if not ops or any(op not in OUTPUT_OPS for op in ops):
+        fail(phase, f"one wrapper call dispatched {ops}, want only {OUTPUT_OPS}")
+    others = sorted({n for n, _ in device_spans(fn, 10, name) if f"{name}_kernel" not in n})
+    if others:
+        fail(phase, f"wrapper calls ran device work besides {name}_kernel: {others}")
+    return ops
 
 
 def compare(phase, got, want) -> tuple[float, int]:
@@ -194,20 +302,72 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
 
 
-def staged_read_bytes(off, cnts, staged, rec, rows_per_page: int) -> int:
+def staged_read_bytes(off, cnts, staged, rec, rows_per_page: int, reads=None) -> int:
     """Bytes of the staged page words that the taps `rec` (tiles, G, blocks,
     128) address, each counted once: a tap reads `rows_per_page` words of
     lane rec & 127 of page off + (rec >> 7) of its tile, when that page lies
-    inside its group's ceil8(cnt) span and the staged budget."""
+    inside its group's ceil8(cnt) span and the staged budget, and `reads`
+    (a bool tensor of rec's shape, if given) says the output reads the tap."""
     tiles, g = rec.shape[:2]
     budget = staged.shape[1] // rows_per_page
     seg = rec >> 7
     page = off[:, :g, None, None] + seg
     ok = ((seg >= 0) & (seg < ((cnts[:, :g] + 7) // 8 * 8)[:, :, None, None])
           & (page < budget))
+    if reads is not None:
+        ok = ok & reads
     t = torch.arange(tiles, device=rec.device).view(-1, 1, 1, 1)
     key = ((t * budget + page).long() * 128 + (rec & 127))[ok]
     return torch.unique(key).numel() * rows_per_page * 4
+
+
+def resolve_shade_reads(sargs, skw) -> dict[str, torch.Tensor]:
+    """Which words of kernel C's per-pixel planes its output reads, as bool
+    tensors of each plane's shape. A background pixel (flags[5] 0) reads
+    its coverage flag and writes zeros. A lit one reads attrs 0-2, 9 and
+    12-16 (normal, emission, the slots' use flags), the tangent (attrs 3-5)
+    only where the normal map is used, the fallbacks (attrs 6-8, 10, 11)
+    only where their slot is not; slot s's sRGB flag, its cascade mask and
+    its taps only where attrs[12 + s] > 0.5: the cascade re-tap where sel is
+    set, else the lo tap and, trilinear, the hi tap and the frac."""
+    rec, tl, attrs, flags = sargs[3], sargs[6], sargs[7], sargs[8]
+    sel = sargs[9] if len(sargs) > 9 else None
+    trilinear = skw.get("trilinear", True)
+    lit = (flags[:, 5] != 0)[:, None]                  # (tiles, 1, blocks, 128)
+    use = (attrs[:, 12:17] > 0.5) & lit                # slot s read
+    casc = use & (sel != 0) if sel is not None else torch.zeros_like(use)
+    plain = use & ~casc
+    taps = torch.cat([plain] + [plain] * trilinear + [casc] * (sel is not None), 1)
+    ch = [lit] * 3 + [lit & use[:, 1:2]] * 3 + [lit & ~use[:, 0:1]] * 3 + [lit] + [
+        lit & ~use[:, 3:4], lit & ~use[:, 2:3]] + [lit] * 5
+    reads = {"rec": taps, "fx": taps, "fy": taps, "tl": plain & trilinear,
+             "attrs": torch.cat(ch, 1).expand(attrs.shape),
+             "flags": torch.cat([use, torch.ones_like(lit)], 1)}
+    if sel is not None:
+        reads["sel"] = use
+    assert tuple(taps.shape) == tuple(rec.shape) and tuple(reads["tl"].shape) == tuple(tl.shape)
+    return reads
+
+
+def deferred_reads(dargs, dkw) -> dict[str, torch.Tensor]:
+    """Which words of kernel D's per-pixel planes its output reads, as bool
+    tensors of each plane's shape. Every pixel reads its mask and view depth
+    (gb 10 and 9: the light loop's hit counter is written everywhere). A
+    background pixel reads the sky tap (group 3) and nothing else. A lit one
+    reads gb 0-8 and 12, the BRDF tap (group 2), and the irradiance by the
+    coverage flags: where cov0, the exact taps 0 and 1 and fracm (gb 11);
+    else, with env content, cov4 (gb 13) and the cascade tap (group 4) where
+    cov4 is set, tap 0 where it is not; without env content, tap 0."""
+    gb, rec = dargs[8], dargs[5]
+    has_env = dkw["has_env"]
+    lit = gb[:, 10] > 0.5
+    cov0, cov4 = gb[:, 12] > 0.5, (gb[:, 13] > 0.5) & has_env
+    taps = [lit & (cov0 | ~cov4), lit & cov0, lit, ~lit] + [lit & ~cov0 & cov4] * has_env
+    every = torch.ones_like(lit)
+    ch = [lit] * 9 + [every, every, lit & cov0, lit, lit & ~cov0 & has_env]
+    taps = torch.stack(taps, 1)
+    assert tuple(taps.shape) == tuple(rec.shape)
+    return {"rec": taps, "fx": taps, "fy": taps, "gb": torch.stack(ch, 1)}
 
 
 def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -378,6 +538,25 @@ def stress_scene(cells_x: int, cells_y: int, sky_size: int, sun_intensity: float
     return scene
 
 
+def textured_cell(dev):
+    """The textured stress cell on `dev`: (scene, render config, the JAX
+    package's cache knobs, the cell's knobs, the default pipeline, the
+    default frame's camera)."""
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
+
+    scene = stress_scene(512, 256, 256, 80.0)
+    cfg = RenderConfig(W, H, max_instances=2)
+    base_knobs = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=256)
+    knobs = dict(base_knobs, brdf_lut_size=BRDF_LUT)
+    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **knobs)
+    cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
+    cam.move([0, 6, 18])
+    cam.rotate(0, math.pi, 0.35)
+    return scene, cfg, base_knobs, knobs, pipe, cam
+
+
 def frame_inputs(pipe, cam):
     """The GBuffer pass's geometry/binning/rows64 for one pose, outside the
     graph (for the kernel-vs-plain check at the main path's shapes), and the
@@ -443,26 +622,33 @@ def timed_passes(pipe, cam, frames: int) -> dict[str, float]:
 
 
 def profiled_frames(pipe, cam, frames: int):
-    """torch.profiler over `frames` frames: (wall ms per frame, device busy ms
-    per frame, device activities per frame, [(ms per frame, kernel name)]
-    of the top five). Busy time sums the device activities (kernels and
-    copies run one at a time on the frame's single stream)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    """torch.profiler over `frames` frames (`traced`): (wall ms per frame,
+    device busy ms per frame, device activities per frame, [(ms per frame,
+    kernel name)] of the top five). Busy time sums the device activities
+    (kernels and copies run one at a time on the frame's single stream). As
+    in `device_spans`, only a trace that holds every launch of the port's
+    kernels counts; a partial one is recorded in TRACES and traced again."""
+    def run():
         for _ in range(frames):
             pipe.render(cam, 1.0 / 60.0, collect_stats=False)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / frames
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    for _ in range(TRACE_TRIES):
+        spans, launched, wall = traced(run)
+        held = {name: sum(1 for n, _ in spans if f"{name}_kernel" in n) for name in KERNELS}
+        if held == launched:
+            TRACES["complete"] += 1
+            break
+        TRACES["partial"].append("frame " + ", ".join(
+            f"{k} {held[k]}/{v}" for k, v in launched.items() if held[k] != v))
+    else:
+        fail("profiler", f"no complete trace of {frames} frames in {TRACE_TRIES} tries: "
+             f"{TRACES['partial']}")
     by_name: dict[str, float] = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for n, us in spans:
+        by_name[n] = by_name.get(n, 0.0) + us
     top = sorted(((v / 1e3 / frames, k) for k, v in by_name.items()), reverse=True)[:5]
     busy = sum(by_name.values()) / 1e3 / frames
-    return wall, busy, len(events) / frames, top
+    return wall / frames, busy, len(spans) / frames, top
 
 
 def build_kernels() -> None:
@@ -509,6 +695,44 @@ def check_deferred(phase, got, want) -> tuple[float, float]:
         fail(phase, f"{bad.mean():.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, "
              f"{cnt_bad.mean():.2e} with another hit count (bar {D_FRAC})")
     return float(np.abs(a - b).max()), float(bad.mean())
+
+
+def plane_layouts(xs) -> str:
+    """The strides of the per-pixel planes among `xs` ((tiles, G, blocks,
+    128) tensors), as the kernels read them."""
+    return ", ".join(f"{tuple(x.shape)}: {x.stride()}" for x in xs
+                     if isinstance(x, torch.Tensor) and x.dim() == 4)
+
+
+def deferred_census(dargs, dkw) -> str:
+    """Kernel D's light loop on its inputs, from the plain version run over
+    the first s active lights for s = 1..n (its hit counter then says which
+    pixels light s hit): lit pixels, (pixel, light) hits, and the bodies a
+    full loop evaluates (pixels x lights) against those of a loop that skips
+    a light for a warp (32 pixels of a row) none of whose lit pixels it hits."""
+    from direct12pbrrenderer_tpu_torch.ops import shade_fused
+
+    const, lights, gb = dargs[0], dargs[1], dargs[8]
+    n = min(int(const[21]), lights.shape[0])
+    mask = gb[:, 10] > 0.5                           # (tiles, blocks, 128)
+    n_px, n_warps = mask.numel(), mask.numel() // 32
+    prev = torch.zeros(mask.shape, device=mask.device)
+    lit_hits, warp_lights, skip = 0, 0, []
+    for s in range(1, n + 1):
+        c = const.clone()
+        c[21] = s
+        count = shade_fused.deferred_kernel_reference(c, *dargs[1:], **dkw)[:, 3]
+        hit = count > prev
+        prev = count
+        lit_hits += int((hit & mask).sum())
+        runs = int((hit & mask).reshape(-1, 32).any(-1).sum())
+        warp_lights += runs
+        skip.append(1 - runs / n_warps)
+    return (f"census: {n_px} pixels, lit share {float(mask.float().mean()):.4f}; (pixel, light) "
+            f"hits {int(prev.sum())} ({lit_hits} on lit pixels) of {n_px * n} pairs; light "
+            f"bodies evaluated by a full loop {n_px * n}, by the warp skip {32 * warp_lights} "
+            f"({32 * warp_lights / max(n_px * n, 1):.4f}); share of warps that skip each light "
+            f"{[round(x, 4) for x in skip]}")
 
 
 def camera_path(cam, n):
@@ -638,6 +862,7 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     bounds["point_lights"] = bound(n_bytes, n_px * 100 + c["tile_cluster_tests"] * 18
                                    + c["admitted_masked"] * 100)
     old_bound = bound(n_bytes, n_px * 100 + c["pairs"] * 18 + c["admitted"] * 100)
+    EARLIER_BOUNDS["point_lights"] = old_bound[0]
     measured["point_lights"] = (err_g, ms_g, plain_ms_g, alone_g)
     say("kernel-lights", f"{tuple(gargs[3].shape)} G-buffer, rows {tuple(gargs[2].shape)}: ok, "
         f"{int((~same).sum())} hit-count mismatches of "
@@ -669,6 +894,9 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
              f"{float((got - want).abs().max()):.3e}")
     err_f = float((got - want).abs().max())
     ms_f = cuda_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 20)
+    alone_f, busy_f = device_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 10,
+                                "env_resolve")
+    cold_f = cold_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 20)
     plain_ms_f = cuda_ms(lambda: env_resolve_cuda.env_resolve_reference(*fargs), 3)
     # every input once (records, fracs, offsets, counts, and of the staged
     # pages the words the taps address), the (tiles, G, 4, blocks, 128)
@@ -676,9 +904,12 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     bounds["env_resolve"] = bound(
         nbytes(*fargs[:2], *fargs[3:]) + staged_read_bytes(*fargs[:4], 8) + nbytes(got),
         fargs[3].numel() * 36)
-    measured["env_resolve"] = (err_f, ms_f, plain_ms_f)
+    measured["env_resolve"] = (err_f, ms_f, plain_ms_f, alone_f, cold_f)
     say("kernel-env-resolve", f"{tuple(fargs[3].shape)} taps, staged {tuple(fargs[2].shape)}: "
-        f"ok (max abs diff {err_f:.3e}, rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_f:.4f} ms, "
+        f"ok (max abs diff {err_f:.3e}, rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_f:.4f} ms "
+        f"through its wrapper ({cold_f:.4f} ms with the L2 evicted before each call), the kernel "
+        f"alone {alone_f:.4f} ms of {busy_f:.4f} ms of device "
+        f"work (torch.profiler), "
         f"plain {plain_ms_f:.4f} ms, bound {bounds['env_resolve'][0]:.4f} ms "
         f"({bounds['env_resolve'][1]})")
     del got, want, gargs, fargs, light_calls, tiled_calls, tiled_call, env_calls
@@ -915,7 +1146,7 @@ def raster_depth_stage(phase, setup, bins, rows64, width, height, census, smi, m
     del ids_a, z_a
     ms = cuda_ms(lambda: raster_cuda.rasterize_depth(*args), 20)
     alone_ms, busy_ms = device_ms(lambda: raster_cuda.rasterize_depth(*args), 10,
-                                  "raster_depth_kernel")
+                                  "raster_depth")
     plain_ms = cuda_ms(lambda: raster_cuda.rasterize_depth_reference(*args), 2)
     # 2 words out per pixel and the fold's reads; 23 flops per (pixel,
     # candidate) pair whose pixel lies inside the candidate's AABB (kernel
@@ -977,6 +1208,9 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
              f"{float((got - want).abs().max()):.3e}")
     err_e = float((got - want).abs().max())
     ms_e = cuda_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 20)
+    alone_e, busy_e = device_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 10,
+                                "atlas_resolve")
+    cold_e = cold_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 20)
     plain_ms_e = cuda_ms(lambda: atlas_resolve_cuda.atlas_resolve_reference(*eargs, **ekw), 3)
     off, cnts, staged, rec = eargs[:4]
     # every input once (offsets, counts, records, fracs, trilinear fracs, and
@@ -985,12 +1219,14 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     bounds["atlas_resolve"] = bound(
         nbytes(off, cnts, *eargs[3:]) + staged_read_bytes(off, cnts, staged, rec, 4)
         + nbytes(got), rec.numel() * 80)
-    measured["atlas_resolve"] = (err_e, ms_e, plain_ms_e)
+    measured["atlas_resolve"] = (err_e, ms_e, plain_ms_e, alone_e, cold_e)
     say("kernel-atlas-resolve", f"{tuple(rec.shape)} taps, staged {tuple(staged.shape)}, "
         f"cache tile {ptex.env_tile}: ok (max abs diff {err_e:.3e}, bit-equal "
         f"{bool(torch.equal(got, want))}; bar rtol {F_RTOL}/atol {F_ATOL}), kernel {ms_e:.4f} "
-        f"ms, plain {plain_ms_e:.4f} ms, bound {bounds['atlas_resolve'][0]:.4f} ms "
-        f"({bounds['atlas_resolve'][1]})")
+        f"ms through its wrapper ({cold_e:.4f} ms with the L2 evicted before each call), the "
+        f"kernel alone {alone_e:.4f} ms of {busy_e:.4f} ms of device "
+        f"work (torch.profiler), plain {plain_ms_e:.4f} ms, "
+        f"bound {bounds['atlas_resolve'][0]:.4f} ms ({bounds['atlas_resolve'][1]})")
     del got, want, eargs, e_calls, off, cnts, staged, rec
 
     # ---- kernel I vs plain on the lo-half cover of the cap-156 frame --------
@@ -1152,7 +1388,6 @@ def main() -> None:
     say("device", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    from direct12pbrrenderer_tpu_torch.config import RenderConfig
     from direct12pbrrenderer_tpu_torch.ops import (
         cover_cuda,
         gbuffer,
@@ -1162,7 +1397,6 @@ def main() -> None:
         shade_fused,
     )
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 
     build_kernels()
 
@@ -1187,18 +1421,11 @@ def main() -> None:
 
     # ---- scene + pipelines -------------------------------------------------
     t0 = time.perf_counter()
-    scene = stress_scene(512, 256, 256, 80.0)
-    cfg = RenderConfig(W, H, max_instances=2)
-    base_knobs = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=256)
-    knobs = dict(base_knobs, brdf_lut_size=BRDF_LUT)
-    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **knobs)
+    scene, cfg, base_knobs, knobs, pipe, cam = textured_cell(dev)
     planar = DeferredRenderPipeline(scene, cfg, use_tex_kernel=False, device=dev, **knobs)
     torch.cuda.synchronize()
     if not (pipe.use_pallas and pipe.use_tex_kernel and pipe.use_fused_deferred):
         fail("scene", "the default pipeline on the card is not the fused kernel path")
-    cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
-    cam.move([0, 6, 18])
-    cam.rotate(0, math.pi, 0.35)
     say("scene", f"stress scene {pipe.packed.tris.shape[0]} tris, "
         f"{pipe.packed.light_count} lights, albedo map {tuple(pipe.packed.atlas.base_size[0])}"
         f", sky 256, precompute + pack of two pipelines "
@@ -1217,7 +1444,7 @@ def main() -> None:
 
     def alone(**caps):  # the kernel's own device time, and all the call's device work
         return device_ms(lambda: raster_cuda.rasterize_interp(*args, **caps), 10,
-                         "raster_interp_kernel")
+                         "raster_interp")
 
     # the kernel alone with every bin list cut to one chunk: what is left is
     # the output and the first chunk, so the difference is the longer lists
@@ -1295,6 +1522,7 @@ def main() -> None:
                      f"({call_bytes / 1e6:.1f} MB)")
     ms_b, plain_ms_b = sum(cover_ms), sum(cover_plain_ms)
     bounds["fused_cover"] = bound(cover_bytes)
+    EARLIER_BOUNDS["fused_cover"] = bound(plane_bytes)[0]
     say("kernel-cover", "4 calls of one default 1080p frame, all four outputs bit-equal: "
         + "; ".join(parts) + f"; per frame kernel {ms_b:.4f} ms through its wrapper (CUDA "
         f"events), the kernel alone {sum(cover_alone_ms):.4f} ms (CUDA graph replays), plain "
@@ -1304,39 +1532,83 @@ def main() -> None:
         f"every item's pages, {plane_bytes / 1e6:.1f} MB)")
 
     (sargs, skw), = shade_calls
-    err_c = check_shade("kernel-resolve-shade", resolve_shade_cuda.resolve_shade(*sargs, **skw),
+
+    def shade():
+        return resolve_shade_cuda.resolve_shade(*sargs, **skw)
+
+    err_c = check_shade("kernel-resolve-shade", shade(),
                         resolve_shade_cuda.resolve_shade_reference(*sargs, **skw))
-    ms_c = cuda_ms(lambda: resolve_shade_cuda.resolve_shade(*sargs, **skw), 20)
+    ms_c = cuda_ms(shade, 20)
+    cold_c = cold_ms(shade, 20)
+    host_c = host_ms(shade, 20)
+    alone_c, busy_c = device_ms(shade, 10, "resolve_shade")
     plain_ms_c = cuda_ms(lambda: resolve_shade_cuda.resolve_shade_reference(*sargs, **skw), 3)
-    # every input once (of the staged pages, the words the taps address) and
-    # the (tiles, 9, blocks, 128) f32 output; a few dozen flops per pixel,
-    # far below the bytes' time
+    # off and cnts, the planes' words that the output reads, of the staged
+    # pages the words its taps address, and the (tiles, 9, blocks, 128) f32
+    # output; a few dozen flops per pixel, far below the bytes' time. The
+    # earlier bound read every word of every input.
     rec_c = sargs[3]
+    out_c = rec_c.shape[0] * 9 * rec_c.shape[2] * 128 * 4
+    reads_c = resolve_shade_reads(sargs, skw)
     bounds["resolve_shade"] = bound(
-        nbytes(*sargs[:2], *sargs[3:]) + staged_read_bytes(*sargs[:4], 4)
-        + rec_c.shape[0] * 9 * rec_c.shape[2] * 128 * 4)
+        nbytes(*sargs[:2]) + sum(int(m.sum()) * 4 for m in reads_c.values())
+        + staged_read_bytes(*sargs[:4], 4, reads_c["rec"]) + out_c)
+    EARLIER_BOUNDS["resolve_shade"] = bound(
+        nbytes(*sargs[:2], *sargs[3:]) + staged_read_bytes(*sargs[:4], 4) + out_c)[0]
+    ops_c = only_kernel("kernel-resolve-shade", shade, "resolve_shade")
     say("kernel-resolve-shade", f"{tuple(sargs[3].shape)} taps, staged "
         f"{tuple(sargs[2].shape)}: ok (max diff {err_c:.3e} <= {SHADE_MAX:.3e}), kernel "
-        f"{ms_c:.4f} ms, plain {plain_ms_c:.4f} ms, bound {bounds['resolve_shade'][0]:.4f} ms "
-        f"({bounds['resolve_shade'][1]})")
+        f"{ms_c:.4f} ms through its wrapper (CUDA events; {cold_c:.4f} ms with the L2 evicted "
+        f"before each call; host time {host_c:.4f} ms a call), the kernel alone {alone_c:.4f} ms, the rest of the call's device "
+        f"work (layout copies) {busy_c - alone_c:.4f} ms (torch.profiler), plain "
+        f"{plain_ms_c:.4f} ms, bound {bounds['resolve_shade'][0]:.4f} ms "
+        f"({bounds['resolve_shade'][1]}: the words the output reads; over every word of every "
+        f"input {EARLIER_BOUNDS['resolve_shade']:.4f} ms); taps the output reads "
+        f"{int(reads_c['rec'].sum())} of {rec_c.numel()}; one call dispatches {ops_c} and "
+        f"traces only its kernel; planes' strides {plane_layouts(sargs[3:])}")
 
     (dargs, dkw), = deferred_calls
-    err_d, bad_d = check_deferred("kernel-deferred", shade_fused.deferred_kernel(*dargs, **dkw),
+
+    def deferred():
+        return shade_fused.deferred_kernel(*dargs, **dkw)
+
+    err_d, bad_d = check_deferred("kernel-deferred", deferred(),
                                   shade_fused.deferred_kernel_reference(*dargs, **dkw))
-    ms_d = cuda_ms(lambda: shade_fused.deferred_kernel(*dargs, **dkw), 20)
+    ms_d = cuda_ms(deferred, 20)
+    cold_d = cold_ms(deferred, 20)
+    host_d = host_ms(deferred, 20)
+    alone_d, busy_d = device_ms(deferred, 10, "deferred_shade")
     plain_ms_d = cuda_ms(lambda: shade_fused.deferred_kernel_reference(*dargs, **dkw), 3)
-    # every input once (of the staged pages, the words the taps address),
-    # the (tiles, 4, blocks, 128) output; about 60 flops per pixel and active
-    # light
+    # const, lights, off and cnts, the planes' words that the output reads,
+    # of the staged pages the words its taps address, and the (tiles, 4,
+    # blocks, 128) output; about 60 flops per pixel and active light. The
+    # earlier bound read every word of every input.
     rec_d = dargs[5]
     px_d = rec_d.shape[0] * rec_d.shape[2] * 128
+    reads_d = deferred_reads(dargs, dkw)
     bounds["deferred_shade"] = bound(
-        nbytes(*dargs[:4], *dargs[5:]) + staged_read_bytes(*dargs[2:6], 8) + px_d * 4 * 4,
+        nbytes(*dargs[:4]) + sum(int(m.sum()) * 4 for m in reads_d.values())
+        + staged_read_bytes(*dargs[2:6], 8, reads_d["rec"]) + px_d * 4 * 4,
         px_d * float(dargs[0][21]) * 60)
+    EARLIER_BOUNDS["deferred_shade"] = bound(
+        nbytes(*dargs[:4], *dargs[5:]) + staged_read_bytes(*dargs[2:6], 8) + px_d * 4 * 4,
+        px_d * float(dargs[0][21]) * 60)[0]
+    lit_d = dargs[8][:, 10] > 0.5
+    taps_lit = float(reads_d["rec"].sum(1)[lit_d].float().mean())
+    ops_d = only_kernel("kernel-deferred", deferred, "deferred_shade")
     say("kernel-deferred", f"{tuple(dargs[5].shape)} env taps, {int(dargs[0][21])} active "
         f"lights: ok ({bad_d:.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, max abs "
-        f"diff {err_d:.3e}), kernel {ms_d:.4f} ms, plain {plain_ms_d:.4f} ms, bound "
-        f"{bounds['deferred_shade'][0]:.4f} ms ({bounds['deferred_shade'][1]})")
+        f"diff {err_d:.3e}), kernel {ms_d:.4f} ms through its wrapper (CUDA events; "
+        f"{cold_d:.4f} ms with the L2 evicted before each call; host time {host_d:.4f} ms a "
+        f"call), the kernel alone "
+        f"{alone_d:.4f} ms, the rest of the call's device work (layout copies) "
+        f"{busy_d - alone_d:.4f} ms (torch.profiler), plain {plain_ms_d:.4f} ms, bound "
+        f"{bounds['deferred_shade'][0]:.4f} ms ({bounds['deferred_shade'][1]}: the words the "
+        f"output reads; over every word of every input {EARLIER_BOUNDS['deferred_shade']:.4f} "
+        f"ms); env taps the output reads: {taps_lit:.3f} per lit pixel (the kernel gathers "
+        f"{rec_d.shape[1] - 1}), 1 per background pixel; one call dispatches {ops_d} and "
+        f"traces only its kernel; planes' strides {plane_layouts(dargs[5:])}; "
+        f"{deferred_census(dargs, dkw)}")
     del shade_calls, deferred_calls, sargs, dargs
 
     # ---- GBuffer pass stages of both paths ---------------------------------
@@ -1432,8 +1704,8 @@ def main() -> None:
     del planar, ref
     torch.cuda.empty_cache()
     measured.update({"fused_cover": (0.0, ms_b, plain_ms_b, sum(cover_alone_ms)),
-                     "resolve_shade": (err_c, ms_c, plain_ms_c),
-                     "deferred_shade": (err_d, ms_d, plain_ms_d)})
+                     "resolve_shade": (err_c, ms_c, plain_ms_c, alone_c, cold_c),
+                     "deferred_shade": (err_d, ms_d, plain_ms_d, alone_d, cold_d)})
 
     # ---- the planar texture-cache, cap-156 and anisotropic paths ------------
     launches_ptex = planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls,
@@ -1444,6 +1716,9 @@ def main() -> None:
     launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
     launches.update(launches_ptex, raster_depth=n_h)
+    say("profiler", f"kernel traces: {TRACES['complete']} complete, "
+        f"{len(TRACES['partial'])} partial ones traced again (kernel held/launched): "
+        f"{TRACES['partial']}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"direct12pbrrenderer_tpu_torch/csrc/{source_of(name)}.cu",
@@ -1451,9 +1726,14 @@ def main() -> None:
         "max_abs_err": measured[name][0], "ms": measured[name][1],
         "plain_ms": measured[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,
-        # the kernel's own device time beside "ms", the wrapper's: A and H by
-        # torch.profiler, B and G by CUDA graph replays of the wrapper's call
-        "kernel_ms": (measured[name] + (None,))[3]} for name in KERNELS]}))
+        # the kernel's own device time beside "ms", the wrapper's: A, C, D,
+        # E, F and H by torch.profiler, B and G by CUDA graph replays of the
+        # wrapper's call; both warm-L2 times (the runs repeat on the same
+        # inputs). C, D, E, F also through the wrapper with the L2 evicted
+        # before each call; B, C, D, G also their earlier, looser bounds.
+        "kernel_ms": (measured[name] + (None,))[3],
+        "cold_ms": (measured[name] + (None, None))[4],
+        "earlier_bound_ms": EARLIER_BOUNDS.get(name)} for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

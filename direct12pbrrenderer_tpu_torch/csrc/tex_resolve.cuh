@@ -1,6 +1,10 @@
 // The texture cache's tap resolve, shared by kernel C (resolve_shade.cu, the
 // fused G-buffer) and kernel E (atlas_resolve.cu, the planar path), so both
-// resolve a tap with one body.
+// resolve a tap and assemble a slot with one body: tap_at (address and
+// predicate), tap_words (the staged gathers), blend, and resolve_slot (the
+// trilinear and cascade rule). Kernel C gathers all of a pixel's taps first
+// and hands resolve_slot blends of gathered words; kernel E hands it taps
+// that gather as they blend, one after another.
 //
 // Replaces the TPU helpers direct12pbrrenderer_tpu/ops/texcache.py
 // _resolve_group, _resolve_slot and _fill_cascade. Semantics kept exactly
@@ -22,36 +26,37 @@
 
 namespace tex_resolve {
 
-struct Taps {
-  const int* off;      // (tiles, G)
-  const int* cnts;     // (tiles, cnt_cols)
-  const int* staged;   // (tiles, B * 4, 128)
-  const int* rec;      // (tiles, G, blocks, 128)
-  const float* fx;
-  const float* fy;
-  const float* tl;     // (tiles, 5, blocks, 128)
-  const int* sel;      // (tiles, 5, blocks, 128) or null
-  int n_groups, cnt_cols, budget, blocks, trilinear;
+// Where a tap reads: the first of its 4 corner words, at this tile's staged
+// block + ((base + seg) * 4) * 128 + (rc & 127), and whether it reads at
+// all. A segment at or beyond ceil8(cnt) or past the budget reads nothing
+// and resolves to 0, as does a tap that is not needed (need false). The
+// address of a tap that reads nothing is clamped to page 0, so every tap's
+// address is valid and the loads can be issued together.
+struct TapAt {
+  const int* p;
+  bool ok;
 };
 
-// Group gi's bilinear tap of pixel `pix` of tile t, in storage space.
-__device__ __forceinline__ void resolve_group(const Taps& a, int t, size_t pix, int gi,
-                                              float rgba[4]) {
-  const size_t plane = (size_t)a.blocks * 128;
-  const size_t at = ((size_t)t * a.n_groups + gi) * plane + pix;
-  const int base = a.off[t * a.n_groups + gi];
-  const int cnt = a.cnts[t * a.cnt_cols + gi];
-  const int rc = a.rec[at];
+__device__ __forceinline__ TapAt tap_at(const int* staged_tile, int budget, int base, int cnt,
+                                        int rc, bool need) {
   const int seg = rc >> 7;
-  const int ln = rc & 127;
   const int lim = (cnt + 7) / 8 * 8;
-  int q[4] = {0, 0, 0, 0};
-  if (seg >= 0 && seg < lim && base + seg < a.budget) {
-    const int* p = a.staged + ((size_t)t * a.budget * 4 + (size_t)(base + seg) * 4) * 128 + ln;
+  const bool ok = need && seg >= 0 && seg < lim && base + seg < budget;
+  return {staged_tile + (size_t)(ok ? base + seg : 0) * 4 * 128 + (rc & 127), ok};
+}
+
+// The tap's 4 corner words (0 where it reads nothing): independent
+// read-only loads, predicated rather than branched around.
+__device__ __forceinline__ void tap_words(const TapAt& at, int q[4]) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = p[k * 128];
+  for (int k = 0; k < 4; ++k) {
+    q[k] = 0;
+    if (at.ok) q[k] = __ldg(at.p + k * 128);
   }
-  const float fx = a.fx[at], fy = a.fy[at];
+}
+
+// The bilinear blend of the 4 corner words, per RGBA8 channel.
+__device__ __forceinline__ void blend(const int q[4], float fx, float fy, float rgba[4]) {
   const float ofx = 1.f - fx, ofy = 1.f - fy;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -62,21 +67,25 @@ __device__ __forceinline__ void resolve_group(const Taps& a, int t, size_t pix, 
   }
 }
 
-// Material slot s's tap (both trilinear halves, or the cascade re-tap).
-__device__ __forceinline__ void resolve_slot(const Taps& a, int t, size_t pix, int s,
-                                             float rgba[4]) {
-  const size_t plane = (size_t)a.blocks * 128;
-  if (a.sel != nullptr && a.sel[((size_t)t * 5 + s) * plane + pix] != 0) {
-    resolve_group(a, t, pix, a.n_groups - 5 + s, rgba);  // the cascade re-tap
+// Material slot s's rgba (_resolve_slot with _fill_cascade): where sel is
+// set, the cascade re-tap (group n_groups - 5 + s); otherwise the lo tap
+// (group s), lerped with the hi tap (group 5 + s) by the trilinear frac.
+// tap(g, rgba) gives group g's bilinear tap, frac() the slot's frac; neither
+// is called for a tap or a frac that the slot does not read.
+template <class Tap, class Frac>
+__device__ __forceinline__ void resolve_slot(const Tap& tap, const Frac& frac, int s, int n_groups,
+                                             bool sel, bool trilinear, float rgba[4]) {
+  if (sel) {
+    tap(n_groups - 5 + s, rgba);
     return;
   }
-  resolve_group(a, t, pix, s, rgba);
-  if (a.trilinear) {
+  tap(s, rgba);
+  if (trilinear) {
     float hi[4];
-    resolve_group(a, t, pix, 5 + s, hi);
-    const float frac = a.tl[((size_t)t * 5 + s) * plane + pix];
+    tap(5 + s, hi);
+    const float f = frac();
 #pragma unroll
-    for (int c = 0; c < 4; ++c) rgba[c] = rgba[c] * (1.f - frac) + hi[c] * frac;
+    for (int c = 0; c < 4; ++c) rgba[c] = rgba[c] * (1.f - f) + hi[c] * f;
   }
 }
 

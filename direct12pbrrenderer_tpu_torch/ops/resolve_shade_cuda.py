@@ -2,8 +2,10 @@
 `ops/texcache.py::_resolve_shade_kernel` (kernel C).
 
 `resolve_shade` launches the hand-written CUDA kernel `csrc/resolve_shade.cu`
-for CUDA tensors; for CPU tensors it runs `resolve_shade_reference`, the
-plain PyTorch version of the same function. There is no fallback between
+for CUDA tensors, reading the per-pixel planes in place through their
+strides (`tap_planes.plane_strides` says which layouts); for CPU tensors it
+runs `resolve_shade_reference`, the plain PyTorch version of the same
+function. There is no fallback between
 the two: a CUDA input either launches the kernel or raises.
 """
 
@@ -12,6 +14,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import tap_planes
 
 _KERNEL = "resolve_shade"
 
@@ -42,19 +46,21 @@ def resolve_shade(off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel=None, *,
         if tuple(x.shape) != (tiles, c, blocks, 128) or x.dtype != dtype or x.device != rec.device:
             raise ValueError(f"{name} must be {(tiles, c, blocks, 128)} {dtype} on "
                              f"{rec.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
-    args = [x.contiguous() for x in (off, cnts, staged, rec, fx, fy, tl, attrs, flags)]
-    sel_c = sel.contiguous() if sel is not None else None
+    # the per-pixel planes are read in place through their strides (the
+    # plan's arrive with the group innermost, attrs is a channel slice of the
+    # raster rows): no copy. off, cnts and staged are built contiguous.
+    ptrs, strides = tap_planes.plane_args(
+        {"rec": rec, "fx": fx, "fy": fy, "tl": tl, "attrs": attrs, "flags": flags, "sel": sel})
+    for name, x in (("off", off), ("cnts", cnts), ("staged", staged)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides {x.stride()}")
     dev = rec.device
     out = torch.empty((tiles, 9, blocks, 128), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
-        off_c, cnts_c, staged_c, rec_c, fx_c, fy_c, tl_c, attrs_c, flags_c = args
         err = lib.resolve_shade_launch(
-            off_c.data_ptr(), cnts_c.data_ptr(), cnt_cols, staged_c.data_ptr(),
-            staged.shape[1] // 4, rec_c.data_ptr(), fx_c.data_ptr(), fy_c.data_ptr(),
-            tl_c.data_ptr(), attrs_c.data_ptr(), flags_c.data_ptr(),
-            sel_c.data_ptr() if sel_c is not None else None,
-            tiles, n_groups, blocks, int(trilinear), out.data_ptr(),
+            off.data_ptr(), cnts.data_ptr(), cnt_cols, staged.data_ptr(), staged.shape[1] // 4,
+            ptrs, strides, tiles, n_groups, blocks, int(trilinear), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"resolve_shade kernel launch failed: CUDA error {err}")
@@ -99,7 +105,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.resolve_shade_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, p, p]
+        fn.argtypes = [p, p, i, p, i, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
+                       i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 

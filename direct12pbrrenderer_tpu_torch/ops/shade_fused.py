@@ -10,8 +10,9 @@ emission, and the sky on background pixels (deferred_shading.hlsl:23-186,
 skybox.hlsl).
 
 `deferred_kernel` launches the hand-written CUDA kernel
-`csrc/deferred_shade.cu` for CUDA tensors; for CPU tensors it runs
-`deferred_kernel_reference`, the plain PyTorch version. There is no fallback
+`csrc/deferred_shade.cu` for CUDA tensors, reading the per-pixel planes in
+place through their strides (`tap_planes.plane_strides`); for CPU tensors
+it runs `deferred_kernel_reference`, the plain PyTorch version. There is no fallback
 between the two: a CUDA input either launches the kernel or raises. Both
 mask each light's contribution with a select (the TPU kernel multiplies by
 a 0/1 gate, which lets a NaN of a degenerate light row through); on finite
@@ -32,7 +33,7 @@ from ..config import (
     MAX_LIGHTS_PER_CLUSTER,
 )
 
-from . import common, envcache
+from . import common, envcache, tap_planes
 from .env_resolve_cuda import resolve_env_group
 from .shading import env_tap_groups
 from .texcache import _untile
@@ -87,17 +88,23 @@ def deferred_kernel(const, lights, off, cnts, staged, rec, fx, fy, gb, *, has_en
             or staged.device != rec.device):
         raise ValueError(f"staged must be (tiles, B*8, 128) int32 on {rec.device}, got "
                          f"{tuple(staged.shape)} {staged.dtype} on {staged.device}")
-    c = [x.contiguous() for x in (const, lights, off, cnts, staged, rec, fx, fy, gb)]
+    # the per-pixel planes are read in place through their strides (the env
+    # plan's arrive with the group innermost): no copy. The rest is built
+    # contiguous.
+    ptrs, strides = tap_planes.plane_args({"rec": rec, "fx": fx, "fy": fy, "gb": gb})
+    for name, x in (("const", const), ("lights", lights), ("off", off), ("cnts", cnts),
+                    ("staged", staged)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, got strides {x.stride()}")
     dev = rec.device
     out = torch.empty((tiles, 4, blocks, 128), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.deferred_shade_launch(
-            c[0].data_ptr(), c[1].data_ptr(), lights.shape[0], c[2].data_ptr(),
-            c[3].data_ptr(), c[4].data_ptr(), staged.shape[1] // envcache.REC_I32,
-            c[5].data_ptr(), c[6].data_ptr(), c[7].data_ptr(), c[8].data_ptr(),
-            tiles, n_groups, blocks, int(has_env), tile_h, tile_w, tiles_x, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            const.data_ptr(), lights.data_ptr(), lights.shape[0], off.data_ptr(),
+            cnts.data_ptr(), staged.data_ptr(), staged.shape[1] // envcache.REC_I32, ptrs,
+            strides, tiles, n_groups, blocks, int(has_env), tile_h, tile_w, tiles_x,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"deferred_shade kernel launch failed: CUDA error {err}")
         deferred_kernel.launches += 1
@@ -114,7 +121,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.deferred_shade_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, i, p, p, p, p, i, i, i, i, i, i, i, p, p]
+        fn.argtypes = [p, p, i, p, p, p, i, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
+                       i, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 

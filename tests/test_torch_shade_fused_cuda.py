@@ -6,9 +6,13 @@ the same pipeline on the CPU (every kernel's plain version).
 Kernel D is held to the CPU tests' bar: the HDR target within rtol 1e-4 /
 atol 1e-5 on all but 0.1% of the pixels (a one-ulp difference in log or pow
 can move a pixel's cluster slice); the frame to the JAX package's fidelity
-bar, rmse <= 1e-3 on uint8/255. Needs the card: marked `cuda`, skipped
-elsewhere (`python -m pytest --noconftest tests/test_torch_*_cuda.py` on a
-GPU machine without JAX).
+bar, rmse <= 1e-3 on uint8/255. The kernel reads its planes in place
+(contiguous, group-innermost, gb as a channel slice: bit-equal outputs, no
+copy in a wrapper call, a raise on a layout it does not take) and skips only
+work whose result is not read: all-background warps, a light set that no
+lane hits, 0 and 64 active lights stay within the bar. Needs the card:
+marked `cuda`, skipped elsewhere (`python -m pytest --noconftest
+tests/test_torch_*_cuda.py` on a GPU machine without JAX).
 """
 
 import math
@@ -115,3 +119,101 @@ def test_deferred_kernel_light_cap(device):
     want = shade_fused.deferred_kernel_reference(*kargs, **kw)
     assert (got[:, 3] == 32).all() and torch.equal(got[:, 3], want[:, 3])
     assert torch.isclose(got[:, :3], want[:, :3], rtol=1e-4, atol=1e-5).all()
+
+
+def _group_innermost(x):
+    """x with the same values, laid out (tiles, blocks, 128, G)."""
+    return x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+@pytest.fixture(scope="module")
+def frame_inputs():
+    """Kernel D's (args, kwargs) on a 256x96 default-path frame on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    scene, cfg, cam = _scene(256, 96)
+    card = DeferredRenderPipeline(scene, cfg, device=torch.device("cuda", 0), **KNOBS)
+    with recording(shade_fused, "deferred_kernel") as calls:
+        card.render(cam)
+    torch.cuda.synchronize()
+    (kargs, kw), = calls
+    return list(kargs), kw
+
+
+def _variant(kargs, case):
+    """Kernel D's inputs changed for one case: (args, whether every warp's
+    light bodies are skipped)."""
+    const, lights, off, cnts, staged, rec, fx, fy, gb = (x.clone() for x in kargs)
+    if case == "background_warps":          # the first half of every tile's rows
+        gb[:, 10, : gb.shape[2] // 2] = 0.0
+    elif case == "no_light_hits":
+        lights[:, 13] = 0.0
+    elif case == "no_active_lights":
+        const[21] = 0.0
+    elif case == "lights_64":
+        rng = np.random.default_rng(4)
+        lights = torch.zeros(64, 14, device=gb.device)
+        pos = torch.as_tensor(rng.uniform([-8, 0, -8], [8, 6, 8], (64, 3)), dtype=torch.float32)
+        lights[:, 0:3] = pos
+        lights[:, 3:6] = torch.as_tensor(rng.uniform(0.2, 1.0, (64, 3)), dtype=torch.float32)
+        lights[:, 6:10] = torch.tensor([4.0, 1.0, 0.1, 0.05])
+        # the sphere test's centres, in view space in front of the camera
+        lights[:, 10:13] = torch.as_tensor(rng.uniform([-5, -3, 1], [5, 3, 20], (64, 3)),
+                                           dtype=torch.float32)
+        lights[:, 13] = torch.as_tensor(rng.uniform(1.0, 6.0, 64), dtype=torch.float32)
+        const[21] = 64.0
+    return [const, lights, off, cnts, staged, rec, fx, fy, gb]
+
+
+@pytest.mark.parametrize("case", ["recorded", "background_warps", "no_light_hits",
+                                  "no_active_lights", "lights_64"])
+def test_kernel_reads_every_layout_and_skips_only_unread_work(device, frame_inputs, case):
+    """Contiguous and group-innermost rec/fx/fy and gb as a channel slice
+    give bit-equal outputs; all within the bar of the plain version, with
+    the same hit counters; one wrapper call dispatches no tensor op but its
+    output's allocation, and a complete trace of ten calls holds only the
+    kernel."""
+    kargs, kw = frame_inputs
+    args = _variant(kargs, case)
+    want = shade_fused.deferred_kernel_reference(*args, **kw)
+    gb_big = torch.cat([args[8], torch.full_like(args[8][:, :3], float("nan"))], 1)
+    layouts = {
+        "contiguous": args[:5] + [x.contiguous() for x in args[5:]],
+        "group_innermost": args[:5] + [_group_innermost(x) for x in args[5:8]] + args[8:],
+        "gb_slice": args[:8] + [gb_big[:, :14]],
+    }
+    outs = {}
+    for name, a in layouts.items():
+        outs[name] = shade_fused.deferred_kernel(*a, **kw)
+        assert torch.equal(outs[name], outs["contiguous"]), name
+    got = outs["contiguous"].cpu().numpy()
+    ref = want.cpu().numpy()
+    assert np.isfinite(got).all()
+    bad = ~np.isclose(got[:, :3], ref[:, :3], rtol=1e-4, atol=1e-5).all(1)
+    assert bad.mean() <= 1e-3, (bad.sum(), np.abs(got - ref).max())
+    assert (got[:, 3] != ref[:, 3]).mean() <= 1e-3
+    if case in ("no_light_hits", "no_active_lights"):
+        assert (got[:, 3] == 0).all()
+    if case == "lights_64":
+        assert got[:, 3].max() > 1
+    from chip_smoke import OUTPUT_OPS, device_spans, dispatched_ops
+
+    def call():
+        return shade_fused.deferred_kernel(*layouts["group_innermost"], **kw)
+
+    ops = dispatched_ops(call)
+    assert ops and all(op in OUTPUT_OPS for op in ops), ops
+    names = {n for n, _ in device_spans(call, 10, "deferred_shade")}
+    assert all("deferred_shade_kernel" in n for n in names), names
+
+
+def test_wrapper_raises_on_a_layout_it_does_not_take(device, frame_inputs):
+    kargs, kw = frame_inputs
+    row_innermost = kargs[5].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="rec"):
+        shade_fused.deferred_kernel(*kargs[:5], row_innermost, *kargs[6:], **kw)
+    lanes_expanded = kargs[8][..., :1].expand(kargs[8].shape)
+    with pytest.raises(ValueError, match="gb"):
+        shade_fused.deferred_kernel(*kargs[:8], lanes_expanded, **kw)
