@@ -17,8 +17,9 @@ on the card, then renders at 1920x1080 with a procedural sky:
   tile (not 128 wide, so the fused G-buffer is off): kernel A's planes, the
   texture cache on its own 24x128 tiling (plan with kernel B, resolve with
   kernel E), the unfused deferred pass with the env cache (kernels B, F);
-* the default path with a lo-half texture cap of 156 pages: that cover
-  goes through the two-kernel cover (kernel I, block_cover + pix_match);
+* the default path with a lo-half texture cap of 156 pages: that cover is
+  kernel B's launch at a cap above 128, which stands for the TPU's
+  two-kernel cover (kernel I);
 * the anisotropic filter (the planar path without kernel E);
 * the depth-only raster stage, `stages.rasterize(use_pallas=True)`, on the
   default frame's geometry (kernel H);
@@ -67,7 +68,7 @@ FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
 PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic paths
 PTEX_TILE = (24, 160)     # the planar-tex cell's raster tile: not 128 wide
-CAP156 = (156, 44, None, (32, 16))  # a lo-half cap above kernel B's 128: kernel I
+CAP156 = (156, 44, None, (32, 16))  # a lo-half cap above 128: kernel I
 RMSE_BAR = 1e-3          # uint8/255 frame rmse, the JAX package's fidelity bar
 SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of values
 D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
@@ -78,33 +79,36 @@ F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weigh
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
-KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, plain version)
+KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch counter)
     "raster_interp": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:157", "raster_cuda",
-                      "rasterize_interp", "rasterize_interp_reference"),
+                      "rasterize_interp", "launches"),
     "fused_cover": ("direct12pbrrenderer_tpu/ops/texcache.py:486", "cover_cuda",
-                    "fused_cover", "fused_cover_reference"),
+                    "fused_cover", "launches"),
     "resolve_shade": ("direct12pbrrenderer_tpu/ops/texcache.py:1024", "resolve_shade_cuda",
-                      "resolve_shade", "resolve_shade_reference"),
+                      "resolve_shade", "launches"),
     "deferred_shade": ("direct12pbrrenderer_tpu/ops/shade_pallas.py:61", "shade_fused",
-                       "deferred_kernel", "deferred_kernel_reference"),
+                       "deferred_kernel", "launches"),
     "atlas_resolve": ("direct12pbrrenderer_tpu/ops/texcache.py:992", "atlas_resolve_cuda",
-                      "atlas_resolve", "atlas_resolve_reference"),
+                      "atlas_resolve", "launches"),
     "env_resolve": ("direct12pbrrenderer_tpu/ops/envcache.py:291", "env_resolve_cuda",
-                    "env_resolve", "env_resolve_reference"),
+                    "env_resolve", "launches"),
     "point_lights": ("direct12pbrrenderer_tpu/ops/lights_pallas.py:138", "lights_cuda",
-                     "point_lights_kernel", "point_lights_kernel_reference"),
+                     "point_lights_kernel", "launches"),
     "raster_depth": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:88", "raster_cuda",
-                     "rasterize_depth", "rasterize_depth_reference"),
-    "block_cover": ("direct12pbrrenderer_tpu/ops/texcache.py:278", "cover_two_cuda",
-                    "block_cover", "block_cover_reference"),
-    "pix_match": ("direct12pbrrenderer_tpu/ops/texcache.py:331", "cover_two_cuda",
-                  "pix_match", "pix_match_reference"),
+                     "rasterize_depth", "launches"),
+    # kernel I, the TPU's two-kernel cover for caps above 128: on the card
+    # kernel B's launch at such a cap, counted apart (and in B's count too)
+    "cover_wide": ("direct12pbrrenderer_tpu/ops/texcache.py:278 (_block_cover_kernel) and "
+                   "direct12pbrrenderer_tpu/ops/texcache.py:331 (_pix_match_kernel)",
+                   "cover_cuda", "fused_cover", "wide_launches"),
 }
-SOURCES = {"pix_match": "block_cover"}   # kernel I's two kernels share one source
+WIDE = "cover_wide"
+SOURCES = {WIDE: "fused_cover"}   # kernel I runs kernel B's source and device kernel
 
 
 def source_of(name: str) -> str:
-    """The csrc/ source (without .cu) that builds kernel `name`."""
+    """The csrc/ source (without .cu) that builds kernel `name`; its device
+    kernel is `<source>_kernel`."""
     return SOURCES.get(name, name)
 
 
@@ -380,21 +384,22 @@ def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
 
 
 def wrapper(name: str):
-    """(module, wrapper function, plain version) of kernel `name`."""
+    """(wrapper function, the name of its launch counter) of kernel `name`."""
     import importlib
 
-    _, mod, fn, ref = KERNELS[name]
+    _, mod, fn, counter = KERNELS[name]
     module = importlib.import_module(f"direct12pbrrenderer_tpu_torch.ops.{mod}")
-    return module, getattr(module, fn), getattr(module, ref)
+    return getattr(module, fn), counter
 
 
 def reset_launches() -> None:
     for name in KERNELS:
-        wrapper(name)[1].launches = 0
+        setattr(*wrapper(name), 0)
 
 
 def read_launches() -> dict[str, int]:
-    return {name: wrapper(name)[1].launches for name in KERNELS}
+    # a counter the wrapper lacks reads 0 (kernel_ab.py runs older trees)
+    return {name: getattr(*wrapper(name), 0) for name in KERNELS}
 
 
 @contextlib.contextmanager
@@ -409,7 +414,7 @@ def recording(module, name: str):
         calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
-    rec.launches = 0
+    rec.launches = rec.wide_launches = 0
     setattr(module, name, rec)
     try:
         yield calls
@@ -634,12 +639,13 @@ def profiled_frames(pipe, cam, frames: int):
 
     for _ in range(TRACE_TRIES):
         spans, launched, wall = traced(run)
-        held = {name: sum(1 for n, _ in spans if f"{name}_kernel" in n) for name in KERNELS}
-        if held == launched:
+        held = {name: sum(1 for n, _ in spans if f"{name}_kernel" in n) for name in KERNELS
+                if source_of(name) == name}
+        if all(launched[k] == v for k, v in held.items()):
             TRACES["complete"] += 1
             break
         TRACES["partial"].append("frame " + ", ".join(
-            f"{k} {held[k]}/{v}" for k, v in launched.items() if held[k] != v))
+            f"{k} {v}/{launched[k]}" for k, v in held.items() if launched[k] != v))
     else:
         fail("profiler", f"no complete trace of {frames} frames in {TRACE_TRIES} tries: "
              f"{TRACES['partial']}")
@@ -747,8 +753,8 @@ def camera_path(cam, n):
 def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
     """Render `path` with every launch count set to 0 just before and read
     just after; fail when a kernel of the path launched fewer times than
-    `want`, or a kernel in `absent` launched at all. Returns (host ms per
-    frame, launches)."""
+    `want`, or a kernel in `absent` launched at all (kernel I too, unless
+    `want` names it). Returns (host ms per frame, launches)."""
     torch.cuda.synchronize()
     reset_launches()
     times = []
@@ -762,7 +768,7 @@ def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
         if launches[name] < n:
             fail(phase, f"kernel {name} launched {launches[name]} times in {len(path)} "
                  f"frames, want >= {n}")
-    for name in absent:
+    for name in (*absent, *[WIDE] * (WIDE not in want)):
         if launches[name]:
             fail(phase, f"kernel {name} launched {launches[name]} times, want none")
     return times, launches
@@ -1042,6 +1048,16 @@ def cover_census(pages, act, block_cap: int):
     return per_row.sum(-1), ~act.flatten(2).any(-1)
 
 
+def cover_bytes_needed(cargs, got, empty) -> int:
+    """The bytes one page cover (kernel B, or I at a cap above 128) must
+    move: act of every item in, the four outputs `got` out, and the pages of
+    the items with an active pixel only (`empty` from `cover_census`): an
+    empty item's outputs are 0 whatever its pages hold (the TPU kernel's
+    whole-tile gate)."""
+    pages, act = cargs[:2]
+    return nbytes(act, *got) + int((~empty).sum()) * pages[0, 0].numel() * pages.element_size()
+
+
 def fold_census(setup, bins, width, height, tile_h, tile_w) -> dict[str, int]:
     """The depth fold's work on this frame, counted on the card from the
     AABBs, the bin lists and the per-tile list limits of kernels A and H
@@ -1168,12 +1184,13 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
                      bounds) -> dict[str, int]:
     """The planar texture-cache, cap-156 and anisotropic configurations of
     the textured stress cell. Checks kernel A at the 24x160 tile, E and I
-    against their plain versions (and I against B at caps up to 128 on the
-    default frame's recorded covers), times each path's frames, and holds
-    each frame against its all-plain pipeline. Adds E's and I's numbers to
-    `measured` and `bounds`; returns their launches on their paths."""
-    from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda,
-                                                   cover_two_cuda, raster_cuda, texcache)
+    against their plain versions (and I's plain version against B at caps
+    up to 128 on the default frame's recorded covers), times each path's
+    frames, and holds each frame against its all-plain pipeline. Adds E's
+    and I's numbers to `measured` and `bounds`; returns their launches on
+    their paths."""
+    from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda, cover_two,
+                                                   raster_cuda, texcache)
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 
     t0 = time.perf_counter()
@@ -1229,66 +1246,69 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
         f"bound {bounds['atlas_resolve'][0]:.4f} ms ({bounds['atlas_resolve'][1]})")
     del got, want, eargs, e_calls, off, cnts, staged, rec
 
-    # ---- kernel I vs plain on the lo-half cover of the cap-156 frame --------
+    # ---- kernel I: kernel B's launch at cap 156, the cap-156 frame's lo half -
     cap = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=CAP156, **knobs)
-    with recording(cover_two_cuda, "block_cover") as b_calls, \
-            recording(cover_two_cuda, "pix_match") as m_calls:
+    with recording(cover_cuda, "fused_cover") as calls:
         cap.render(cam)
         torch.cuda.synchronize()
-    if (len(b_calls), len(m_calls)) != (1, 1):
-        fail("kernel-cover-two", f"a cap-156 frame made {len(b_calls)} block_cover and "
-             f"{len(m_calls)} pix_match calls, want 1 and 1")
-    (bargs, bkw), = b_calls
-    (margs, mkw), = m_calls
-    got = cover_two_cuda.block_cover(*bargs, **bkw)
-    for g_, w_, what in zip(got, cover_two_cuda.block_cover_reference(*bargs, **bkw),
-                            ("cand", "slotA")):
+    wide = [c for c in calls if max(c[0][2]) > cover_cuda.WIDE_CAP]
+    if (len(calls), len(wide)) != (4, 1):
+        fail("kernel-cover-two", f"a cap-156 frame made {len(calls)} cover calls, "
+             f"{len(wide)} of them at a cap above {cover_cuda.WIDE_CAP}: want 4 and 1")
+    (wargs, wkw), = wide
+    pages, act, caps, block_cap = wargs
+
+    def cover_i():
+        return cover_cuda.fused_cover(*wargs, **wkw)
+
+    got = cover_i()
+    for g_, w_, what in zip(got, texcache._cover_and_match_2level(*wargs, **wkw),
+                            ("list", "count", "slot", "covered")):
         if not torch.equal(g_, w_):
-            fail("kernel-cover-two", f"block_cover {what} differs from the plain version")
-    cand = got[0]
-    n_lo = texcache._distinct_by_sort(cand.reshape(*cand.shape[:2], -1), CAP156[0])[1]
-    max_lo = int(n_lo.max())
-    got_m = cover_two_cuda.pix_match(*margs, **mkw)
-    for g_, w_, what in zip(got_m, cover_two_cuda.pix_match_reference(*margs, **mkw),
-                            ("slot", "covered")):
-        if not torch.equal(g_, w_):
-            fail("kernel-cover-two", f"pix_match {what} differs from the plain version")
-    ms_b = cuda_ms(lambda: cover_two_cuda.block_cover(*bargs, **bkw), 20)
-    plain_ms_b = cuda_ms(lambda: cover_two_cuda.block_cover_reference(*bargs, **bkw), 3)
-    ms_m = cuda_ms(lambda: cover_two_cuda.pix_match(*margs, **mkw), 20)
-    plain_ms_m = cuda_ms(lambda: cover_two_cuda.pix_match_reference(*margs, **mkw), 3)
-    # the slot half of pix_match as one PyTorch call (the covered half and
-    # the unmatched pixels' slot 0 are not in it): for the record only
-    block_cap = bargs[2]
-    idx = margs[0].clamp(0, block_cap - 1).long()
-    gather_ms = cuda_ms(lambda: torch.gather(margs[1], -1, idx), 20)
-    # block_cover: pages and act in, candidates and row slots out; the rounds
-    # the rows run (to their first dead one), about 256 compares a round and
-    # row, counted at the float32 rate. pix_match: its three inputs in, slot
-    # and covered out; a few operations per pixel
-    live = (cand != cover_two_cuda.SENTINEL).sum(-1)
-    rounds = float(torch.clamp(live + 1, max=block_cap).sum())
-    bounds["block_cover"] = bound(nbytes(*bargs[:2], *got), rounds * 256)
-    bounds["pix_match"] = bound(nbytes(*margs[:3], *got_m), margs[0].numel() * 4)
-    measured["block_cover"] = (0.0, ms_b, plain_ms_b)
-    measured["pix_match"] = (0.0, ms_m, plain_ms_m)
-    # kernel I against kernel B on the default frame's four covers (caps <= 128)
+            fail("kernel-cover-two", f"{what} differs from the plain two-kernel route")
+    ms_i = cuda_ms(cover_i, 20)
+    cold_i = cold_ms(cover_i, 20)
+    alone_i, busy_i = device_ms(cover_i, 10, "fused_cover")
+    ops_i = only_kernel("kernel-cover-two", cover_i, "fused_cover")
+    plain_ms_i = cuda_ms(lambda: texcache._cover_and_match_2level(*wargs, **wkw), 3)
+    live, empty = cover_census(pages, act, block_cap)
+    call_bytes = cover_bytes_needed(wargs, got, empty)
+    bounds[WIDE] = bound(call_bytes)
+    measured[WIDE] = (0.0, ms_i, plain_ms_i, alone_i, cold_i)
+    # the distinct pages of each tile's lo half (unclamped), beside the cap
+    cand, slot_a = cover_two.block_cover_reference(pages, act, block_cap)
+    flat = cand.reshape(*cand.shape[:2], -1)
+    max_lo = int(texcache._distinct_by_sort(flat, flat.shape[-1])[1].max())
+    # the slot half of the TPU's pix_match as one PyTorch call (the covered
+    # half and the unmatched pixels' slot 0 are not in it): for the record
+    cap_arr = torch.tensor(caps, dtype=torch.int32, device=dev)[None, :]
+    slot_b = texcache._distinct_by_sort(flat, max(caps), cap_arr)[2].reshape(cand.shape)
+    idx = slot_a.clamp(0, block_cap - 1).long()
+    gather_ms = cuda_ms(lambda: torch.gather(slot_b, -1, idx), 20)
+    # kernel I's plain version against kernel B on the default frame's four
+    # covers (caps <= 128)
     for cargs, ckw in cover_calls:
         out_b = cover_cuda.fused_cover(*cargs, **ckw)
         out_i = texcache._cover_and_match_2level(*cargs, **ckw)
         for g_, w_, what in zip(out_i, out_b, ("list", "count", "slot", "covered")):
             if not torch.equal(g_, w_):
-                fail("kernel-cover-two", f"two-kernel route vs kernel B: {what} differs")
-    say("kernel-cover-two", f"lo-half cover of the cap-156 frame ({tuple(bargs[0].shape)}, "
-        f"block_cap {block_cap}, distinct pages per tile max {max_lo} of cap {CAP156[0]}): "
-        f"both outputs of each kernel bit-equal to the plain versions; block_cover kernel "
-        f"{ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, bound {bounds['block_cover'][0]:.4f} ms "
-        f"({bounds['block_cover'][1]}); pix_match kernel {ms_m:.4f} ms, plain {plain_ms_m:.4f} "
-        f"ms, bound {bounds['pix_match'][0]:.4f} ms ({bounds['pix_match'][1]}); torch.gather "
-        f"of the slot half alone {gather_ms:.4f} ms (not the whole function: library_ms "
-        f"null); two-kernel route vs kernel B on the default frame's {len(cover_calls)} "
-        f"covers (caps <= 128): all four outputs bit-equal")
-    del got, got_m, cand, bargs, margs, b_calls, m_calls, idx
+                fail("kernel-cover-two", f"two-kernel plain route vs kernel B: {what} differs")
+    say("kernel-cover-two", f"lo-half cover of the cap-156 frame ({tuple(pages.shape)}, "
+        f"caps {caps}, block_cap {block_cap}; {float(act.float().mean()):.3f} active; live "
+        f"candidates per item p50 {float(live.float().median()):.0f} max {int(live.max())}, "
+        f"empty items {float(empty.float().mean()):.3f}; distinct pages per tile max "
+        f"{max_lo} of cap {CAP156[0]}): one launch of kernel B's body at cap {max(caps)}, all "
+        f"four outputs bit-equal to the plain two-kernel route; {ms_i:.4f} ms through its "
+        f"wrapper (CUDA events; {cold_i:.4f} ms with the L2 evicted before each call), the "
+        f"kernel alone {alone_i:.4f} ms of {busy_i:.4f} ms of device work (torch.profiler), "
+        f"plain {plain_ms_i:.4f} ms, bound {bounds[WIDE][0]:.4f} ms ({bounds[WIDE][1]}: act, "
+        f"outputs and the pages of non-empty items, {call_bytes / 1e6:.1f} MB); one call "
+        f"dispatches {ops_i} and traces only its kernel; planes' strides "
+        f"{plane_layouts(wargs[:2])}; torch.gather of the slot half alone {gather_ms:.4f} ms "
+        f"(not the whole function: library_ms null); plain two-kernel route vs kernel B on "
+        f"the default frame's {len(cover_calls)} covers (caps <= 128): all four outputs "
+        f"bit-equal")
+    del got, cand, slot_a, flat, slot_b, idx, calls, wide, wargs, pages, act
 
     # ---- the planar texture-cache path: A, B, E, F -------------------------
     path = camera_path(cam, 1 + PTEX_FRAMES)
@@ -1296,8 +1316,7 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     times, launches = run_frames("frame-planar-tex", ptex, path[1:], {
         "raster_interp": PTEX_FRAMES, "fused_cover": 4 * PTEX_FRAMES,
         "atlas_resolve": PTEX_FRAMES, "env_resolve": PTEX_FRAMES},
-        absent=("resolve_shade", "deferred_shade", "point_lights", "raster_depth",
-                "block_cover", "pix_match"))
+        absent=("resolve_shade", "deferred_shade", "point_lights", "raster_depth"))
     out = {"atlas_resolve": launches["atlas_resolve"]}
     frame_line = check_frame("frame-planar-tex", ptex, path[-1])
     say("frame-planar-tex", f"planar texture-cache path, tile {PTEX_TILE[0]}x{PTEX_TILE[1]} "
@@ -1329,14 +1348,13 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
         f"differ; {counters}")
     del ptex, ref
 
-    # ---- the cap-156 frame: I once, B three times ----------------------------
+    # ---- the cap-156 frame: B four times, one of them wide (kernel I) ---------
     _, launches = run_frames("frame-cap156", cap, [cam], {
-        "raster_interp": 1, "fused_cover": 3, "block_cover": 1, "pix_match": 1,
-        "resolve_shade": 1, "deferred_shade": 1}, absent=("atlas_resolve", "env_resolve"))
-    if (launches["block_cover"], launches["pix_match"], launches["fused_cover"]) != (1, 1, 3):
-        fail("frame-cap156", f"kernel launches {launches}, want block_cover 1, pix_match 1, "
-             "fused_cover 3")
-    out.update({k: launches[k] for k in ("block_cover", "pix_match")})
+        "raster_interp": 1, "fused_cover": 4, WIDE: 1, "resolve_shade": 1,
+        "deferred_shade": 1}, absent=("atlas_resolve", "env_resolve"))
+    if (launches["fused_cover"], launches[WIDE]) != (4, 1):
+        fail("frame-cap156", f"kernel launches {launches}, want fused_cover 4, {WIDE} 1")
+    out[WIDE] = launches[WIDE]
     rmse, ndiff = fidelity(cap, pipe, cam)
     st = cap.last_stats
     say("frame-cap156", f"default path with tex_caps {CAP156}, one frame: kernel launches "
@@ -1358,7 +1376,7 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     times, launches = run_frames("frame-aniso", aniso, apath[1:], {
         "raster_interp": ANISO_FRAMES, "fused_cover": ANISO_FRAMES,
         "env_resolve": ANISO_FRAMES},
-        absent=("atlas_resolve", "resolve_shade", "deferred_shade", "block_cover"))
+        absent=("atlas_resolve", "resolve_shade", "deferred_shade"))
     say("frame-aniso", f"texture_filter=anisotropic (tile {TILE_H}x{TILE_W}), {ANISO_FRAMES} "
         f"frames: mean {np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms; kernel launches "
         f"{launches}; {check_frame('frame-aniso', aniso, apath[-1])}")
@@ -1500,11 +1518,7 @@ def main() -> None:
                 fail("kernel-cover", f"{what}: {out} differs from the plain version")
         tiles, g_, blocks, _ = cargs[0].shape
         live, empty = cover_census(cargs[0], cargs[1], cargs[3])
-        # act of every item in, the four outputs out, and the pages of the
-        # items with an active pixel only: an empty item's outputs are 0
-        # whatever its pages hold (the TPU kernel's whole-tile gate)
-        call_bytes = nbytes(cargs[1], *got) + (
-            int((~empty).sum()) * blocks * 128 * cargs[0].element_size())
+        call_bytes = cover_bytes_needed(cargs, got, empty)
         cover_bytes += call_bytes
         plane_bytes += nbytes(cargs[0], cargs[1], *got)
         k_ms = cuda_ms(lambda: cover_cuda.fused_cover(*cargs, **ckw), 20)
@@ -1727,9 +1741,9 @@ def main() -> None:
         "plain_ms": measured[name][2], "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1], "library_ms": None,
         # the kernel's own device time beside "ms", the wrapper's: A, C, D,
-        # E, F and H by torch.profiler, B and G by CUDA graph replays of the
-        # wrapper's call; both warm-L2 times (the runs repeat on the same
-        # inputs). C, D, E, F also through the wrapper with the L2 evicted
+        # E, F, H and I by torch.profiler, B and G by CUDA graph replays of
+        # the wrapper's call; both warm-L2 times (the runs repeat on the same
+        # inputs). C, D, E, F, I also through the wrapper with the L2 evicted
         # before each call; B, C, D, G also their earlier, looser bounds.
         "kernel_ms": (measured[name] + (None,))[3],
         "cold_ms": (measured[name] + (None, None))[4],

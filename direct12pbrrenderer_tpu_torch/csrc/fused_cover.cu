@@ -1,4 +1,5 @@
-// Fused two-level page cover for the texture and env page caches, kernel B.
+// Fused two-level page cover for the texture and env page caches, kernels B
+// and I.
 //
 // Replaces the TPU kernel direct12pbrrenderer_tpu/ops/texcache.py
 // _fused_cover_kernel_batched (:486; _fused_cover_pallas :776 launches it
@@ -7,6 +8,13 @@
 // group) of a (tiles, g, blocks, 128) page/active plane, the ascending list
 // of distinct pages the tile touches, its count, and every pixel's slot in
 // that list and whether it is covered.
+//
+// At group caps above 128 the same launch replaces the TPU's two-kernel
+// cover, _block_cover_kernel (:278) + _pix_match_kernel (:331) around a
+// tile-level sort (_cover_and_match_2level :837 takes them because the fused
+// TPU kernel writes its list in one 128-lane row). Nothing here depends on
+// the cap: shared memory holds blocks * min(block_cap, 128) candidates, and
+// the cap only clamps count and slot and bounds the list's store loop.
 //
 // Semantics kept exactly (ops/cover_cuda.py has the plain version):
 //   * row level: block_cap rounds of a min over the row's active pages not
@@ -382,7 +390,7 @@ extern "C" int fused_cover_launch(const int* pages, const long long* ps, const u
                                   int block_cap, int cap_max, Caps caps, int* list_out,
                                   int* cnt_out, int* slot_out, uint8_t* cov_out, void* stream) {
   if (tiles < 0 || g < 1 || g > kMaxGroups || blocks < 1 || blocks > kMaxRows ||
-      block_cap < 1 || cap_max < 1 || cap_max > 128 ||
+      block_cap < 1 || cap_max < 1 ||
       (reinterpret_cast<uintptr_t>(slot_out) | reinterpret_cast<uintptr_t>(cov_out)) % 16) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,16 @@
 """Fused two-level page cover — counterpart of
-`ops/texcache.py::_fused_cover_pallas` (kernel B).
+`ops/texcache.py::_fused_cover_pallas` (kernel B) and, at group caps above
+128, of the two-kernel cover `_block_cover_pallas` + `_pix_match_pallas`
+(kernel I): one launch serves every cap.
 
 `fused_cover` launches the hand-written CUDA kernel `csrc/fused_cover.cu` for
 CUDA tensors (persistent blocks that read the planes in place through their
 strides, prefetch the next (tile, group) item and merge the rows' sorted
 candidates; its header says why); for CPU tensors it runs
 `fused_cover_reference`, the plain PyTorch version. There is no fallback
-between the two: a CUDA input either launches the kernel or raises.
+between the two: a CUDA input either launches the kernel or raises. Kernel
+I's plain version is `texcache._cover_and_match_2level`, the TPU's two
+kernels step for step; both plain versions agree bit for bit at every cap.
 
 Per (tile, group) of `pages`/`act` (tiles, g, blocks, 128):
 * each 128-pixel row keeps its `block_cap` smallest distinct active pages
@@ -26,7 +30,7 @@ import ctypes
 import torch
 
 SENTINEL = 2**31 - 1
-MAX_CAP = 128        # group caps above this need the two-kernel cover (kernel I)
+WIDE_CAP = 128       # a launch with a larger cap stands for kernel I
 MAX_GROUPS = 16      # group caps ride the launch as a fixed-size struct
 _KERNEL = "fused_cover"
 
@@ -51,8 +55,8 @@ def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: 
         raise TypeError(f"pages must be int32 and act bool, got {pages.dtype}/{act.dtype}")
     if act.device != pages.device:
         raise ValueError(f"act on {act.device}, pages on {pages.device}")
-    if len(caps) != g or g > MAX_GROUPS or not 0 < min(caps) <= cap_max <= MAX_CAP:
-        raise ValueError(f"need {g} <= {MAX_GROUPS} group caps in 1..{MAX_CAP}, got {caps}")
+    if len(caps) != g or g > MAX_GROUPS or min(caps) < 1:
+        raise ValueError(f"need {g} <= {MAX_GROUPS} group caps of at least 1, got {caps}")
     if not 0 < blocks <= 32 or block_cap < 1:
         raise ValueError(f"the kernel takes 1..32 rows per tile and block_cap >= 1, got "
                          f"{blocks} rows, block_cap {block_cap}")
@@ -76,10 +80,13 @@ def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: 
         if err != 0:
             raise RuntimeError(f"fused_cover kernel launch failed: CUDA error {err}")
         fused_cover.launches += 1
+        if cap_max > WIDE_CAP:
+            fused_cover.wide_launches += 1
     return page_list, count, slot, cov
 
 
 fused_cover.launches = 0  # kernel launches in this process (reset by callers)
+fused_cover.wide_launches = 0  # of them, those at a cap above WIDE_CAP (kernel I)
 
 
 def _library() -> ctypes.CDLL:

@@ -3,9 +3,10 @@
 Per 24x128-px screen tile the plan extracts the distinct atlas pages each
 (material slot, trilinear half) touches, plus up to CAP_FB guaranteed
 coarsest-mip fallback pages per group, and stages all tiles' pages in one
-gather. The page covers run on kernel B (`ops/cover_cuda.py`) for group
-caps up to 128 and on the two-kernel cover, kernel I
-(`ops/cover_two_cuda.py`), above. Two resolves run on the plan: kernel C
+gather. The page covers run on kernel B (`ops/cover_cuda.py`) at every
+group cap; above 128 that one launch stands for the TPU's two-kernel cover,
+kernel I, whose plain form is `_cover_and_match_2level` over
+`ops/cover_two.py`. Two resolves run on the plan: kernel C
 (`ops/resolve_shade_cuda.py`, the tap resolve plus the gbuffer.hlsl pixel
 shade) for the fused G-buffer (`shade_planes_fused`), and kernel E
 (`ops/atlas_resolve_cuda.py`, the storage-space taps) for the planar one
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from . import (atlas_resolve_cuda, common, cover_cuda, cover_two_cuda, gbuffer,
+from . import (atlas_resolve_cuda, common, cover_cuda, cover_two, gbuffer,
                resolve_shade_cuda)
 from .gbuffer import AtlasDevice
 
@@ -144,15 +145,13 @@ def _mip_plan(atlas, tex, lod, trilinear):
 
 
 def _cover_and_match(pages, act, cap, block_cap: int):
-    """pages/act (tiles, g, blocks, 128): the two-level page cover. `cap` is
-    one int or a per-group tuple; caps up to 128 take the one-kernel cover
-    (kernel B), larger ones the two-kernel cover (kernel I). Returns
+    """pages/act (tiles, g, blocks, 128): the two-level page cover, one
+    launch of kernel B at any cap (above 128 it replaces the TPU's two-kernel
+    cover, kernel I). `cap` is one int or a per-group tuple. Returns
     (page_list (tiles, g, cap_max) ascending, 0-padded; count (tiles, g);
     slot; found)."""
     caps = cap if isinstance(cap, tuple) else (cap,) * pages.shape[1]
-    if max(caps) <= cover_cuda.MAX_CAP:
-        return cover_cuda.fused_cover(pages, act, caps, block_cap)
-    return _cover_and_match_2level(pages, act, caps, block_cap)
+    return cover_cuda.fused_cover(pages, act, caps, block_cap)
 
 
 def _distinct_by_sort(cand, cap_max: int, cap_arr=None):
@@ -168,7 +167,7 @@ def _distinct_by_sort(cand, cap_max: int, cap_arr=None):
     if cap_arr is None:
         cap_arr = torch.full((1,) * (cand.dim() - 1), cap_max, dtype=torch.int32, device=dev)
     sv, sp = torch.sort(cand, dim=-1, stable=True)
-    live = sv != cover_cuda.SENTINEL
+    live = sv != cover_two.SENTINEL
     first = torch.cat([torch.ones_like(live[..., :1]), sv[..., 1:] != sv[..., :-1]], -1) & live
     rank_sorted = torch.cumsum(first.to(torch.int32), -1, dtype=torch.int32) - 1
     rank_sorted = torch.where(live, rank_sorted, n)
@@ -185,16 +184,17 @@ def _distinct_by_sort(cand, cap_max: int, cap_arr=None):
 
 
 def _cover_and_match_2level(pages, act, caps: tuple, block_cap: int):
-    """The two-kernel cover (kernel I), for any caps: the row scan
-    (block_cover), the tile-level distinct sort, then each pixel's slot and
-    coverage through its row candidate (pix_match). At caps up to 128 it
-    gives kernel B's four outputs bit for bit."""
+    """Kernel I's plain version, the JAX package's two-kernel cover step for
+    step, for any caps: the row scan (`cover_two.block_cover_reference`), the
+    tile-level distinct sort, then each pixel's slot and coverage through its
+    row candidate (`cover_two.pix_match_reference`). It gives kernel B's four
+    outputs bit for bit at every cap; no path of the port calls it."""
     tiles, g, blocks, _ = pages.shape
-    cand, slot_a = cover_two_cuda.block_cover(pages, act, block_cap)
+    cand, slot_a = cover_two.block_cover_reference(pages, act, block_cap)
     cap_arr = torch.tensor(caps, dtype=torch.int32, device=pages.device)[None, :]
     page_list, count, slot_b, found_b = _distinct_by_sort(
         cand.reshape(tiles, g, blocks * block_cap), max(caps), cap_arr)
-    slot, cov = cover_two_cuda.pix_match(
+    slot, cov = cover_two.pix_match_reference(
         slot_a, slot_b.reshape(cand.shape), found_b.reshape(cand.shape), block_cap)
     return page_list, count, slot, cov & act
 

@@ -1,4 +1,4 @@
-"""Kernels C and D of several checkouts of this repository, on one card.
+"""Kernels C, D and I of several checkouts of this repository, on one card.
 
     python3 kernel_ab.py TREE [TREE ...]
 
@@ -17,6 +17,18 @@ kernel D (`shade_fused.deferred_kernel`), and for each kernel:
   all the call's device work (torch.profiler, `kernel_ms` and `busy_ms`;
   `copy_ms` is their difference: the wrapper's layout copies);
 * hashes its inputs and its output (sha256 of the values).
+
+For kernel I it renders the same frame with chip_smoke.py's cap-156 knobs
+(`CAP156`), records the one page cover at a cap above 128
+(`texcache._cover_and_match`, the route's entry in every tree), holds its
+four outputs to kernel B's plain version, and times the whole call through
+its wrapper (`ms`, `cold_ms`), its device activities per call and their
+time (`activities`, `busy_ms`, torch.profiler) and, where the tree still
+has the two-kernel CUDA route (`ops/cover_two_cuda.py`), each step of it:
+`block_cover` and `pix_match` through their wrappers and alone, and the
+torch glue between them (`texcache._distinct_by_sort`); else the one
+launch alone (`kernel_ms`). It also profiles two cap-156 frames (device
+busy ms and activities per frame).
 
 It prints one JSON line per TREE, then fails unless every TREE saw the same
 inputs and gave bit-equal outputs. Give the trees in turns (parent, change,
@@ -42,6 +54,91 @@ def _sha(xs) -> str:
     return h.hexdigest()[:16]
 
 
+def _spans(cs, fn, reps: int, kernels: dict[str, int]):
+    """Device activities (name, us) of `reps` runs of `fn` from a complete
+    torch.profiler trace: one that holds `kernels[k]` launches a run of
+    each device kernel named k (chip_smoke.traced; up to TRACE_TRIES)."""
+    for _ in range(cs.TRACE_TRIES):
+        spans, _, _ = cs.traced(lambda: [fn() for _ in range(reps)])
+        held = {k: sum(1 for n, _ in spans if k in n) for k in kernels}
+        if all(held[k] == n * reps for k, n in kernels.items()):
+            return spans
+        cs.TRACES["partial"].append(f"{held} of {reps} runs")
+    cs.fail("ab", f"no complete trace of {sorted(kernels)}: {cs.TRACES['partial']}")
+
+
+def _alone_ms(spans, kernel: str, reps: int) -> float:
+    return sum(t for n, t in spans if kernel in n) / 1e3 / reps
+
+
+def cover_i(cs, scene, cfg, knobs, cam) -> dict:
+    """Kernel I on the cap-156 frame's lo-half cover (see the module doc)."""
+    import torch
+
+    from direct12pbrrenderer_tpu_torch.ops import cover_cuda, texcache
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    pipe = DeferredRenderPipeline(scene, cfg, device=torch.device("cuda", 0),
+                                  tex_caps=cs.CAP156, **knobs)
+    with cs.recording(texcache, "_cover_and_match") as calls:
+        pipe.render(cam, collect_stats=False)
+        torch.cuda.synchronize()
+    def caps_of(args):
+        cap = args[2]
+        return cap if isinstance(cap, tuple) else (cap,) * args[0].shape[1]
+
+    (args, kw), = [c for c in calls if max(caps_of(c[0])) > 128]
+    pages, act, _, block_cap = args
+    caps = caps_of(args)
+
+    def route():
+        return texcache._cover_and_match(*args, **kw)
+
+    got = route()
+    for g, w, what in zip(got, cover_cuda.fused_cover_reference(pages, act, caps, block_cap),
+                          ("list", "count", "slot", "covered")):
+        if not torch.equal(g, w):
+            cs.fail("ab-I", f"{what} differs from kernel B's plain version")
+    try:
+        from direct12pbrrenderer_tpu_torch.ops import cover_two_cuda as two
+    except ImportError:
+        two = None
+    reps = 20
+    kernels = ({"fused_cover_kernel": 1} if two is None else
+               {"block_cover_kernel": 1, "pix_match_kernel": 1})
+    spans = _spans(cs, route, reps, kernels)
+    out = {"inputs": _sha([*args, *sorted(kw.items())]), "output": _sha(got),
+           "strides": [list(pages.stride()), list(act.stride())],
+           "ms": cs.cuda_ms(route, 50), "cold_ms": cs.cold_ms(route, 50),
+           "kernel_ms": sum(_alone_ms(spans, k, reps) for k in kernels),
+           "busy_ms": sum(t for _, t in spans) / 1e3 / reps,
+           "activities": len(spans) / reps}
+    if two is not None:
+        cand, slot_a = two.block_cover(pages, act, block_cap)
+        tiles, g_ = cand.shape[:2]
+        cap_arr = torch.tensor(caps, dtype=torch.int32, device=pages.device)[None, :]
+
+        def glue():
+            return texcache._distinct_by_sort(cand.reshape(tiles, g_, -1), max(caps), cap_arr)
+
+        _, _, slot_b, found_b = glue()
+        margs = (slot_a, slot_b.reshape(cand.shape), found_b.reshape(cand.shape), block_cap)
+        b_spans = _spans(cs, lambda: two.block_cover(pages, act, block_cap), reps,
+                         {"block_cover_kernel": 1})
+        m_spans = _spans(cs, lambda: two.pix_match(*margs), reps, {"pix_match_kernel": 1})
+        out.update({
+            "block_cover_ms": cs.cuda_ms(lambda: two.block_cover(pages, act, block_cap), 50),
+            "block_cover_kernel_ms": _alone_ms(b_spans, "block_cover_kernel", reps),
+            "block_cover_busy_ms": sum(t for _, t in b_spans) / 1e3 / reps,
+            "glue_ms": cs.cuda_ms(glue, 50),
+            "pix_match_ms": cs.cuda_ms(lambda: two.pix_match(*margs), 50),
+            "pix_match_kernel_ms": _alone_ms(m_spans, "pix_match_kernel", reps),
+            "pix_match_busy_ms": sum(t for _, t in m_spans) / 1e3 / reps})
+    wall, busy, n_act, _ = cs.profiled_frames(pipe, cam, 2)
+    out["frame"] = {"wall_ms": wall, "busy_ms": busy, "activities": n_act}
+    return out
+
+
 def run_one(tree: str) -> dict:
     import torch
 
@@ -57,7 +154,7 @@ def run_one(tree: str) -> dict:
         cs.fail("ab", "needs a CUDA GPU")
     from direct12pbrrenderer_tpu_torch.ops import resolve_shade_cuda, shade_fused
 
-    _, _, _, _, pipe, cam = cs.textured_cell(torch.device("cuda", 0))
+    scene, cfg, _, knobs, pipe, cam = cs.textured_cell(torch.device("cuda", 0))
     with cs.recording(resolve_shade_cuda, "resolve_shade") as c_calls, \
             cs.recording(shade_fused, "deferred_kernel") as d_calls:
         pipe.render(cam, collect_stats=False)
@@ -81,6 +178,8 @@ def run_one(tree: str) -> dict:
                     "ms": ms, "cold_ms": cold, "kernel_ms": alone, "busy_ms": busy, "copy_ms": busy - alone,
                     "strides": {i: list(a.stride()) for i, a in enumerate(args)
                                 if isinstance(a, torch.Tensor) and not a.is_contiguous()}}
+    del pipe
+    out["I"] = cover_i(cs, scene, cfg, knobs, cam)
     return out
 
 
@@ -100,7 +199,7 @@ def main() -> None:
             sys.exit(f"[ab] FAIL {tree}: exit code {proc.returncode}")
         lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(lines[-1]), flush=True)
-    for key in ("C", "D"):
+    for key in ("C", "D", "I"):
         for what in ("inputs", "output"):
             seen = {line[key][what] for line in lines}
             if len(seen) != 1:

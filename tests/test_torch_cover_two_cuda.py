@@ -1,17 +1,24 @@
-"""Kernel I (csrc/block_cover.cu: block_cover and pix_match) against its
-plain PyTorch versions on a CUDA device, and the two-kernel route against
-kernel B at caps up to 128: all outputs bit-equal. Needs the card and the
-CUDA toolkit: marked `cuda`, skipped elsewhere (`python -m pytest
---noconftest tests/test_torch_*_cuda.py` on a GPU machine without JAX).
+"""Kernel I on the card: kernel B's launch (`cover_cuda.fused_cover`,
+csrc/fused_cover.cu) at group caps above 128, against its plain version, the
+TPU's two-kernel structure (`texcache._cover_and_match_2level`) on the CPU:
+all four outputs bit-equal, with the planes passed contiguous and
+group-innermost (strides (t, 1, 128 g, g), as the texture covers' arrive);
+exactly one launch a call, counted as wide; no tensor op in a call but its
+outputs' allocation. Also the two-level plain route against kernel B at caps
+up to 128 on the card. Needs the card and the CUDA toolkit: marked `cuda`,
+skipped elsewhere (`python -m pytest --noconftest tests/test_torch_*_cuda.py`
+on a GPU machine without JAX).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from direct12pbrrenderer_tpu_torch.ops import cover_cuda, cover_two_cuda, texcache
+from direct12pbrrenderer_tpu_torch.ops import cover_cuda, texcache
 
 pytestmark = pytest.mark.cuda
+
+CASES = ["wide", "per_group", "coherent", "empty", "rows_18", "adversarial"]
 
 
 @pytest.fixture
@@ -27,6 +34,9 @@ def _case(name):
     shape = (6, 5, 24, 128)
     if name == "wide":                 # up to 32 distinct pages a row: lists above 128
         return rng.integers(0, 2000, shape), rng.random(shape) > 0.1, (156,) * 5, 32
+    if name == "per_group":            # per-group caps, tile counts above most of them
+        return (rng.integers(0, 3000, shape), rng.random(shape) > 0.1,
+                (156, 200, 130, 156, 300), 16)
     if name == "coherent":             # row-coherent pages, the frame's regime
         base = rng.integers(0, 400, (6, 5, 1, 1))
         pages = base + np.arange(128)[None, None, None, :] // 16 + rng.integers(0, 2, shape)
@@ -43,29 +53,65 @@ def _case(name):
     return rng.integers(0, 5000, shape), np.ones(shape, bool), (44,) * 5, 16
 
 
-@pytest.mark.parametrize("name", ["wide", "coherent", "empty", "rows_18", "adversarial"])
-def test_two_kernel_cover_matches_plain_versions(device, name):
+def _wide_case(name):
+    """`_case(name)` with its first group's cap lifted above 128 where no cap
+    is (the other groups' caps still clamp)."""
     pages, act, caps, block_cap = _case(name)
-    p = torch.as_tensor(pages.astype(np.int32), device=device)
-    a = torch.as_tensor(act, device=device)
-    before = (cover_two_cuda.block_cover.launches, cover_two_cuda.pix_match.launches)
-    cand, slot_a = cover_two_cuda.block_cover(p, a, block_cap)
-    torch.cuda.synchronize()
-    want = cover_two_cuda.block_cover_reference(p, a, block_cap)
-    assert torch.equal(cand, want[0]) and torch.equal(slot_a, want[1])
-    rng = np.random.default_rng(5)
-    slot_b = torch.as_tensor(rng.integers(0, 200, cand.shape).astype(np.int32), device=device)
-    found_b = torch.as_tensor(rng.random(cand.shape) > 0.3, device=device)
-    got = cover_two_cuda.pix_match(slot_a, slot_b, found_b, block_cap)
-    want = cover_two_cuda.pix_match_reference(slot_a, slot_b, found_b, block_cap)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    after = (cover_two_cuda.block_cover.launches, cover_two_cuda.pix_match.launches)
-    assert after == (before[0] + 1, before[1] + 1)
-    # the whole route on the card vs on the CPU (every plain version)
+    if max(caps) <= 128:
+        caps = (caps[0] + 128,) + caps[1:]
+    return pages.astype(np.int32), act, caps, block_cap
+
+
+def _on_card(x, device, layout):
+    """x (tiles, g, blocks, 128) on the card, contiguous or with the group
+    innermost (strides (t, 1, 128 g, g))."""
+    t = torch.as_tensor(x, device=device)
+    if layout == "contiguous":
+        return t
+    return t.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+
+
+def _counts():
+    return cover_cuda.fused_cover.launches, cover_cuda.fused_cover.wide_launches
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "group_innermost"])
+@pytest.mark.parametrize("name", CASES)
+def test_wide_launch_matches_two_kernel_plain_route(device, name, layout):
+    pages, act, caps, block_cap = _wide_case(name)
+    p, a = _on_card(pages, device, layout), _on_card(act, device, layout)
+    if layout == "group_innermost":
+        g = pages.shape[1]
+        assert p.stride() == (pages[0].size, 1, 128 * g, g) and a.stride() == p.stride()
+    before = _counts()
     got = texcache._cover_and_match(p, a, caps, block_cap)
-    want = texcache._cover_and_match(p.cpu(), a.cpu(), caps, block_cap)
-    for g, w, what in zip(got, want, ("list", "count", "slot", "covered")):
-        assert torch.equal(g.cpu(), w), what
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1)
+    want = texcache._cover_and_match_2level(torch.as_tensor(pages), torch.as_tensor(act), caps,
+                                            block_cap)
+    for g_, w, what in zip(got, want, ("list", "count", "slot", "covered")):
+        assert g_.dtype == w.dtype and g_.shape == w.shape, what
+        assert torch.equal(g_.cpu(), w), what
+    if name in ("wide", "per_group"):  # tile lists really exceed 128 pages
+        assert (want[1] > 128).any()
+
+
+def test_wide_launch_dispatches_only_its_outputs(device):
+    """One call on group-innermost planes dispatches no tensor op but its
+    outputs' allocation (no copy), and a complete trace of ten calls holds
+    only the kernel."""
+    from chip_smoke import OUTPUT_OPS, device_spans, dispatched_ops
+
+    pages, act, caps, block_cap = _wide_case("per_group")
+    p, a = _on_card(pages, device, "group_innermost"), _on_card(act, device, "group_innermost")
+
+    def call():
+        return cover_cuda.fused_cover(p, a, caps, block_cap)
+
+    ops = dispatched_ops(call)
+    assert ops and all(op in OUTPUT_OPS for op in ops), ops
+    names = {n for n, _ in device_spans(call, 10, "fused_cover")}
+    assert all("fused_cover_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("name", ["coherent", "empty", "adversarial"])
@@ -74,7 +120,9 @@ def test_two_kernel_route_equals_kernel_b_up_to_128(device, name):
     caps = tuple(min(c, 128) for c in caps)
     p = torch.as_tensor(pages.astype(np.int32), device=device)
     a = torch.as_tensor(act, device=device)
+    before = _counts()
     want = cover_cuda.fused_cover(p, a, caps, block_cap)
+    assert _counts() == (before[0] + 1, before[1])      # not a wide launch
     got = texcache._cover_and_match_2level(p, a, caps, block_cap)
     for g, w, what in zip(got, want, ("list", "count", "slot", "covered")):
         assert g.dtype == w.dtype and torch.equal(g, w), what

@@ -4,9 +4,9 @@ JAX package on the same interpolants (tests/test_torch_gbuffer_shading.py's
 atlas and planes).
 
 * `use_tex_kernel=True`: the taps go through `texcache.sample_atlas_textured`
-  on the frame's own cache tiling (the plan with kernel B, or I for caps
-  above 128, and kernel E, their plain versions here), trilinear, bilinear,
-  with the LOD cascade and with caps above 128;
+  on the frame's own cache tiling (the plan with kernel B, which is kernel
+  I at caps above 128, and kernel E, their plain versions here), trilinear,
+  bilinear, with the LOD cascade and with caps above 128;
 * `texture_filter="anisotropic"`: four trilinear taps along the major
   gradient, with and without use_tex_kernel (which only changes how the
   texture sizes are looked up).
@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from direct12pbrrenderer_tpu.ops import gbuffer as jgb
-from direct12pbrrenderer_tpu_torch.ops import atlas_resolve_cuda, cover_two_cuda, gbuffer
+from direct12pbrrenderer_tpu_torch.ops import atlas_resolve_cuda, cover_cuda, gbuffer
 from chip_smoke import recording
 from test_torch_gbuffer_shading import _atlas, _check_gbuffer, _planes, _t
 
@@ -49,13 +49,15 @@ def test_planar_gbuffer_branches_match_jax(case, seed):
     j = jgb.gbuffer_shade_planar(jnp.asarray(tri_id), jnp.asarray(depth), jnp.asarray(planes),
                                  jat, tex_interpret=True, **kw)
     with recording(atlas_resolve_cuda, "atlas_resolve") as resolves, \
-            recording(cover_two_cuda, "block_cover") as scans:
+            recording(cover_cuda, "fused_cover") as covers:
         t = gbuffer.gbuffer_shade_planar(_t(tri_id), _t(depth), _t(planes), tat, **kw)
     _check_gbuffer(t, j)
     cache = kw["use_tex_kernel"] and kw["texture_filter"] != "anisotropic"
     assert len(resolves) == cache
-    # with caps above 128 the lo half goes through kernel I, the rest through B
-    assert len(scans) == (case == "caps_above_128")
+    # with caps above 128 the lo half's cover is kernel I (B's launch at
+    # such a cap), the other covers are B's at caps up to 128
+    wide = [c for c in covers if max(c[0][2]) > cover_cuda.WIDE_CAP]
+    assert len(wide) == (case == "caps_above_128")
     if cache:
         assert int(t.tex_approx) == int(j.tex_approx)
         if case == "cascade":

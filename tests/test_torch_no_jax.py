@@ -116,5 +116,5 @@ def test_package_sources_name_no_jax():
     assert offenders == []
     # every kernel wrapper launches or raises: no fallback to the plain version
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
-                 "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two_cuda"):
+                 "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two"):
         assert "except" not in (PACKAGE / "ops" / f"{name}.py").read_text(), name

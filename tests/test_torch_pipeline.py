@@ -40,7 +40,7 @@ from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as 
 from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
 from direct12pbrrenderer_tpu.scene.camera import Camera
 from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
-from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_two_cuda, env_resolve_cuda,
+from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda, env_resolve_cuda,
                                               lights_cuda)
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.state import state_from_jax
@@ -279,8 +279,10 @@ def test_unported_knobs_raise(knobs, item):
     with recording(env_resolve_cuda, "env_resolve") as env_calls, \
             recording(lights_cuda, "point_lights_kernel") as light_calls, \
             recording(atlas_resolve_cuda, "atlas_resolve") as resolve_calls, \
-            recording(cover_two_cuda, "block_cover") as scan_calls:
+            recording(cover_cuda, "fused_cover") as cover_calls:
         img = p.render(cam).numpy()
+    # kernel I: kernel B's launch at a cap above 128
+    scan_calls = [c for c in cover_calls if max(c[0][2]) > cover_cuda.WIDE_CAP]
     assert img.shape == (cfg.height, cfg.width, 3) and (img.max(-1) > 16).mean() > 0.05
     assert (len(light_calls), len(env_calls)) == (light_tile is not None,
                                                   env_cache and not fused)

@@ -36,7 +36,7 @@ from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as 
 from direct12pbrrenderer_tpu.resource.resources import CubeMapResource
 from direct12pbrrenderer_tpu.scene.camera import Camera
 from direct12pbrrenderer_tpu.tools.stress_scene import build_stress_scene
-from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda, cover_two_cuda,
+from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda,
                                                env_resolve_cuda, raster_cuda,
                                                resolve_shade_cuda, shade_fused)
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
@@ -48,28 +48,28 @@ torch.set_num_threads(2)
 RMSE_BAR = 1e-3
 BASE = dict(prefilter_size=16, brdf_lut_size=32, atlas_max_dim=64)
 
-# name -> (width, height, knobs, {kernel wrapper: calls in one frame})
+# name -> (width, height, knobs, {kernel wrapper: calls in one frame}); "wide"
+# counts the fused_cover calls at a cap above 128 (kernel I)
 CASES = {
     "a_no_pallas_60x160": (320, 120, dict(tile_h=60, tile_w=160, bin_cap=256,
                                           use_pallas=False, use_tex_kernel=True),
                            dict(atlas_resolve=1, env_resolve=1, fused_cover=4,
-                                rasterize_interp=0, rasterize_depth=0, block_cover=0)),
+                                rasterize_interp=0, rasterize_depth=0, wide=0)),
     "b_pallas_24x64": (256, 96, dict(tile_h=24, tile_w=64, bin_cap=256, use_pallas=True,
                                      use_tex_kernel=True),
                        dict(atlas_resolve=1, env_resolve=1, fused_cover=4,
-                            rasterize_interp=1, resolve_shade=0, block_cover=0)),
+                            rasterize_interp=1, resolve_shade=0, wide=0)),
     "c_anisotropic": (256, 96, dict(tile_h=24, tile_w=128, bin_cap=256, use_pallas=True,
                                     use_tex_kernel=True, texture_filter="anisotropic"),
                       dict(atlas_resolve=0, env_resolve=1, fused_cover=1,
-                           rasterize_interp=1, resolve_shade=0, block_cover=0)),
+                           rasterize_interp=1, resolve_shade=0, wide=0)),
     "d_fused_cap156": (256, 96, dict(tile_h=24, tile_w=128, bin_cap=256, use_pallas=True,
                                      use_tex_kernel=True, tex_caps=(156, 44)),
-                       dict(atlas_resolve=0, env_resolve=0, fused_cover=3, block_cover=1,
-                            pix_match=1, resolve_shade=1, deferred_kernel=1)),
+                       dict(atlas_resolve=0, env_resolve=0, fused_cover=4, wide=1,
+                            resolve_shade=1, deferred_kernel=1)),
 }
 WRAPPERS = {"atlas_resolve": atlas_resolve_cuda, "env_resolve": env_resolve_cuda,
-            "fused_cover": cover_cuda, "block_cover": cover_two_cuda,
-            "pix_match": cover_two_cuda, "rasterize_interp": raster_cuda,
+            "fused_cover": cover_cuda, "rasterize_interp": raster_cuda,
             "rasterize_depth": raster_cuda, "resolve_shade": resolve_shade_cuda,
             "deferred_kernel": shade_fused}
 
@@ -106,6 +106,7 @@ def test_planar_tex_frame_matches_jax(case):
         calls = {name: stack.enter_context(recording(mod, name))
                  for name, mod in WRAPPERS.items()}
         got = tp.render(cam).numpy()
+    calls["wide"] = [c for c in calls["fused_cover"] if max(c[0][2]) > cover_cuda.WIDE_CAP]
     assert {k: len(calls[k]) for k in want_calls} == want_calls
     assert got.shape == want.shape and (want.max(-1) > 16).mean() > 0.05
     rmse = _rmse(got, want)
