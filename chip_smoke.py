@@ -26,7 +26,12 @@ on the card, then renders at 1920x1080 with a procedural sky:
 * the 1024-light stress scene (the JAX bench's third scene) through the
   1024-light path: kernels A, B, C for the G-buffer, then the unfused
   deferred pass with the env cache (plan with kernel B, resolve with kernel
-  F) and the tile-clustered point lights (kernel G).
+  F) and the tile-clustered point lights (kernel G);
+* last, the port's bench (`direct12pbrrenderer_tpu_torch.bench`) as a user
+  runs it, `--smoke` and then the full run at its default 32 frames: the
+  smoke sphere (kernels A, B, E, F), the Sponza-class headline (A-D) and
+  the 1024-light cell (A, B, C, F, G) at the JAX bench's knobs, each gate
+  binding ([bench] lines).
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; each frame is checked against the all-plain pipeline
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import subprocess
@@ -103,6 +109,17 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch 
                    "cover_cuda", "fused_cover", "wide_launches"),
 }
 WIDE = "cover_wide"
+# the port's bench (`python -m direct12pbrrenderer_tpu_torch.bench`): each
+# cell and the kernels its path launches on the card. The smoke scene's
+# tile is 64 wide, so its frame takes the planar texture cache (B, E) and
+# the unfused deferred pass with the env cache (B, F).
+BENCH_CELLS = {
+    "smoke": ("raster_interp", "fused_cover", "atlas_resolve", "env_resolve"),
+    "sponza_class": ("raster_interp", "fused_cover", "resolve_shade", "deferred_shade"),
+    "lights1k": ("raster_interp", "fused_cover", "resolve_shade", "env_resolve",
+                 "point_lights"),
+}
+BENCH_TRACE = 8   # frames of each bench cell traced by torch.profiler
 SOURCES = {WIDE: "fused_cover"}   # kernel I runs kernel B's source and device kernel
 
 
@@ -397,6 +414,11 @@ def reset_launches() -> None:
         setattr(*wrapper(name), 0)
 
 
+def set_launches(counts: dict[str, int]) -> None:
+    for name, n in counts.items():
+        setattr(*wrapper(name), n)
+
+
 def read_launches() -> dict[str, int]:
     # a counter the wrapper lacks reads 0 (kernel_ab.py runs older trees)
     return {name: getattr(*wrapper(name), 0) for name in KERNELS}
@@ -420,6 +442,150 @@ def recording(module, name: str):
         yield calls
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def counting(module, name: str, launches: dict):
+    """While the block runs, each call of `module.name` runs with every launch
+    count set to 0 just before it; the counts read just after go to
+    `launches[name]`."""
+    orig = getattr(module, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        return out
+
+    setattr(module, name, run)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def bench_faults(result: dict, launches: dict[str, dict[str, int]]) -> list[str]:
+    """What fails the [bench] phase in one of the bench's JSON lines, given
+    each cell's kernel launches: a cell that launched none of a kernel its
+    path runs, a gate that still fails after its re-measure, and any
+    re-measure at all, since a cell that fell back reports the plain
+    samplers' fps and rmse, not its kernels'."""
+    faults = [f"cell {cell} launched none of kernels {missing}"
+              for cell, counts in launches.items()
+              if (missing := [k for k in BENCH_CELLS[cell] if not counts[k]])]
+    faults += [f"{k} is {v!r}: the cell's numbers are the gate-safe re-measure's, not its "
+               f"kernels'" for k, v in result.items() if k.endswith("fidelity_fallback")]
+    from direct12pbrrenderer_tpu_torch.bench import failed_gates
+
+    faults += [f"gate {k} fails after the gate-safe re-measure" for k in failed_gates(result)]
+    return faults
+
+
+def hold_bench_cell(cell: str, pipe, cam) -> str:
+    """One frame of bench cell `cell` at its pose with the wrappers of its
+    path's kernels recorded, each recorded call held to its plain version on
+    the same inputs (`hold_call`); then torch.profiler over BENCH_TRACE
+    frames of the pose, enqueued back to back as the bench's loop enqueues
+    them. The launches made here are taken off the counts again."""
+    import importlib
+
+    keep = read_launches()
+    names = BENCH_CELLS[cell]
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(importlib.import_module(
+            f"direct12pbrrenderer_tpu_torch.ops.{KERNELS[name][1]}"), KERNELS[name][2]))
+            for name in names}
+        pipe.render(cam, 1.0 / 60.0, collect_stats=False)
+        torch.cuda.synchronize()
+    parts = []
+    for name in names:
+        if not calls[name]:
+            fail(f"bench-{cell}", f"a frame at the bench pose made no call of {name}")
+        errs = [hold_call(f"bench-{cell}", name, args, kw) for args, kw in calls[name]]
+        parts.append(f"{name} {len(errs)} calls, max_abs_err {max(errs):.3e}")
+    del calls
+    wall, busy, n_act, top = profiled_frames(pipe, cam, BENCH_TRACE)
+    set_launches(keep)
+    return (f"{cell}: one frame's kernel calls held to their plain versions at the kernels "
+            f"line's bars: " + "; ".join(parts) + f"; torch.profiler over {BENCH_TRACE} frames: "
+            f"wall {wall:.2f} ms/frame, device busy {busy:.2f} ms/frame ({n_act:.0f} device "
+            f"activities), idle share {1 - busy / wall:.3f}; top: "
+            + "; ".join(f"{ms:.2f} ms {name[:60]}" for ms, name in top))
+
+
+def hold_call(phase: str, name: str, args, kw) -> float:
+    """Hold one recorded call of kernel `name`'s wrapper against its plain
+    version on the same inputs, at the bar the kernels line holds it to;
+    returns the max abs error."""
+    fn, _ = wrapper(name)
+    ref = getattr(sys.modules[fn.__module__], f"{KERNELS[name][2]}_reference")
+    if name == "raster_interp":   # the plain version gives the untiled outputs
+        kw = {k: v for k, v in kw.items() if k != "return_tiled"}
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    if name == "raster_interp":
+        return compare(phase, got, want)[0]
+    if name == "fused_cover":
+        for g, r, out in zip(got, want, ("list", "count", "slot", "covered")):
+            if not torch.equal(g, r):
+                fail(phase, f"fused_cover: {out} differs from the plain version")
+        return 0.0
+    if name == "resolve_shade":
+        return check_shade(phase, got, want)
+    if name == "deferred_shade":
+        return check_deferred(phase, got, want)[0]
+    if name == "point_lights":
+        return check_lights(phase, args, got, want)[0]
+    return check_close(phase, got, want)   # kernels E and F
+
+
+def bench_phase(runs=(["--smoke"], [])) -> None:
+    """The port's bench as a user runs it: `--smoke`, then the full run at
+    1920x1080 with its default 32 frames (the sponza_class headline, then
+    lights1k). Each JSON line is printed under [bench] with each cell's
+    kernel launches, and after each cell's measurement its kernels are held
+    to their plain versions and its frames traced (`hold_bench_cell`).
+    Fails on any of `bench_faults`."""
+    from unittest import mock
+
+    from direct12pbrrenderer_tpu_torch import bench
+
+    for argv in runs:
+        cells = ["smoke"] if "--smoke" in argv else ["sponza_class", "lights1k"]
+        held, launches, out, real_stdout = [], {}, io.StringIO(), sys.stdout
+        measure = bench._measure_cell
+
+        def measure_and_hold(pipe, cam, frames):
+            cell = measure(pipe, cam, frames)
+            with contextlib.redirect_stdout(real_stdout):   # a failing hold says why
+                held.append(hold_bench_cell(cells[len(held)], pipe, cam))
+            return cell
+
+        t0 = time.perf_counter()
+        with mock.patch.object(bench, "_measure_cell", measure_and_hold), \
+                counting(bench, "_stress_bench", launches), \
+                counting(bench, "_lights1k_bench", launches), \
+                contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            reset_launches()
+            result = bench.main(argv)
+            torch.cuda.synchronize()
+        if "--smoke" in argv:
+            cell_launches = {"smoke": read_launches()}
+        else:
+            cell_launches = {"sponza_class": launches["_stress_bench"],
+                             "lights1k": launches["_lights1k_bench"]}
+        say("bench", out.getvalue().strip().splitlines()[-1])
+        for line in held:
+            say("bench", line)
+        for cell, counts in cell_launches.items():
+            say("bench", f"{cell}: kernel launches {counts}")
+        faults = bench_faults(result, cell_launches)
+        if faults:
+            fail("bench", "; ".join(faults))
+        say("bench", f"{' '.join(argv) or 'full run'}: every gate passes on the kernels' "
+            f"path; {time.perf_counter() - t0:.1f} s")
 
 
 class _RandomTexture:
@@ -703,6 +869,31 @@ def check_deferred(phase, got, want) -> tuple[float, float]:
     return float(np.abs(a - b).max()), float(bad.mean())
 
 
+def check_close(phase, got, want) -> float:
+    """Kernels E and F's bar: rtol 1e-6 / atol 1e-7, every value finite."""
+    if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
+        fail(phase, f"outside rtol {F_RTOL}/atol {F_ATOL}: max abs diff "
+             f"{float((got - want).abs().max()):.3e}")
+    return float((got - want).abs().max())
+
+
+def check_lights(phase, gargs, got, want) -> tuple[float, np.ndarray]:
+    """Kernel G's bar: the hit count equal on all but 1e-4 of the pixels, and
+    where it is equal on a pixel with mask 1, rgb within rtol 1e-4 / atol
+    1e-5. Returns (max abs rgb error there, where the hit counts agree)."""
+    a, b = got.cpu().numpy(), want.cpu().numpy()
+    if not np.isfinite(a).all():
+        fail(phase, "non-finite kernel output")
+    same = a[..., 3] == b[..., 3]
+    masked = same & (gargs[3][..., 9].cpu().numpy() > 0.5)
+    bad = ~np.isclose(a[..., :3][masked], b[..., :3][masked], rtol=G_RTOL, atol=G_ATOL)
+    if (~same).mean() >= G_COUNTER_FRAC or bad.any():
+        fail(phase, f"{int((~same).sum())} pixels with another hit count (bar "
+             f"{G_COUNTER_FRAC} of {same.size}), {int(bad.sum())} rgb values outside rtol "
+             f"{G_RTOL}/atol {G_ATOL}")
+    return float(np.abs(a[..., :3][masked] - b[..., :3][masked]).max(initial=0.0)), same
+
+
 def plane_layouts(xs) -> str:
     """The strides of the per-pixel planes among `xs` ((tiles, G, blocks,
     128) tensors), as the kernels read them."""
@@ -837,18 +1028,8 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
 
     # ---- kernel G vs its plain version on the frame's inputs ----------------
     got = lights_cuda.point_lights_kernel(*gargs, **gkw)
-    want = lights_cuda.point_lights_kernel_reference(*gargs, **gkw)
-    a, b = got.cpu().numpy(), want.cpu().numpy()
-    if not np.isfinite(a).all():
-        fail("kernel-lights", "non-finite kernel output")
-    same = a[..., 3] == b[..., 3]
-    masked = same & (gargs[3][..., 9].cpu().numpy() > 0.5)
-    bad = ~np.isclose(a[..., :3][masked], b[..., :3][masked], rtol=G_RTOL, atol=G_ATOL)
-    if (~same).mean() >= G_COUNTER_FRAC or bad.any():
-        fail("kernel-lights", f"{int((~same).sum())} pixels with another hit count (bar "
-             f"{G_COUNTER_FRAC} of {same.size}), {int(bad.sum())} rgb values outside rtol "
-             f"{G_RTOL}/atol {G_ATOL}")
-    err_g = float(np.abs(a[..., :3][masked] - b[..., :3][masked]).max(initial=0.0))
+    err_g, same = check_lights("kernel-lights", gargs, got,
+                               lights_cuda.point_lights_kernel_reference(*gargs, **gkw))
     ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel(*gargs, **gkw), 20)
     alone_g = graph_ms(lambda: lights_cuda.point_lights_kernel(*gargs, **gkw), 20)
     plain_ms_g = cuda_ms(lambda: lights_cuda.point_lights_kernel_reference(*gargs, **gkw), 2)
@@ -863,8 +1044,8 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     # and 100 for the Cook-Torrance terms per admitted light of a pixel with
     # mask 1. The earlier bound charged the sphere test to every (pixel,
     # listed light) pair and the terms to every admitted light.
-    n_bytes = nbytes(*gargs) + a.size * 4
-    n_px = a.shape[0] * a.shape[1]
+    n_bytes = nbytes(*gargs) + got.numel() * 4
+    n_px = got.shape[0] * got.shape[1]
     bounds["point_lights"] = bound(n_bytes, n_px * 100 + c["tile_cluster_tests"] * 18
                                    + c["admitted_masked"] * 100)
     old_bound = bound(n_bytes, n_px * 100 + c["pairs"] * 18 + c["admitted"] * 100)
@@ -888,17 +1069,11 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     split = lights_pass_split(*tiled_call)
     say("kernel-lights", "point_lights_tiled on the frame's inputs, device ms by step (CUDA "
         "events): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-    del got, want, a, b
+    del got
 
     # ---- kernel F vs its plain version on the frame's inputs ----------------
     got = env_resolve_cuda.env_resolve(*fargs)
-    want = env_resolve_cuda.env_resolve_reference(*fargs)
-    if not torch.isfinite(got).all():
-        fail("kernel-env-resolve", "non-finite kernel output")
-    if not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
-        fail("kernel-env-resolve", f"outside rtol {F_RTOL}/atol {F_ATOL}: max abs diff "
-             f"{float((got - want).abs().max()):.3e}")
-    err_f = float((got - want).abs().max())
+    err_f = check_close("kernel-env-resolve", got, env_resolve_cuda.env_resolve_reference(*fargs))
     ms_f = cuda_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 20)
     alone_f, busy_f = device_ms(lambda: env_resolve_cuda.env_resolve(*fargs), 10,
                                 "env_resolve")
@@ -918,7 +1093,7 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
         f"work (torch.profiler), "
         f"plain {plain_ms_f:.4f} ms, bound {bounds['env_resolve'][0]:.4f} ms "
         f"({bounds['env_resolve'][1]})")
-    del got, want, gargs, fargs, light_calls, tiled_calls, tiled_call, env_calls
+    del got, gargs, fargs, light_calls, tiled_calls, tiled_call, env_calls
 
     # ---- the 1024-light path: A, B, C, F, G; never D ------------------------
     path = camera_path(cam, WARMUP + FRAMES)
@@ -1220,10 +1395,7 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     (eargs, ekw), = e_calls
     got = atlas_resolve_cuda.atlas_resolve(*eargs, **ekw)
     want = atlas_resolve_cuda.atlas_resolve_reference(*eargs, **ekw)
-    if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
-        fail("kernel-atlas-resolve", f"outside rtol {F_RTOL}/atol {F_ATOL}: max abs diff "
-             f"{float((got - want).abs().max()):.3e}")
-    err_e = float((got - want).abs().max())
+    err_e = check_close("kernel-atlas-resolve", got, want)
     ms_e = cuda_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 20)
     alone_e, busy_e = device_ms(lambda: atlas_resolve_cuda.atlas_resolve(*eargs, **ekw), 10,
                                 "atlas_resolve")
@@ -1733,6 +1905,8 @@ def main() -> None:
     say("profiler", f"kernel traces: {TRACES['complete']} complete, "
         f"{len(TRACES['partial'])} partial ones traced again (kernel held/launched): "
         f"{TRACES['partial']}")
+    torch.cuda.empty_cache()
+    bench_phase()
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"direct12pbrrenderer_tpu_torch/csrc/{source_of(name)}.cu",

@@ -136,6 +136,9 @@ class DeferredRenderPipeline:
         self.render_h = -(-cfg.height // tile_h) * tile_h
         self.tile_h, self.tile_w, self.bin_cap = tile_h, tile_w, bin_cap
         self.max_active_lights = max_active_lights
+        # content knobs, kept so that a reference pipeline can repeat them
+        self.atlas_max_dim, self.prefilter_size = atlas_max_dim, prefilter_size
+        self.brdf_lut_size = brdf_lut_size
         on_gpu = device.type == "cuda"
         if light_tile is None and max_active_lights > 64 and (
             use_pallas if use_pallas is not None else on_gpu
@@ -203,6 +206,7 @@ class DeferredRenderPipeline:
                   for m in range(PREFILTER_ENVMAP_MIP_LEVELS)]
             base = torch.zeros((6, 8, 8, 3), device=device)
             sh_pack = np.zeros((7, 4), np.float32)
+        self.sh_pack = sh_pack   # the JAX pipeline's name
 
         p = self.packed
 
