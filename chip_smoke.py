@@ -27,6 +27,13 @@ on the card, then renders at 1920x1080 with a procedural sky:
   1024-light path: kernels A, B, C for the G-buffer, then the unfused
   deferred pass with the env cache (plan with kernel B, resolve with kernel
   F) and the tile-clustered point lights (kernel G);
+* the textured cell's content as an asset tree ([asset-auto]): written as
+  OBJ/MTL/PNG and HDR faces, imported by the port's importers (BC1, BC6H),
+  reloaded through a fresh ResourceLoader and rendered with
+  `tex_caps="auto"`: the first frame's tap census runs the depth-only
+  kernel H (held to the census with the plain fold), then the sized frames
+  run kernels A-D at the census-sized caps, the cascade and the compact
+  staging budgets;
 * last, the port's bench (`direct12pbrrenderer_tpu_torch.bench`) as a user
   runs it, `--smoke` and then the full run at its default 32 frames: the
   smoke sphere (kernels A, B, E, F), the Sponza-class headline (A-D) and
@@ -81,6 +88,9 @@ D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
                                                    # cluster edge flips a membership
 F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
+# the asset-auto cell: the textured stress cell's terrain (512x256 cells,
+# 262,144 triangles) imported from source files, with tex_caps="auto"
+ASSET_CELLS = (512, 256)
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
@@ -1147,6 +1157,233 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     return launches
 
 
+def write_asset_sources(src, scene) -> np.ndarray:
+    """The textured stress cell's content as source files an artist would
+    hand the importers: the terrain as OBJ/MTL with its albedo map as a PNG,
+    and the sky's six faces as Radiance HDR. Returns the centroid that
+    `import_model` takes off the vertices, so the imported model can be put
+    back where the terrain stood."""
+    from PIL import Image
+
+    from direct12pbrrenderer_tpu_torch.resource.hdr import save_hdr
+
+    model = scene.models[0].model
+    mesh = model.mesh_resource.mesh
+    v = mesh.vertex_array()
+    tris = mesh.index_array().reshape(-1, 3) + 1          # OBJ indices start at 1
+    f = np.repeat(tris, 3, axis=1)                        # v/vt/vn share the index
+    lines = ["mtllib terrain.mtl",
+             "\n".join(f"v {a:.9g} {b:.9g} {c:.9g}" for a, b, c in v["position"]),
+             "\n".join(f"vt {a:.9g} {b:.9g}" for a, b in v["uv"]),
+             "\n".join(f"vn {a:.9g} {b:.9g} {c:.9g}" for a, b, c in v["normal"]),
+             "usemtl terrain",
+             "\n".join("f {}/{}/{} {}/{}/{} {}/{}/{}".format(*t) for t in f.tolist())]
+    (src / "terrain.obj").write_text("\n".join(lines) + "\n")
+    (src / "terrain.mtl").write_text("newmtl terrain\nmap_Kd albedo.png\n")
+    albedo = model.materials[0].textures["AlbedoMap"].texture
+    Image.fromarray(albedo.mip_array_rgba(0)).save(src / "albedo.png")
+    cube = src / "sky"
+    cube.mkdir()
+    for i, name in enumerate(("px", "nx", "py", "ny", "pz", "nz")):
+        save_hdr(cube / f"{name}.hdr", scene.skybox.cubemap.faces[i].mip_array_rgba(0)[..., :3])
+    # import_model's recentering: the mean of every triangle corner, summed
+    # triangle by triangle in float64, then rounded to float32
+    corners = v["position"][mesh.index_array()].reshape(-1, 3, 3)
+    return (corners.sum(1).astype(np.float64).sum(0) / corners.shape[0] / 3).astype(np.float32)
+
+
+def asset_auto(dev, cam, smi) -> int:
+    """The asset-tree path with `tex_caps="auto"`: the textured stress cell's
+    content written as source files, imported with the port's importers
+    (BC1 albedo, BC6H sky), a Scene JSON dumped, the tree reloaded through a
+    fresh ResourceLoader, then the pipeline with tex_caps="auto" and the
+    cell's other knobs: its first frame runs the tap census (three poses,
+    two depth-only rasters each: kernel H) and sizes the caches, then 16
+    frames (kernels B, C, D at the sized caps, cascade and budgets). Holds
+    the census with H to the census with the plain fold, the sized knobs to
+    the recommend_* folds, one sized frame's B, C and D calls to their plain
+    versions, and the frame to the all-plain pipeline. Returns kernel H's
+    launches on the path."""
+    import tempfile
+    from pathlib import Path
+
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, envcache, resolve_shade_cuda,
+                                                   shade_fused, texcache)
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.resource.loader import ResourceLoader
+    from direct12pbrrenderer_tpu_torch.resource.resources import CubeMapResource, ModelResource
+    from direct12pbrrenderer_tpu_torch.scene.scene import Scene, SceneModel
+    from direct12pbrrenderer_tpu_torch.tools import tap_census
+
+    phase = "asset-auto"
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        src, root = Path(tmp) / "src", Path(tmp) / "assets"
+        src.mkdir()
+        content = stress_scene(*ASSET_CELLS, 256, 80.0)
+        t0 = time.perf_counter()
+        centroid = write_asset_sources(src, content)
+        t_write = time.perf_counter() - t0
+        ld = ResourceLoader.set_instance(ResourceLoader(root))
+        t0 = time.perf_counter()
+        ld.import_model(src / "terrain.obj", "Asset/Terrain/Terrain")
+        t_model = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ld.import_cubemap(src / "sky", "Asset/Sky/Procedural")
+        t_cube = time.perf_counter() - t0
+        scene = Scene("Asset/Scene/main")
+        sm = SceneModel("terrain")
+        sm.model_file_path = "Asset/Terrain/Terrain_Model"
+        sm.translation = centroid                    # back where the terrain stood
+        scene.add_model(sm)
+        for light in content.lights:
+            scene.add_light(light)
+        scene.skybox_path = "Asset/Sky/Procedural"
+        ld.dump_resource(scene)
+        n_files = sum(1 for p in root.rglob("*") if p.is_file())
+        tree_mb = sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 1e6
+        del content, ld
+
+        # ---- reload through a fresh loader -----------------------------------
+        t0 = time.perf_counter()
+        ld = ResourceLoader.set_instance(ResourceLoader(root))
+        scene = ld.load_resource(Scene, "Asset/Scene/main")
+        t_load = time.perf_counter() - t0
+    model = scene.models[0].model
+    mesh = model.mesh_resource.mesh if model is not None else None
+    albedo = model.materials[0].textures.get("AlbedoMap") if model is not None else None
+    if (mesh is None or mesh.index_count != 6 * ASSET_CELLS[0] * ASSET_CELLS[1] or albedo is None
+            or albedo.texture.mip_array_rgba(0).shape != (256, 256, 4)
+            or not model.materials[0].get_parameter("UseAlbedoMap")
+            or len(scene.lights) != 8 or scene.skybox is None
+            or scene.skybox.cubemap.faces[0].mip_array_rgba(0).shape != (256, 256, 4)
+            or not np.isfinite(scene.skybox.cubemap.faces[0].mip_array_rgba(0)).all()):
+        fail(phase, "the reloaded asset tree lacks the terrain, its albedo map, the lights "
+             "or the sky")
+    say(phase, f"asset tree written by the port's importers on {smi}'s host: source files "
+        f"{t_write:.2f} s, "
+        f"import_model (OBJ {mesh.index_count // 3} tris, BC1 albedo) {t_model:.2f} s, "
+        f"import_cubemap (six 256^2 HDR faces, BC6H) {t_cube:.2f} s; {n_files} files, "
+        f"{tree_mb:.1f} MB; reloaded through a fresh ResourceLoader in {t_load:.2f} s: "
+        f"{mesh.index_count // 3} tris, albedo {albedo.texture.width}x{albedo.texture.height} "
+        f"({albedo.texture.format.name}, {albedo.texture.mip_levels} mips), "
+        f"{len(scene.lights)} lights, sky {scene.skybox.cubemap.faces[0].width}^2 "
+        f"(SH {np.asarray(scene.skybox.sh.as_array())[0, :3].round(4).tolist()}...)")
+
+    # ---- tex_caps="auto": the census on the first render --------------------
+    cfg = RenderConfig(W, H, max_instances=2)
+    knobs = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=256,
+                 brdf_lut_size=BRDF_LUT)
+    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps="auto", **knobs)
+    if not (pipe._auto_caps and pipe.use_pallas and pipe.use_fused_deferred):
+        fail(phase, "the auto pipeline on the card is not the fused kernel path")
+    recorded, real_census, census_s = [], tap_census.run_census, []
+
+    def census_and_record(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_census(*args, **kw)
+        torch.cuda.synchronize()
+        census_s.append(time.perf_counter() - t)
+        recorded.append(out)
+        return out
+
+    path = camera_path(cam, WARMUP + FRAMES)
+    torch.cuda.synchronize()
+    reset_launches()
+    tap_census.run_census = census_and_record
+    try:
+        for c in path[:WARMUP]:           # the first render sizes the caches
+            pipe.render(c)
+    finally:
+        tap_census.run_census = real_census
+    h_census = read_launches()["raster_depth"]
+    keep = read_launches()
+    times, frame_launches = run_frames(phase, pipe, path[WARMUP:], {
+        "fused_cover": 5 * FRAMES, "resolve_shade": FRAMES, "deferred_shade": FRAMES,
+        "raster_interp": FRAMES})
+    launches = {k: keep[k] + frame_launches[k] for k in KERNELS}
+    if len(recorded) != 1 or h_census != 6:
+        fail(phase, f"the first render ran {len(recorded)} censuses and launched kernel H "
+             f"{h_census} times, want 1 census of 3 poses and 6 launches")
+    for name in ("raster_depth", "fused_cover", "resolve_shade", "deferred_shade"):
+        if not launches[name]:
+            fail(phase, f"kernel {name} launched no time on the asset-auto path")
+    censuses, caps, env_censuses = recorded[0]
+    want = (caps[0], caps[1], texcache.recommend_budget(censuses),
+            texcache.recommend_block_caps(censuses))
+    want_env = envcache.recommend_budget(env_censuses)
+    if (pipe.tex_caps, pipe.env_budget, pipe.tex_cascade) != (want, want_env, (12, 8, 1)):
+        fail(phase, f"sized knobs tex_caps {pipe.tex_caps}, env_budget {pipe.env_budget}, "
+             f"tex_cascade {pipe.tex_cascade}; the census's recommend_* give {want}, "
+             f"{want_env}, (12, 8, 1)")
+    stats_line = check_frame(phase, pipe, path[-1])
+
+    # ---- the census with kernel H against the census with the plain fold ----
+    plain = []
+    for use_pallas in (True, False):
+        pipe.use_pallas = use_pallas      # the census reads the pipeline's raster knob
+        plain.append((tap_census.census_for_pose(pipe, path[0]),
+                      tap_census.env_census_for_pose(pipe, path[0])))
+    pipe.use_pallas = True
+    if plain[0] != plain[1] or plain[0] != (censuses[0], env_censuses[0]):
+        fail(phase, f"the first pose's census with kernel H {plain[0]} differs from the "
+             f"census with the plain fold {plain[1]} or from the sizing census "
+             f"{(censuses[0], env_censuses[0])}")
+
+    # ---- one sized frame's B, C, D calls held to their plain versions ------
+    with recording(cover_cuda, "fused_cover") as cover_calls, \
+            recording(resolve_shade_cuda, "resolve_shade") as shade_calls, \
+            recording(shade_fused, "deferred_kernel") as deferred_calls:
+        pipe.render(path[-1], collect_stats=False)
+        torch.cuda.synchronize()
+    held = []
+    for name, calls in (("fused_cover", cover_calls), ("resolve_shade", shade_calls),
+                        ("deferred_shade", deferred_calls)):
+        errs = [hold_call(phase, name, args, kw) for args, kw in calls]
+        held.append(f"{name} {len(errs)} calls, max_abs_err {max(errs):.3e}")
+    cover_shapes = [(tuple(a[0].shape), max(a[2]), a[3]) for a, _ in cover_calls]
+    (sargs, skw), = shade_calls
+    (dargs, dkw), = deferred_calls
+    staged_c, staged_d = tuple(sargs[2].shape), tuple(dargs[4].shape)
+    del cover_calls, shade_calls, deferred_calls, sargs, dargs
+
+    wall, busy, n_act, top = profiled_frames(pipe, path[-1], 8)
+    ref = DeferredRenderPipeline(scene, cfg, use_pallas=False, use_tex_kernel=False,
+                                 device=dev, **knobs)
+    rmse, ndiff = fidelity(pipe, ref, path[-1])
+    if rmse > RMSE_BAR:
+        fail(phase, f"auto-sized frame rmse vs use_pallas=False, use_tex_kernel=False "
+             f"{rmse:.6f} > {RMSE_BAR}; {pipe.last_stats}; sized tex_caps {pipe.tex_caps}, "
+             f"env_budget "
+             f"{pipe.env_budget}; census {censuses} {env_censuses}")
+    say(phase, f"census (3 poses over a 30 degree yaw sweep, kernel H for each raster) "
+        f"{census_s[0]:.2f} s on {smi}: per pose texture lo max/p99/row_p999, hi max/p99/"
+        f"row_p999, tile_total max; env group max, tile_total max: " + "; ".join(
+            f"{c['lo']['max']}/{c['lo']['p99']}/{c['lo']['row_p999']}, "
+            f"{c['hi']['max']}/{c['hi']['p99']}/{c['hi']['row_p999']}, "
+            f"{c['tile_total']['max']}; {e['group']['max']}, {e['tile_total']['max']}"
+            for c, e in zip(censuses, env_censuses))
+        + f"; sized tex_caps {pipe.tex_caps}, env_budget {pipe.env_budget}, tex_cascade "
+        f"{pipe.tex_cascade} (= the recommend_* folds); the first pose's census with kernel "
+        f"H equals the census with the plain fold in every count; covers per frame "
+        f"(planes, cap, block_cap) {cover_shapes}; staged pages C {staged_c}, D {staged_d}")
+    say(phase, f"auto-sized path, {FRAMES} frames {W}x{H}: mean {np.mean(times):.2f} ms, "
+        f"p50 {np.median(times):.2f} ms (host clock, synchronized per frame) on {smi}; kernel "
+        f"launches on the path (the census's H included) {launches}; one frame's kernel "
+        f"calls held to their plain versions at the kernels line's bars: " + "; ".join(held)
+        + f"; torch.profiler over 8 frames: wall {wall:.2f} ms/frame, device busy {busy:.2f} "
+        f"ms/frame ({n_act:.0f} device activities), idle share {1 - busy / wall:.3f}; top: "
+        + "; ".join(f"{ms:.2f} ms {name[:60]}" for ms, name in top))
+    say(phase, f"auto-sized frame rmse vs use_pallas=False, use_tex_kernel=False on {smi} "
+        f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ; {stats_line}")
+    del pipe, ref, scene
+    torch.cuda.empty_cache()
+    return launches["raster_depth"]
+
+
 def light_census(args, kw, counter) -> dict[str, int]:
     """Kernel G's work on one frame, counted on the card from the plain
     versions of its steps: (pixel, listed light) pairs, the sphere tests of
@@ -1901,7 +2138,10 @@ def main() -> None:
 
     launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
-    launches.update(launches_ptex, raster_depth=n_h)
+    torch.cuda.empty_cache()
+    n_h_assets = asset_auto(dev, cam, smi)
+    # H's launches: the depth-only stage call and the asset-auto census's
+    launches.update(launches_ptex, raster_depth=n_h + n_h_assets)
     say("profiler", f"kernel traces: {TRACES['complete']} complete, "
         f"{len(TRACES['partial'])} partial ones traced again (kernel held/launched): "
         f"{TRACES['partial']}")

@@ -19,8 +19,9 @@ card that raises: the bench never carries on on the CPU):
   atlas_max_dim 256.
 
 Both stress cells look from (0, 6, 18) at yaw pi, pitch 0.35. The reference
-scene, `bench.py`'s own headline, needs asset-tree loading and the App
-(ROADMAP module items 9 and 6): it is reported as not measured, and its
+scene, `bench.py`'s own headline, needs the App (ROADMAP module item 6;
+asset-tree loading, item 9, is ported) and the reference asset tree: it is
+reported as not measured, and its
 knobs, `bench.py`'s `--asset-root` and `--texture-filter`, come with it.
 
 fps: two warm frames of a yaw path (0.002 rad a frame), then `--frames`
@@ -64,7 +65,7 @@ from .tools.tiny_scene import tiny_pipeline
 BASELINE_FPS = 60.0
 RMSE_BAR = 1e-3   # uint8/255 frame rmse against the all-plain pipeline
 SMOKE_FRAMES = 4
-REFERENCE_SCENE = "not measured: needs asset-tree loading and App (ROADMAP module items 9 and 6)"
+REFERENCE_SCENE = "not measured: needs the App (ROADMAP module item 6) and the reference assets"
 # the FrameStats counters a cell reports, collected anew after a fallback
 STAT_KEYS = ("tex_approx_taps", "env_approx_taps", "bin_overflow", "visible_lights",
              "light_tile_overflow")

@@ -1,7 +1,8 @@
 """Float page cache for the deferred-shading taps — counterpart of
-`ops/envcache.py`: `FloatAtlasBuilder`, the plan, and `sample_env_tiled` for
+`ops/envcache.py`: `FloatAtlasBuilder`, the plan, `sample_env_tiled` for
 the unfused deferred pass (the resolve is kernel F, `ops/env_resolve_cuda.py`;
-the fused pass resolves inside kernel D, `ops/shade_fused.py`).
+the fused pass resolves inside kernel D, `ops/shade_fused.py`), and the tap
+census that sizes `env_budget` (`tap_census`, `recommend_budget`).
 
 The float sibling of the texture cache: the prefiltered env cube's mips, the
 skybox faces and the BRDF LUT are stored page-major as clamp-addressed 2x2
@@ -22,12 +23,14 @@ import numpy as np
 import torch
 
 from . import env_resolve_cuda
+from .cover_two import SENTINEL
 from .env_resolve_cuda import REC_I32
 from .texcache import (
     MAX_MIPS,
     SEG_CHUNK,
     _compact_layout,
     _cover_and_match,
+    _distinct_counts,
     _pack_ids,
     _tile,
     _untile,
@@ -310,3 +313,52 @@ def sample_env_tiled(atlas: FloatAtlas, tex, mip, u, v, active, *, fb_tids: tupl
     rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)  # (H, W, G, 4)
     covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
     return rgba, covered, active & ~covered
+
+
+# ---------------------------------------------------------------- census ----
+def tap_census(atlas: FloatAtlas, tex, mip, u, v, active, tile_h: int = 24, tile_w: int = 128,
+               caps: tuple = (32, 32, 32, 32, 16)):
+    """Measure realized distinct-page demand per (tile, group) of the env
+    cache's tap stacks (H, W, G) through the addressing `plan_env_tiled`
+    uses, and the per-tile total of the compact staging spans at the group
+    caps. The sort runs on the tensors' device; the counts take numpy's
+    percentiles on the host. The JAX package pads a tile's rows to a
+    multiple of 8 with absent pages; this census has no row statistic, so
+    the padding changes no count and is left out."""
+    g = u.shape[-1]
+    row = onehot_lookup(fused_table(atlas), tex)
+    base_w = row[..., 0].to(torch.int32)
+    base_h = row[..., 1].to(torch.int32)
+    page, _, _, _ = _tap_addresses_clamp(base_w, base_h, select_mip(row[..., 5:], mip), mip,
+                                         u, v)
+
+    def tile_g(x):
+        return _tile(x.permute(2, 0, 1), tile_h, tile_w)
+
+    pg = torch.where(tile_g(active), tile_g(page), SENTINEL)
+    tiles_n = pg.shape[0]
+    counts = _distinct_counts(pg.reshape(tiles_n * g, -1)).reshape(tiles_n, g)
+    # staged spans are bounded by the group caps: sized from capped demand
+    capped = np.minimum(counts, np.asarray(caps[:g], np.int64)[None, :])
+    span = -(-(CAP_FB + capped) // SEG_CHUNK) * SEG_CHUNK
+    totals = span.sum(-1)
+    return {
+        "group": {
+            "max": int(counts.max()),
+            "p99": int(np.percentile(counts, 99)),
+            "mean": float(counts.mean()),
+        },
+        "tile_total": {
+            "max": int(totals.max()),
+            "p99": int(np.percentile(totals, 99)),
+            "mean": float(totals.mean()),
+        },
+    }
+
+
+def recommend_budget(census_frames, headroom: float = 1.5) -> int:
+    """SEG_CHUNK-aligned env `stage_budget`, at least the worst sampled tile
+    total x headroom and at least 5 x SEG_CHUNK."""
+    worst = max(c["tile_total"]["max"] for c in census_frames)
+    b = -(-int(worst * headroom) // SEG_CHUNK) * SEG_CHUNK
+    return max(b, 5 * SEG_CHUNK)

@@ -274,6 +274,18 @@ def tap_lod(uv, tex, mask, atlas: AtlasDevice, use_tex_kernel: bool = True):
     return ddx, ddy, size5, lod5
 
 
+def tap_query(interp, matrow, mask, atlas: AtlasDevice, use_tex_kernel: bool = True):
+    """(tex (H, W, 5) int32, u, v, lod5, active) exactly as the texture-cache
+    path samples them: the front end of `texcache.tap_census`, next to the
+    shade path so the two cannot drift."""
+    interp = torch.where(mask[..., None], interp, 0.0)
+    uv = interp[..., 0:2]
+    use = matrow[..., 6:11] > 0.5
+    tex = torch.clamp(matrow[..., 11:16].to(torch.int32), min=0)
+    _, _, _, lod5 = tap_lod(uv, tex, mask, atlas, use_tex_kernel)
+    return tex, uv[..., 0], uv[..., 1], lod5, use & mask[..., None]
+
+
 def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
                        texture_filter: str = "trilinear", use_tex_kernel: bool = False,
                        tex_caps: tuple | None = None, tex_cascade=False) -> GBuffer:

@@ -10,22 +10,27 @@ kernel I, whose plain form is `_cover_and_match_2level` over
 (`ops/resolve_shade_cuda.py`, the tap resolve plus the gbuffer.hlsl pixel
 shade) for the fused G-buffer (`shade_planes_fused`), and kernel E
 (`ops/atlas_resolve_cuda.py`, the storage-space taps) for the planar one
-(`sample_atlas_tiled`, `sample_atlas_textured`). Layouts at module
-boundaries are the JAX package's: per-pixel planes are `(tiles, G, blocks,
-128)`, 128 consecutive pixels of a tile row being one lane row.
+(`sample_atlas_tiled`, `sample_atlas_textured`). The tap census
+(`tap_census`, `recommend_caps`, `recommend_block_caps`, `recommend_budget`)
+measures a frame's page demand and sizes the cache's knobs for
+`tex_caps="auto"`. Layouts at module boundaries are the JAX package's:
+per-pixel planes are `(tiles, G, blocks, 128)`, 128 consecutive pixels of a
+tile row being one lane row.
 
 Differences from the TPU plan, none of which changes a value:
 * `onehot_lookup` is a plain indexed load `table[key]` (the TPU's one-hot
   MXU product existed to avoid per-element gathers; both are exact);
 * `blocks` is not padded to a multiple of 8 (a TPU sublane rule): padded
   rows are inactive, so they add no page to any cover and the unpadded
-  region is the same;
+  region is the same (the tap census keeps the pad: its per-row statistic
+  counts the padded rows);
 * the staged block gathers whole pages from the atlas viewed channel-major,
   one pass instead of a gather and a transpose.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import (atlas_resolve_cuda, common, cover_cuda, cover_two, gbuffer,
@@ -467,3 +472,114 @@ def shade_planes_fused(atlas: AtlasDevice, pl_tiles, id_tiles, height: int, widt
     if return_tiled:
         return gb_tiles, approx_count
     return _untile(gb_tiles, height, width, tile_h, tile_w), approx_count
+
+
+# ------------------------------------------------------------- census -----
+def _distinct_counts(rows):
+    """Distinct non-SENTINEL values per row of `rows` (n, L) int32, by a sort
+    along the row -> (n,) int64 numpy counts on the host."""
+    s = torch.sort(rows, dim=-1).values
+    first = s[:, :1] != cover_two.SENTINEL
+    rest = (s[:, 1:] != s[:, :-1]) & (s[:, 1:] != cover_two.SENTINEL)
+    return (first.sum(-1) + rest.sum(-1)).cpu().numpy()
+
+
+def tap_census(atlas: AtlasDevice, tex, u, v, lod, active, filter: str = "trilinear",
+               tile_h: int | None = None, tile_w: int | None = None, cap_lo: int = 92,
+               cap_hi: int = 44):
+    """Measure realized distinct-page demand per (tile, slot, mip-half) of a
+    frame's tap stream (tex (H, W, 5) int32, u/v (H, W), lod/active (H, W,
+    5)) through the exact addressing of the plan (`_mip_plan` +
+    `_tap_addresses`): for each trilinear half the max / p99 / mean distinct
+    pages over all (tile, slot) groups and the max / p99.9 over 128-pixel
+    rows (what a per-half `block_cap` must hold), and the per-tile total of
+    the compact staging spans at the group caps `cap_lo`/`cap_hi`. The sort
+    runs on the tensors' device; the counts come to the host and take
+    numpy's percentiles, as in the JAX package.
+
+    A tile's rows are padded to a multiple of 8 with absent pages, as the
+    JAX package's tiling pads them (its TPU sublane rule): the padded rows
+    count 0 distinct pages and enter the row percentile, so the padding is
+    kept here or `recommend_block_caps` would size other block caps."""
+    height, width = u.shape
+    if tile_h is None or tile_w is None:
+        t = pick_tile(height, width)
+        if t is None:
+            raise ValueError(f"no cache tiling for {width}x{height}")
+        tile_h, tile_w = t
+    trilinear = filter != "bilinear"
+    blocks = tile_h * tile_w // 128
+    pad = (-blocks) % 8
+    blocks += pad
+
+    u5 = u[..., None].expand(tex.shape)
+    v5 = v[..., None].expand(tex.shape)
+    base_w, base_h, pb, _fb, mips, _tf, _nm = _mip_plan(atlas, tex, lod, trilinear)
+
+    def tile_g(x):  # (H, W, 5) -> (tiles, 5, blocks, 128), unpadded
+        return _tile(x.permute(2, 0, 1), tile_h, tile_w)
+
+    act_t = tile_g(active)
+    out = {}
+    tile_spans = None
+    for name, m in zip(("lo", "hi"), mips):
+        page, _, _, _ = _tap_addresses(base_w, base_h, select_mip(pb, m), m, u5, v5)
+        pg = torch.where(act_t, tile_g(page), cover_two.SENTINEL)
+        pg = torch.nn.functional.pad(pg, (0, 0, 0, pad), value=cover_two.SENTINEL)
+        tiles_n, g = pg.shape[:2]
+        counts = _distinct_counts(pg.reshape(tiles_n * g, blocks * 128))
+        rcounts = _distinct_counts(pg.reshape(tiles_n * g * blocks, 128))
+        out[name] = {
+            "max": int(counts.max()),
+            "p99": int(np.percentile(counts, 99)),
+            "mean": float(counts.mean()),
+            "row_max": int(rcounts.max()),
+            "row_p999": int(np.percentile(rcounts, 99.9)),
+        }
+        # staged span per group at its cap: [fb | cover] in SEG_CHUNK steps
+        cap_g = cap_lo if name == "lo" else cap_hi
+        capped = np.minimum(counts.reshape(tiles_n, g), cap_g)
+        span = -(-(CAP_FB + capped) // SEG_CHUNK) * SEG_CHUNK
+        tile_spans = span if tile_spans is None else tile_spans + span
+        if not trilinear:
+            out["hi"] = {"max": 0, "p99": 0, "mean": 0.0}
+    totals = tile_spans.sum(-1)
+    out["tile_total"] = {
+        "max": int(totals.max()),
+        "p99": int(np.percentile(totals, 99)),
+        "mean": float(totals.mean()),
+    }
+    return out
+
+
+def recommend_caps(census_frames, headroom: float = 1.5):
+    """Fold per-frame `tap_census` results into (cap_lo, cap_hi): the max
+    demand over the frames times `headroom`, aligned so cap + CAP_FB is a
+    SEG_CHUNK multiple, never above the defaults 92/44."""
+    def align(demand, default):
+        want = -(-(int(demand * headroom) + CAP_FB) // SEG_CHUNK) * SEG_CHUNK
+        return max(SEG_CHUNK - CAP_FB, min(want - CAP_FB, default))
+
+    max_lo = max(c["lo"]["max"] for c in census_frames)
+    max_hi = max(c["hi"]["max"] for c in census_frames)
+    return align(max_lo, 92), align(max_hi, 44)
+
+
+def recommend_block_caps(census_frames, headroom: int = 2, lo_max: int = 40,
+                         hi_max: int = 24):
+    """Fold per-frame `tap_census` results into a per-half (block_cap_lo,
+    block_cap_hi): the p99.9 per-row demand plus `headroom`, rounded up to a
+    multiple of 4, clamped to [8, lo_max] and [8, hi_max]."""
+    def size(key, cap):
+        want = max(c[key]["row_p999"] for c in census_frames) + headroom
+        return int(max(8, min(-(-want // 4) * 4, cap)))
+
+    return size("lo", lo_max), size("hi", hi_max)
+
+
+def recommend_budget(census_frames, headroom: float = 1.5) -> int:
+    """Compact-staging per-tile page budget: SEG_CHUNK-aligned, at least the
+    worst sampled tile total x headroom and at least 16 x SEG_CHUNK."""
+    worst = max(c["tile_total"]["max"] for c in census_frames)
+    b = -(-int(worst * headroom) // SEG_CHUNK) * SEG_CHUNK
+    return max(b, 16 * SEG_CHUNK)

@@ -33,18 +33,22 @@ Ported configurations (every path of the JAX pipeline but the knobs below):
   anisotropic filter) and the dense deferred shading with its serial light
   sweep (or kernel G with `light_tile`), with kernel A when `use_pallas`.
 Without `use_pallas` the raster is the plain fold of
-`stages.rasterize(use_pallas=False)`, as in the JAX pipeline; the stage's
-kernel path (the depth-only kernel H) is taken by no pipeline path.
-Knobs whose path is not ported yet raise NotImplementedError naming their
-ROADMAP item: `tex_caps="auto"` (module queue 3), `fused_light_dtype`
-(module queue 8); BC texture formats raise in resource/storage.py (module
-queue 9). On a CUDA device nothing quietly takes a plain path. The scene
-and the camera are read by attribute only, so the JAX package's objects
-render as well as the port's own.
+`stages.rasterize(use_pallas=False)`, as in the JAX pipeline. With
+`tex_caps="auto"` and use_tex_kernel, the first `render` (or
+`render_sequence`) runs the tap census (`tools/tap_census.run_census`) on
+the scene at its pose and sizes `tex_caps` (caps, compact staging budget,
+per-half block caps), `env_budget` and `tex_cascade` from it; the census's
+raster is `stages.rasterize(use_pallas=...)`, on the card the depth-only
+kernel H. The one knob whose path is not ported raises NotImplementedError
+naming its ROADMAP item: `fused_light_dtype` (module queue 8, not to be
+ported). On a CUDA device nothing quietly takes a plain path. The scene and
+the camera are read by attribute only, so the JAX package's objects render
+as well as the port's own.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 from dataclasses import dataclass
 
@@ -63,6 +67,7 @@ from ..ops import (clustered, common, envcache, gbuffer, ibl, postprocess, raste
                    texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
+from ..tools import tap_census
 from . import stages
 from .scene_pack import PackedScene, pack_scene
 
@@ -150,10 +155,12 @@ class DeferredRenderPipeline:
         self.texture_filter = texture_filter
         if fused_light_dtype is not None:
             raise not_ported("fused_light_dtype", "module queue 8")
-        if tex_caps == "auto":
-            raise not_ported('tex_caps="auto" (the tap-census tools)', "module queue 3")
+        # "auto": the first render runs the tap census on the actual scene at
+        # the caller's first pose and sizes tex_caps, env_budget and the
+        # cascade from it (_ensure_auto_caps)
+        self._auto_caps = tex_caps == "auto"
         # texture/env cache budgets: used by the texture-cache path only
-        self.tex_caps = tex_caps
+        self.tex_caps = None if self._auto_caps else tex_caps
         self.tex_cascade = tex_cascade
         self.env_budget = env_budget
         self.raster_caps = raster_caps
@@ -523,9 +530,39 @@ class DeferredRenderPipeline:
             self._cam_np = cam_f32
             self._cam_dev = torch.as_tensor(cam_f32, device=self.device)
 
+    def _ensure_auto_caps(self, camera: Camera):
+        """tex_caps="auto": size every cache budget from a census of the
+        actual scene at the caller's first pose (tools/tap_census over three
+        poses of a 30 degree yaw sweep). After that the pipeline is one
+        constructed with the measured knobs. The graph is not rebuilt: its
+        passes read tex_caps, env_budget and tex_cascade from the pipeline
+        when they run, not when they are built."""
+        if not self._auto_caps:
+            return
+        self._auto_caps = False
+        if not self.use_tex_kernel:
+            return  # the direct-atlas samplers have no budgets to size
+        censuses, caps, env_censuses = tap_census.run_census(
+            # run_census rotates the camera along the sweep: probe a copy
+            self, copy.deepcopy(camera), poses=3, yaw_sweep_deg=30.0)
+        block_caps = texcache.recommend_block_caps(censuses)
+        budget = texcache.recommend_budget(censuses)
+        self.tex_caps = (caps[0], caps[1], budget, block_caps)
+        if env_censuses:
+            self.env_budget = envcache.recommend_budget(env_censuses)
+        if self.tex_cascade is False:
+            # outlier rows beyond the sized block caps resolve at near
+            # trilinear through the mip+1 cascade, not the coarsest mip
+            self.tex_cascade = (12, 8, 1)
+        logging.getLogger(__name__).info(
+            "auto tex caps: cap=(%d,%d) block_cap=%s stage_budget=%d env_budget=%s",
+            caps[0], caps[1], block_caps, budget, self.env_budget)
+
     def render_sequence(self, cameras, delta_time: float = 1.0 / 60.0):
         """Render a camera path: N `render` calls with the exposure EMA carried
         frame to frame. Returns the stacked (N, H, W, 3) uint8 frames."""
+        if cameras:
+            self._ensure_auto_caps(cameras[0])
         frames = [self.render(c, delta_time, collect_stats=False) for c in cameras]
         return torch.stack(frames)
 
@@ -536,6 +573,7 @@ class DeferredRenderPipeline:
         collect_stats=False skips the host readback of the bin and
         visibility counters (the frame then has no host sync of its own
         beyond the data-dependent loop bounds of its stages)."""
+        self._ensure_auto_caps(camera)
         self._upload(camera, delta_time)
         (rgb8, avg, bin_counts, tex_approx, light_trunc, env_approx,
          vis_counts) = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)

@@ -1,6 +1,5 @@
 """Texture formats and mip-chain layout math — the port's copy of the JAX
-package's `resource/formats.py` without the BC-codec helper (the port keeps
-textures in memory; asset-tree loading is ROADMAP module item 9).
+package's `resource/formats.py`, unchanged.
 
 Mirrors `Engine/Include/Resource/BasicStorage.h:12-27,207-238` (ETextureFormat
 is a uint8 subset of DXGI_FORMAT; mip sizes are tightly packed, no row pitch
@@ -118,6 +117,12 @@ def channel_count(fmt: ETextureFormat) -> int:
 
 def numpy_dtype(fmt: ETextureFormat):
     return _NUMPY_DTYPE[ETextureFormat(fmt)]
+
+
+def is_hdr_format(fmt: ETextureFormat) -> bool:
+    """TextureCompressor::IsHDRFormat (TextureCompression.cpp:6-10): formats
+    1..18 are compressed as BC6H, everything else as BC1."""
+    return 1 <= int(fmt) <= 18
 
 
 @dataclass(frozen=True)

@@ -135,14 +135,21 @@ def test_frame_graph_orders_passes_alike():
 
 
 def test_serialized_textures_raise_naming_their_roadmap_item():
-    """The asset-tree form of a texture (BC-compressed payloads) is not
-    ported: both entry points raise, naming ROADMAP module item 9."""
+    """The asset-tree form of a texture (BC-compressed payloads) raised,
+    naming ROADMAP module item 9, until that item was ported: both entry
+    points now give the JAX package's payload bytes and decoded pixels."""
+    from direct12pbrrenderer_tpu.resource import storage as jstorage
     from direct12pbrrenderer_tpu_torch.resource.formats import ETextureFormat
     from direct12pbrrenderer_tpu_torch.resource.storage import TextureData
 
-    tex = TextureData.from_array(np.zeros((8, 8, 4), np.uint8), ETextureFormat.R8G8B8A8_UNORM)
+    img = np.random.default_rng(0).integers(0, 256, (8, 8, 4), np.uint8)
+    tex = TextureData.from_array(img, ETextureFormat.R8G8B8A8_UNORM)
+    want = jstorage.TextureData.from_array(img, ETextureFormat.R8G8B8A8_UNORM)
     assert tex.mip_levels == 4 and tex.mip_array_rgba(3).shape == (1, 1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, module queue 9"):
-        tex.compress_payload()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, module queue 9"):
-        TextureData.from_compressed(8, 8, 1, 4, ETextureFormat.R8G8B8A8_UNORM, b"")
+    payload = tex.compress_payload()
+    assert payload == want.compress_payload() and len(payload) == 8 * (4 + 1 + 1 + 1)
+    got = TextureData.from_compressed(8, 8, 1, 4, ETextureFormat.R8G8B8A8_UNORM, payload)
+    back = jstorage.TextureData.from_compressed(8, 8, 1, 4, ETextureFormat.R8G8B8A8_UNORM,
+                                                payload)
+    for mip in range(4):
+        np.testing.assert_array_equal(got.mip_array_rgba(mip), back.mip_array_rgba(mip))

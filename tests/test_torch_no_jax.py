@@ -5,7 +5,8 @@ tests/conftest.py imports jax into the test process, so the frames (the
 default path on an accelerator, the 1024-light path and the planar
 texture-cache path) are rendered in a fresh interpreter from the port's own
 scene and camera, which then reports whether jax or the JAX package was ever
-imported.
+imported; the bench's smoke run and the asset loader, the census tools and
+the native library are imported the same way.
 """
 
 import json
@@ -134,6 +135,35 @@ def test_package_sources_name_no_jax():
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
                  "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two"):
         assert "except" not in (PACKAGE / "ops" / f"{name}.py").read_text(), name
-    # the bench and its helpers let every failure through
-    for path in ("bench.py", "tools/tiny_scene.py", "utils/fidelity.py"):
+    # the bench and its helpers, the census and the asset path let every
+    # failure through (a missing blob is an explicit check, not a handler)
+    for path in ("bench.py", "tools/tiny_scene.py", "utils/fidelity.py",
+                 "tools/tap_census.py", "pipeline/deferred.py", "resource/loader.py",
+                 "resource/bc.py", "resource/native_codec.py", "resource/resources.py",
+                 "resource/serialization.py", "resource/reflection_def.py",
+                 "resource/hdr.py", "resource/storage.py", "scene/scene.py",
+                 "native/__init__.py", "utils/tlsf.py", "utils/octree.py"):
         assert "except" not in (PACKAGE / path).read_text(), path
+    # the thread pool's one handler hands a task's exception to its future
+    threading_src = (PACKAGE / "utils" / "threading.py").read_text()
+    assert re.findall(r"^\s*except\b.*$", threading_src, re.M) == [
+        "            except BaseException as e:  # noqa: BLE001 — propagate via future"]
+
+
+def test_loader_and_census_import_without_jax():
+    # the asset path, the census tools and the native library, from a fresh
+    # interpreter: -X importtime lists every module imported from startup on
+    code = ("import direct12pbrrenderer_tpu_torch.resource.loader, "
+            "direct12pbrrenderer_tpu_torch.tools.tap_census, "
+            "direct12pbrrenderer_tpu_torch.utils.threading; "
+            "from direct12pbrrenderer_tpu_torch.utils.tlsf import TlsfAllocator; "
+            "print(TlsfAllocator(4096).alloc(100))")
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "0"
+    imported = [line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "direct12pbrrenderer_tpu_torch.resource.reflection_def" in imported
+    assert "direct12pbrrenderer_tpu_torch.native" in imported
+    assert [m for m in imported if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []

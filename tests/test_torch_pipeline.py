@@ -245,7 +245,9 @@ UNPORTED = [
     # anisotropic filtering on the direct-atlas sampler
     (dict(texture_filter="anisotropic"), (None, False, False, 0, 0)),
     (dict(fused_light_dtype="bfloat16"), "module queue 8"),
-    (dict(tex_caps="auto"), "module queue 3"),
+    # tex_caps="auto": the tap census sizes the caches at the first render
+    (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_caps="auto"),
+     (None, True, True, 0, 0)),
     # caps above 128: the lo-half cover goes through kernel I
     (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_caps=(156, 44)),
      (None, True, True, 0, 1)),
@@ -266,8 +268,8 @@ def test_unported_knobs_raise(knobs, item):
     its ROADMAP item (on the CPU as on the card). The knobs of the kernels
     ported since take their path: the planar texture cache (kernel E), caps
     above 128 (kernel I), anisotropic filtering, the unfused deferred pass
-    with the tiled lights and/or the env cache each render a frame through
-    their kernels."""
+    with the tiled lights and/or the env cache, and tex_caps="auto" (the tap
+    census) each render a frame through their kernels."""
     scene, cam, cfg = _fused_scene(False)
     if isinstance(item, str):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
