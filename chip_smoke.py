@@ -34,11 +34,32 @@ on the card, then renders at 1920x1080 with a procedural sky:
   kernel H (held to the census with the plain fold), then the sized frames
   run kernels A-D at the census-sized caps, the cascade and the compact
   staging budgets;
+* the App ([app-tree], [app], [viewer], [profile-app], [census-main]): a
+  tree T built with the port's console, one process a command (a 256^2
+  procedural sky, the sphere, the stress terrain at 128x64 cells imported
+  from OBJ/MTL/PNG), and a Scene JSON at the App's default path (the
+  terrain, 32 spheres on an 8x4 grid, 8 lights, the sky); the App's command
+  line renders 60 frames at the AppConfig defaults (1440x960 on a 1536-wide
+  canvas, texture caps (92, 44, None, (24, 12)), the cascade (12, 8, 0),
+  raster caps (128, 64)) to PNGs; the same App in process launches A once,
+  B five times, C and D once a frame, its calls held to their plain
+  versions, its first frame bit-equal to a directly built pipeline's, its
+  frame held to the same pipeline with its kernels' plain versions (the
+  gate) and compared with the all-plain pipeline (`app_fidelity`: on T the
+  AppConfig knobs' counted losses, the raster's hot-set miss and the env
+  LUT group's fallbacks, fail that bar, as they do in the JAX package; the
+  line says so); the viewer in a fresh process, whose first frame
+  and first kernel use come on an HTTP handler thread; tools/profile's
+  stages on the App's pipeline; tools/tap_census.main over 8 poses (16
+  launches of H);
 * last, the port's bench (`direct12pbrrenderer_tpu_torch.bench`) as a user
-  runs it, `--smoke` and then the full run at its default 32 frames: the
-  smoke sphere (kernels A, B, E, F), the Sponza-class headline (A-D) and
-  the 1024-light cell (A, B, C, F, G) at the JAX bench's knobs, each gate
-  binding ([bench] lines).
+  runs it, `--smoke`, then the full run at its default 32 frames: the smoke
+  sphere (kernels A, B, E, F), the Sponza-class headline (A-D) and the
+  1024-light cell (A, B, C, F, G) at the JAX bench's knobs, each gate
+  binding ([bench] lines). The reference-scene cell (`--asset-root`, the
+  App at the AppConfig defaults) is not run here: on tree T its gate fails
+  for the knobs' counted losses and the cell falls back (ROADMAP.md
+  section 3).
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; each frame is checked against the all-plain pipeline
@@ -60,12 +81,15 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent   # the checkout: the port's package and build/
 W, H = 1920, 1080
 TILE_H, TILE_W, BIN_CAP = 24, 128, 8192
 # The cell's cache knobs. With the JAX package's defaults the default frame
@@ -91,6 +115,19 @@ F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weigh
 # the asset-auto cell: the textured stress cell's terrain (512x256 cells,
 # 262,144 triangles) imported from source files, with tex_caps="auto"
 ASSET_CELLS = (512, 256)
+# the [app] cell: a tree built with the port's console (tools/stress_scene's
+# terrain at APP_CELLS imported from OBJ/MTL/PNG, the console's sphere on an
+# APP_GRID of instances, the terrain's 8 lights, a 256^2 sky: 33 models,
+# 63,488 triangles, within the App's 65,536-triangle pool; 73,504 vertices,
+# for which pack_scene grows the App's 65,536-vertex pool), rendered by the App at
+# the AppConfig defaults from APP_POSE ((x, y, z), yaw, pitch in degrees,
+# orbit degrees per frame: the stress cells' pose); each frame launches
+# kernel A once, B five times (texture fallback, lo, hi, the cascade, env),
+# C and D once, and no other
+APP_CELLS, APP_GRID = (128, 64), (8, 4)
+APP_POSE = ((0.0, 6.0, 18.0), 180.0, 20.05, 1.0)
+APP_KERNELS = {"raster_interp": 1, "fused_cover": 5, "resolve_shade": 1, "deferred_shade": 1}
+APP_COUNTED = 8          # frames whose launches [app] counts
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
@@ -145,6 +182,7 @@ def say(phase: str, msg: str) -> None:
 
 def fail(phase: str, msg: str) -> None:
     say(phase, "FAIL " + msg)
+    print(f"[{phase}] FAIL {msg}", file=sys.stderr, flush=True)   # where only stderr is kept
     sys.exit(1)
 
 
@@ -192,6 +230,11 @@ def host_ms(fn, reps: int) -> float:
 
 
 TRACE_TRIES = 5
+# idle host time on each side of a traced run, inside the profiler's active
+# window: on an H100 torch.profiler drops device activities that lie near
+# the window's edges (PyTorch's own kernels as well as the port's), and with
+# a few ms of pad it has dropped none
+TRACE_PAD_S = 0.02
 L2_EVICT_BYTES = 512 << 20    # ten times the H100's 50 MB L2
 TRACES = {"complete": 0, "partial": []}   # every kernel trace of this run
 EARLIER_BOUNDS: dict[str, float] = {}      # name -> ms of a kernel's earlier, looser bound
@@ -219,8 +262,9 @@ def cold_ms(fn, reps: int) -> float:
 def traced(run):
     """torch.profiler over `run()`: ([(name, us)] of its device activities,
     {kernel: launches it made}, its wall ms). A warm-up cycle of the same
-    work, traced and dropped, comes first (the profiler's own schedule): on
-    an H100 the first launches of a trace have gone missing."""
+    work, traced and dropped, comes first (the profiler's own schedule), and
+    the traced run sits TRACE_PAD_S of idle time away from both edges of the
+    active window: on an H100 launches near either edge have gone missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -229,11 +273,13 @@ def traced(run):
         run()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(TRACE_PAD_S)
         n0 = read_launches()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)
         prof.step()
     launched = {k: n - n0[k] for k, n in read_launches().items()}
     # the schedule's step annotation spans the device timeline: not an activity
@@ -768,9 +814,11 @@ def frame_inputs(pipe, cam):
                               pipe.bin_cap)
 
     bins = binning()
-    rows64 = stages.pack_rows64(setup, pipe.buffers, vattrs)
+    view = (cfg.width, cfg.height)
+    rows64 = stages.pack_rows64(setup, pipe.buffers, vattrs, view)
     ms = {"geometry": cuda_ms(geometry, 3), "binning": cuda_ms(binning, 3),
-          "pack_rows64": cuda_ms(lambda: stages.pack_rows64(setup, pipe.buffers, vattrs), 3)}
+          "pack_rows64": cuda_ms(lambda: stages.pack_rows64(setup, pipe.buffers, vattrs, view),
+                                 3)}
     return setup, bins, rows64, ms
 
 
@@ -1204,9 +1252,6 @@ def asset_auto(dev, cam, smi) -> int:
     the recommend_* folds, one sized frame's B, C and D calls to their plain
     versions, and the frame to the all-plain pipeline. Returns kernel H's
     launches on the path."""
-    import tempfile
-    from pathlib import Path
-
     from direct12pbrrenderer_tpu_torch.config import RenderConfig
     from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, envcache, resolve_shade_cuda,
                                                    shade_fused, texcache)
@@ -1217,7 +1262,7 @@ def asset_auto(dev, cam, smi) -> int:
     from direct12pbrrenderer_tpu_torch.tools import tap_census
 
     phase = "asset-auto"
-    build = Path(__file__).resolve().parent / "build"
+    build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         src, root = Path(tmp) / "src", Path(tmp) / "assets"
@@ -1382,6 +1427,452 @@ def asset_auto(dev, cam, smi) -> int:
     del pipe, ref, scene
     torch.cuda.empty_cache()
     return launches["raster_depth"]
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that no socket holds now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def console(root, *argv) -> str:
+    """One command of the port's console as a user runs it, in a process
+    of its own; returns what it printed."""
+    proc = subprocess.run([sys.executable, "-m", "direct12pbrrenderer_tpu_torch.app.console",
+                           "--asset-root", str(root), *argv], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    if proc.returncode:
+        fail("app-tree", f"console {argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout.strip()
+
+
+def app_tree(root, src, cells, grid) -> dict:
+    """Tree `root` built as a user builds one, each console command a
+    process of its own: a 256^2 procedural sky (CreateProceduralSky), the
+    sphere (CreateSphereModel), tools/stress_scene's terrain at `cells`
+    written as OBJ/MTL with its albedo PNG and imported (ImportModel); then
+    a Scene JSON at the App's default scene path: the terrain put back at
+    its centroid, the sphere instanced on a `grid` (x by z, 2.5 apart, 5
+    apart in depth) over the part of the terrain in view of the App's pose,
+    the terrain's 8 lights and the sky. Returns the tree's counts."""
+    from direct12pbrrenderer_tpu_torch.resource.loader import ResourceLoader
+    from direct12pbrrenderer_tpu_torch.scene.scene import Scene, SceneModel
+
+    printed = [console(root, "CreateProceduralSky", "-s", "256", "-o", "Asset/SkyBox/Sky"),
+               console(root, "CreateSphereModel", "-o", "Asset/Model/Sphere")]
+    content = stress_scene(*cells, 16, 80.0)
+    src.mkdir()
+    centroid = write_asset_sources(src, content)
+    printed.append(console(root, "ImportModel", "-i", str(src / "terrain.obj"), "-o",
+                           "Asset/Terrain/Terrain"))
+    ld = ResourceLoader.set_instance(ResourceLoader(root))
+    scene = Scene("Asset/Scene/main")
+    terrain = SceneModel("terrain")
+    terrain.model_file_path = "Asset/Terrain/Terrain_Model"
+    terrain.translation = centroid
+    scene.add_model(terrain)
+    nx, nz = grid
+    for i in range(nx):
+        for j in range(nz):
+            sm = SceneModel(f"sphere_{i}_{j}")
+            sm.model_file_path = "Asset/Model/Sphere/sphere_Model"
+            sm.translation = np.array([(i - (nx - 1) / 2) * 2.5, 2.0, 6.0 - 5.0 * j], np.float32)
+            scene.add_model(sm)
+    for light in content.lights:
+        scene.add_light(light)
+    scene.skybox_path = "Asset/SkyBox/Sky"
+    ld.dump_resource(scene)
+    del content
+    loaded = ResourceLoader.set_instance(ResourceLoader(root)).load_resource(
+        Scene, "Asset/Scene/main.json")
+    meshes = [sm.model.mesh_resource.mesh for sm in loaded.models]
+    return {"printed": printed, "models": len(loaded.models), "lights": len(loaded.lights),
+            "tris": sum(m.index_count // 3 for m in meshes),
+            "vertices": sum(m.vertex_count for m in meshes),
+            "sky": loaded.skybox is not None and loaded.skybox.cubemap is not None,
+            "albedo": loaded.models[0].model.materials[0].get_parameter("UseAlbedoMap"),
+            "files": sum(1 for p in root.rglob("*") if p.is_file()),
+            "mb": sum(p.stat().st_size for p in root.rglob("*") if p.is_file()) / 1e6}
+
+
+def app_config(tree):
+    """The App's configuration of the [app] cell: the AppConfig defaults at
+    the cell's pose."""
+    from direct12pbrrenderer_tpu_torch.app.app import AppConfig
+
+    return AppConfig(asset_root=str(tree), camera_pos=APP_POSE[0], camera_yaw_deg=APP_POSE[1],
+                     camera_pitch_deg=APP_POSE[2], orbit_deg_per_frame=APP_POSE[3])
+
+
+def app_cli_argv(tree, out_dir) -> list[str]:
+    """`python -m direct12pbrrenderer_tpu_torch.app` at `app_config`'s pose."""
+    (x, y, z), yaw, pitch, orbit = APP_POSE
+    return [sys.executable, "-m", "direct12pbrrenderer_tpu_torch.app", "--asset-root", str(tree),
+            "--camera", str(x), str(y), str(z), "--yaw", str(yaw), "--pitch", str(pitch),
+            "--orbit", str(orbit), "--out", str(out_dir)]
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While the block runs, the App path's kernels (A, B, C, D) run their
+    plain versions on the card: each wrapper's launch is swapped for the
+    plain PyTorch function that `hold_call` holds it to. The frame keeps
+    every knob's semantics (the raster's two-pass cut lists, the caches'
+    page caps and their fallbacks); only the kernels' arithmetic changes."""
+    from unittest import mock
+
+    from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, raster_cuda, resolve_shade_cuda,
+                                                   shade_fused)
+
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+                (raster_cuda, "_launch", raster_cuda.rasterize_interp_reference),
+                (cover_cuda, "fused_cover", cover_cuda.fused_cover_reference),
+                (resolve_shade_cuda, "resolve_shade", resolve_shade_cuda.resolve_shade_reference),
+                (shade_fused, "deferred_kernel", shade_fused.deferred_kernel_reference)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        yield
+
+
+def app_fidelity(app, pipe, dev) -> str:
+    """The App's frame at the AppConfig defaults and the App's pose, gated
+    at RMSE_BAR, with equal FrameStats, against the same pipeline with its
+    kernels' plain versions (`plain_kernels`; none may launch). Then
+    against the all-plain pipeline (`use_pallas=False, use_tex_kernel=False`,
+    the same content knobs), reported with that gate's verdict: two losses
+    that the AppConfig knobs make, as in the JAX package, and that
+    FrameStats counts, are not the all-plain pipeline's. The two-pass
+    raster's hot set (raster_caps) can miss, and tiles beyond the hot_k
+    fullest then fold only their first cap_small entries (bin_overflow); the
+    env cache's BRDF LUT tap group has a fixed page cap of 32, whose overflow
+    falls back (env_approx_taps). A miss of that bar with no loss counted
+    fails. Returns the line to print."""
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    cfg, cam = app.cfg, app.camera
+    carry = pipe.avg_luminance.clone()
+    keep = read_launches()
+    frames, stats = [], []
+    for plain in (False, True):
+        pipe.avg_luminance = carry.clone()
+        torch.cuda.synchronize()
+        reset_launches()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            frames.append(pipe.render(cam).cpu().numpy().astype(np.float64))
+        stats.append(pipe.last_stats)
+        if plain and any(read_launches().values()):
+            fail("app", f"the plain versions' frame launched kernels: {read_launches()}")
+    set_launches(keep)
+    pipe.avg_luminance = carry
+    rmse = float(np.sqrt(np.mean((frames[0] / 255.0 - frames[1] / 255.0) ** 2)))
+    ndiff = int((frames[0] != frames[1]).any(-1).sum())
+    if rmse > RMSE_BAR or stats[0] != stats[1]:
+        fail("app", f"the App's frame vs its kernels' plain versions: rmse {rmse:.6f} (bar "
+             f"{RMSE_BAR}), {ndiff} pixels differ, stats {stats[0]} vs {stats[1]}")
+    ref = DeferredRenderPipeline(app.scene, pipe.config, use_pallas=False, use_tex_kernel=False,
+                                 device=dev, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                                 bin_cap=cfg.bin_cap, atlas_max_dim=cfg.atlas_max_dim,
+                                 prefilter_size=cfg.prefilter_size)
+    ref.avg_luminance = carry.clone()
+    b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
+    del ref
+    rmse_plain = float(np.sqrt(np.mean((frames[0] / 255.0 - b / 255.0) ** 2)))
+    ndiff_plain = int((frames[0] != b).any(-1).sum())
+    lost = {k: getattr(stats[0], k) for k in ("bin_overflow", "env_approx_taps",
+                                              "tex_approx_taps") if getattr(stats[0], k)}
+    if rmse_plain > RMSE_BAR and not lost:
+        fail("app", f"frame vs use_pallas=False, use_tex_kernel=False: rmse {rmse_plain:.6f} "
+             f"above {RMSE_BAR} with no loss counted ({stats[0]})")
+    verdict = ("passes" if rmse_plain <= RMSE_BAR else
+               f"FAILS at the AppConfig defaults, with the losses counted {lost} "
+               f"(ROADMAP.md section 3)")
+    return (f"frame at the AppConfig defaults vs its kernels' plain versions (gate <= "
+            f"{RMSE_BAR}, equal FrameStats): rmse {rmse:.3e}, {ndiff} pixels differ, "
+            f"{stats[0]}; vs use_pallas=False, use_tex_kernel=False: rmse {rmse_plain:.6f}, "
+            f"{ndiff_plain} pixels differ, gate <= {RMSE_BAR} {verdict}")
+
+
+def app_phase(dev, smi, tree, out_dir):
+    """[app]: the App as a user runs it, 60 frames at the AppConfig defaults
+    through its command line, then the same App in this process: its
+    kernel launches per frame, one frame's kernel calls held to their plain
+    versions, its first frame bit-equal to a pipeline built directly with
+    the same knobs, its frame against its kernels' plain versions and the
+    all-plain pipeline (`app_fidelity`), the bin census, and device busy
+    and idle share over 8 traced frames. Returns the App."""
+    from PIL import Image
+
+    from direct12pbrrenderer_tpu_torch.app.app import App
+    from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, raster_cuda, resolve_shade_cuda,
+                                                   shade_fused)
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    phase = "app"
+    cfg = app_config(tree)
+    t0 = time.perf_counter()
+    argv = app_cli_argv(tree, out_dir)
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(phase, f"the App's command line exited {proc.returncode}: {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    pngs = sorted(out_dir.glob("frame_*.png"))
+    lit = []
+    for p in pngs:
+        img = np.asarray(Image.open(p))
+        if img.shape != (cfg.height, cfg.width, 3):
+            fail(phase, f"{p.name} is {img.shape}, want {(cfg.height, cfg.width, 3)}")
+        lit.append(float((img.max(-1) > 16).mean()))
+    if (len(pngs), report["frames"], report["resolution"]) != (
+            cfg.frames, cfg.frames, f"{cfg.width}x{cfg.height}") or min(lit) < 0.05:
+        fail(phase, f"{len(pngs)} PNGs, report {report}, least lit share {min(lit):.3f}")
+    say(phase, f"command line `python -m direct12pbrrenderer_tpu_torch.app --asset-root T "
+        f"{' '.join(argv[5:-2])} --out D` on {smi} in {cli_s:.1f} s: {json.dumps(report)}; "
+        f"{len(pngs)} PNGs of {cfg.width}x{cfg.height}, lit share {min(lit):.3f}-{max(lit):.3f}")
+
+    t0 = time.perf_counter()
+    app = App(cfg)
+    pipe, cam = app.pipeline, app.camera
+    if not (pipe.use_pallas and pipe.use_fused_gbuffer and pipe.use_fused_deferred
+            and pipe.render_w > cfg.width):
+        fail(phase, f"the App's pipeline on the card is not the fused kernel path on a padded "
+             f"canvas ({pipe.render_w}x{pipe.render_h})")
+    direct = DeferredRenderPipeline(
+        app.scene, pipe.config, tile_h=cfg.tile_h, tile_w=cfg.tile_w, bin_cap=cfg.bin_cap,
+        atlas_max_dim=cfg.atlas_max_dim, prefilter_size=cfg.prefilter_size,
+        tex_caps=cfg.tex_caps, tex_cascade=cfg.tex_cascade, env_budget=cfg.env_budget,
+        raster_caps=cfg.raster_caps, device=dev)
+    first, want = pipe.render(cam), direct.render(cam)
+    if not torch.equal(first, want) or pipe.last_stats != direct.last_stats:
+        fail(phase, f"the App's first frame differs from the directly built pipeline's in "
+             f"{int((first != want).any(-1).sum())} pixels; stats {pipe.last_stats} vs "
+             f"{direct.last_stats}")
+    del direct, first, want
+    build_s = time.perf_counter() - t0
+
+    # kernel launches per frame along the App's orbit, counts reset just before
+    path, c = [], cam
+    for _ in range(APP_COUNTED):
+        c = copy.deepcopy(c)
+        c.rotate(0.0, math.radians(APP_POSE[3]), 0.0)
+        path.append(c)
+    torch.cuda.synchronize()
+    reset_launches()
+    for c in path:
+        pipe.render(c, collect_stats=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_launches = {k: APP_KERNELS.get(k, 0) * APP_COUNTED for k in KERNELS}
+    if launches != want_launches:
+        fail(phase, f"kernel launches in {APP_COUNTED} frames {launches}, want {want_launches}")
+
+    # one frame's kernel calls held to their plain versions
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(mod, fn)) for name, mod, fn in (
+            ("raster_interp", raster_cuda, "rasterize_interp"),
+            ("fused_cover", cover_cuda, "fused_cover"),
+            ("resolve_shade", resolve_shade_cuda, "resolve_shade"),
+            ("deferred_shade", shade_fused, "deferred_kernel"))}
+        pipe.render(cam, collect_stats=False)
+        torch.cuda.synchronize()
+    held = []
+    for name, recorded in calls.items():
+        errs = [hold_call(phase, name, args, kw) for args, kw in recorded]
+        held.append(f"{name} {len(errs)} calls, max_abs_err {max(errs):.3e}")
+    covers = [(max(a[2]), a[3]) for a, _ in calls["fused_cover"]]
+    del calls
+
+    # the bin census of the pose, against the two-pass split's caps
+    _, bins, _, _ = frame_inputs(pipe, cam)
+    counts = bins.counts.cpu().numpy()
+    cap_small, hot_k = cfg.raster_caps
+    census = (f"bin counts over {counts.size} tiles p50 {np.percentile(counts, 50):.0f} p90 "
+              f"{np.percentile(counts, 90):.0f} p99 {np.percentile(counts, 99):.0f} max "
+              f"{counts.max()}, {int((counts > cap_small).sum())} tiles above cap_small "
+              f"{cap_small} (hot_k {hot_k}), {int((counts > cfg.bin_cap).sum())} above bin_cap "
+              f"{cfg.bin_cap}")
+    del bins
+
+    gate = app_fidelity(app, pipe, dev)
+    wall, busy, n_act, top = profiled_frames(pipe, cam, 8)
+    say(phase, f"in process, the same App on {smi}: pipeline build and the first frame bit-equal "
+        f"to a DeferredRenderPipeline built directly with the same knobs {build_s:.1f} s; "
+        f"kernel launches in {APP_COUNTED} frames of the orbit {launches} (per frame A 1, B 5: "
+        f"texture fallback, lo, hi, the cascade, env; C 1, D 1); covers (cap, block_cap) "
+        f"{covers}; one frame's kernel calls held to their plain versions at the kernels "
+        f"line's bars: " + "; ".join(held))
+    say(phase, f"{gate}; {census}; frame ms from the "
+        f"command line's report: mean {report['mean_frame_ms']}, p50 {report['p50_frame_ms']} "
+        f"(host clock, synchronized per frame by the .cpu() copy), compile_s "
+        f"{report['compile_s']}; torch.profiler over 8 frames: wall {wall:.2f} ms/frame, device "
+        f"busy {busy:.2f} ms/frame ({n_act:.0f} device activities), idle share "
+        f"{1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}"
+                                                    for ms, name in top))
+    return app
+
+
+def viewer_child(tree: str) -> None:
+    """[viewer], run in a process of its own (`python -c "import chip_smoke;
+    chip_smoke.viewer_child(TREE)"`) so that the first frame, and with it
+    the first use of every kernel (`kernels/build.load`, the persistent grid
+    caches), comes on one of the viewer's HTTP handler threads: the App at
+    the [app] cell's configuration, `viewer.serve(app, port)` on a free
+    ephemeral port on a daemon thread, GET /, then POST /step with w, a
+    right-drag of 100 px, and no input. Prints one JSON line; exits non-zero
+    on a failed check."""
+    import threading
+    import urllib.request
+
+    from direct12pbrrenderer_tpu_torch.app import viewer
+    from direct12pbrrenderer_tpu_torch.app.app import App
+    from direct12pbrrenderer_tpu_torch.kernels import build
+
+    phase = "viewer"
+    app = App(app_config(tree))
+    if build._LOADED:
+        fail(phase, f"kernels {sorted(build._LOADED)} loaded before the first frame")
+    threads, render = [], app.pipeline.render
+
+    def render_on(*args, **kwargs):
+        threads.append(threading.current_thread())
+        return render(*args, **kwargs)
+
+    app.pipeline.render = render_on
+    port = free_port()
+    threading.Thread(target=viewer.serve, args=(app, port), daemon=True).start()
+    page = b""
+    for _ in range(300):
+        try:
+            page = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=5).read()
+            break
+        except OSError:
+            time.sleep(0.1)
+    if b"/step" not in page:
+        fail(phase, "GET / did not serve the viewer's page")
+
+    def step(payload):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/step",
+                                     data=json.dumps(payload).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            jpeg, caption = r.read(), json.loads(r.headers["X-Stats"])["caption"]
+        return jpeg, caption, (time.perf_counter() - t0) * 1e3
+
+    cam = app.camera
+    reset_launches()
+    pos0 = np.asarray(cam.position).copy()
+    jpeg_w, _, ms_w = step({"w": True})
+    pos1 = np.asarray(cam.position).copy()
+    view1 = np.asarray(cam.view_matrix()).copy()
+    jpeg_r, _, ms_r = step({"rmb": True, "dx": 100, "dy": 0})
+    pos2 = np.asarray(cam.position).copy()
+    jpeg_n, caption, ms_n = step({})
+    launches = read_launches()
+    moved = float(np.linalg.norm(pos1 - pos0))
+    checks = {
+        "jpeg magic": all(j[:2] == b"\xff\xd8" for j in (jpeg_w, jpeg_r, jpeg_n)),
+        "w moves 0.05": abs(moved - 0.05) < 1e-5,
+        "a turn leaves the position": bool(np.allclose(pos1, pos2)),
+        "a turn turns": not np.allclose(np.asarray(cam.view_matrix()), view1),
+        "caption": "fps" in caption and "drawed" in caption,
+        "frames on handler threads": len(threads) == 3
+        and threading.main_thread() not in threads,
+        "kernels first loaded there": sorted(build._LOADED) == sorted(
+            source_of(k) for k, n in APP_KERNELS.items() if n),
+        "launches": launches == {k: APP_KERNELS.get(k, 0) * 3 for k in KERNELS},
+    }
+    print(json.dumps({"checks": checks, "moved": moved, "caption": caption,
+                      "jpeg_bytes": [len(jpeg_w), len(jpeg_r), len(jpeg_n)],
+                      "step_ms": [round(ms_w, 1), round(ms_r, 1), round(ms_n, 1)],
+                      "threads": sorted({t.name for t in threads}), "launches": launches}))
+    if not all(checks.values()):
+        sys.exit(1)
+
+
+def viewer_phase(smi, tree) -> None:
+    """[viewer]: `viewer_child` in a process of its own."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                           "chip_smoke.viewer_child(sys.argv[1])", str(tree)],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode or not lines:
+        fail("viewer", f"exited {proc.returncode}: {lines[-1:] or ''} {proc.stderr[-3000:]}")
+    say("viewer", f"a fresh process on {smi}, its first frame and first kernel use on the "
+        f"viewer's handler threads, {time.perf_counter() - t0:.1f} s: {lines[-1]}")
+
+
+def profile_app_phase(smi, app) -> None:
+    """[profile-app]: tools/profile.profile_pipeline on the App's pipeline
+    and camera, 5 iterations a stage (CUDA events)."""
+    from direct12pbrrenderer_tpu_torch.tools import profile
+
+    t0 = time.perf_counter()
+    t = profile.profile_pipeline(app.pipeline, app.camera, iters=5)
+    if any(v < 0 for v in t.values()) or list(t)[-1] != "full_frame":
+        fail("profile-app", f"stage timings {t}")
+    total = sum(v for k, v in t.items() if k != "full_frame")
+    say("profile-app", f"tools/profile.profile_pipeline on the App's pipeline, median device ms "
+        f"per stage (CUDA events) on {smi}: " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()
+                                                          if k != "full_frame")
+        + f"; sum of stages {total:.2f}, full_frame {t['full_frame']:.2f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def census_main_phase(smi, tree) -> None:
+    """[census-main]: tools/tap_census.main as a user runs it on the tree, at
+    1440x960 over 8 poses, with the launch counts reset just before: each
+    pose's texture and env censuses raster with kernel H, 16 launches."""
+    from direct12pbrrenderer_tpu_torch.tools import tap_census
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        tap_census.main(["--asset-root", str(tree), "--width", "1440", "--height", "960",
+                         "--poses", "8"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lines = out.getvalue().strip().splitlines()
+    if launches["raster_depth"] != 16 or len(lines) != 17:
+        fail("census-main", f"kernel launches {launches} (want raster_depth 16), {len(lines)} "
+             f"lines printed (want 8 + 8 + 1)")
+    say("census-main", f"tap_census.main --width 1440 --height 960 --poses 8 on {smi} in "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {launches}; {lines[0]}; {lines[8]}; "
+        f"{lines[-1]}")
+
+
+def app_cells(dev, smi, tmp) -> None:
+    """[app-tree], [app], [viewer], [profile-app], [census-main] on a tree
+    under `tmp`."""
+    t0 = time.perf_counter()
+    tree = tmp / "T"
+    info = app_tree(tree, tmp / "src", APP_CELLS, APP_GRID)
+    # the OBJ importer writes three vertices a triangle (it welds none), so
+    # the terrain's 2 cells_x cells_y triangles bring 6 cells_x cells_y
+    # vertices; the console's sphere has 1,472 triangles and 761 vertices
+    n_terrain, n_spheres = APP_CELLS[0] * APP_CELLS[1] * 2, APP_GRID[0] * APP_GRID[1]
+    want = {"models": 1 + n_spheres, "lights": 8, "sky": True, "albedo": True,
+            "tris": n_terrain + n_spheres * 1472, "vertices": 3 * n_terrain + n_spheres * 761}
+    got = {k: info[k] for k in want}
+    if got != want:
+        fail("app-tree", f"tree holds {got}, want {want}")
+    say("app-tree", f"tree T built with the port's console, one process a command, and a Scene "
+        f"JSON at Asset/Scene/main.json: {got}; {info['files']} files, {info['mb']:.1f} MB; "
+        f"console: {' | '.join(info['printed'])}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    app = app_phase(dev, smi, tree, tmp / "frames")
+    say("app", f"{time.perf_counter() - t0:.1f} s")
+    viewer_phase(smi, tree)
+    profile_app_phase(smi, app)
+    del app
+    torch.cuda.empty_cache()
+    census_main_phase(smi, tree)
+    torch.cuda.empty_cache()
 
 
 def light_census(args, kw, counter) -> dict[str, int]:
@@ -2142,6 +2633,10 @@ def main() -> None:
     n_h_assets = asset_auto(dev, cam, smi)
     # H's launches: the depth-only stage call and the asset-auto census's
     launches.update(launches_ptex, raster_depth=n_h + n_h_assets)
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        app_cells(dev, smi, Path(tmp))
     say("profiler", f"kernel traces: {TRACES['complete']} complete, "
         f"{len(TRACES['partial'])} partial ones traced again (kernel held/launched): "
         f"{TRACES['partial']}")

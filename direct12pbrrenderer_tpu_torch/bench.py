@@ -18,11 +18,19 @@ card that raises: the bench never carries on on the CPU):
   n_lights=1024)`, max_lights and max_active_lights 1024, bin_cap 2048,
   atlas_max_dim 256.
 
-Both stress cells look from (0, 6, 18) at yaw pi, pitch 0.35. The reference
-scene, `bench.py`'s own headline, needs the App (ROADMAP module item 6;
-asset-tree loading, item 9, is ported) and the reference asset tree: it is
-reported as not measured, and its
-knobs, `bench.py`'s `--asset-root` and `--texture-filter`, come with it.
+Both stress cells look from (0, 6, 18) at yaw pi, pitch 0.35.
+
+The reference scene, `bench.py`'s own headline: with `--asset-root` (default
+the reference asset tree, `app.DEFAULT_ASSET_ROOT`) holding the App's default scene
+(`Asset/Scene/main.json`), the port's `App` at the AppConfig defaults and
+`--width` x `--height` (tile 24x128, bin_cap 2048, census-sized texture
+caps (92, 44, None, (24, 12)), the cascade (12, 8, 0), raster caps (128,
+64), atlas 1024) is the first cell and the headline, at the App's camera;
+with `--texture-filter` other than trilinear its pipeline is rebuilt with
+that filter and every other knob at its default, as `bench.py` does. The
+stress cells follow as secondary cells, and `--skip-secondary` leaves them
+out. Without the scene, sponza_class is the headline and the reference scene
+reads "not measured" with the path it looked for; nothing stands in for it.
 
 fps: two warm frames of a yaw path (0.002 rad a frame), then `--frames`
 frames on the host clock, with one `torch.cuda.synchronize()` after the last
@@ -37,7 +45,8 @@ prefilter_size, tile, bin_cap, max_active_lights, texture_filter and config)
 and started from its exposure carry. The gate binds on every cell: a cell
 whose rmse exceeds 1e-3 moves its fps and rmse to its `tuned` keys and is
 measured again on the gate-safe configuration (`tex_caps=None,
-use_tex_kernel=False, env_budget=None`, the raster kernel kept), reported as
+use_tex_kernel=False, env_budget=None`, the raster kernel kept at its default
+two-pass caps, as `bench.py` re-measures), reported as
 `fidelity_fallback: "xla-samplers"`, with its FrameStats counters collected
 anew. A gate that still fails reads "FAIL", and the command exits non-zero.
 Nothing is caught: a kernel that fails to build or launch raises.
@@ -55,8 +64,10 @@ import time
 import numpy as np
 import torch
 
+from .app.app import DEFAULT_ASSET_ROOT, App, AppConfig
 from .config import RenderConfig
 from .pipeline.deferred import DeferredRenderPipeline
+from .resource.loader import ResourceLoader
 from .scene.camera import Camera
 from .tools.stress_scene import build_stress_scene
 from .tools.tiny_scene import tiny_pipeline
@@ -65,7 +76,6 @@ from .tools.tiny_scene import tiny_pipeline
 BASELINE_FPS = 60.0
 RMSE_BAR = 1e-3   # uint8/255 frame rmse against the all-plain pipeline
 SMOKE_FRAMES = 4
-REFERENCE_SCENE = "not measured: needs the App (ROADMAP module item 6) and the reference assets"
 # the FrameStats counters a cell reports, collected anew after a fallback
 STAT_KEYS = ("tex_approx_taps", "env_approx_taps", "bin_overflow", "visible_lights",
              "light_tile_overflow")
@@ -86,8 +96,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--smoke", action="store_true",
                     help="tiny synthetic scene + small frame (CI / CPU smoke run)")
+    ap.add_argument("--asset-root", default=DEFAULT_ASSET_ROOT,
+                    help="asset tree of the reference-scene cell (the App's default scene)")
+    ap.add_argument("--texture-filter", default="trilinear",
+                    choices=["trilinear", "bilinear", "anisotropic"],
+                    help="the reference-scene cell's texture filter")
     ap.add_argument("--skip-secondary", action="store_true",
-                    help="the headline cell only (skip the 1k-light run)")
+                    help="the headline cell only (skip the secondary stress cells)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda; cpu for a CPU run)")
     args = ap.parse_args(argv)
@@ -102,18 +117,33 @@ def main(argv=None) -> dict:
         result = _headline(_measure_cell(pipe, cam, frames), "",
                            f"synthetic sphere scene @ {cfg.width}x{cfg.height}")
         result["vs_baseline_scene"] = "synthetic_sphere"
+        result["reference_scene_vs_baseline"] = None
+        result["reference_scene"] = "not measured: --smoke"
     else:
         frames = args.frames or 32
-        sponza = _stress_bench(args, frames)
-        result = _headline(sponza, "sponza_class_",
-                           f"Sponza-class stress scene ({sponza['sponza_class_triangles']:,} "
-                           f"triangles) @ {args.width}x{args.height}")
-        result.update(sponza)
-        if not args.skip_secondary:
-            result.update(_lights1k_bench(args, frames))
-        result["vs_baseline_scene"] = "sponza_class"
-    result["reference_scene_vs_baseline"] = None
-    result["reference_scene"] = REFERENCE_SCENE
+        scene_file = ResourceLoader(args.asset_root).resolve(AppConfig.scene, ".json")
+        has_reference = scene_file.exists()
+        if has_reference:
+            result = _headline(_reference_bench(args, frames), "",
+                               f"reference scene @ {args.width}x{args.height}")
+            result.update(reference_scene_vs_baseline=result["vs_baseline"],
+                          reference_scene=str(scene_file), vs_baseline_scene="reference_scene")
+        if not (has_reference and args.skip_secondary):
+            sponza = _stress_bench(args, frames)
+            if not has_reference:
+                result = _headline(
+                    sponza, "sponza_class_",
+                    f"Sponza-class stress scene ({sponza['sponza_class_triangles']:,} "
+                    f"triangles) @ {args.width}x{args.height}")
+                result.update(reference_scene_vs_baseline=None,
+                              reference_scene=f"not measured: no scene at {scene_file}")
+            result.update(sponza)
+            # vs_baseline against the scene the baseline names, as bench.py
+            # computes it; the reference scene's ratio stays beside it
+            result["vs_baseline"] = sponza["sponza_class_fps"] / BASELINE_FPS
+            result["vs_baseline_scene"] = "sponza_class"
+            if not args.skip_secondary:
+                result.update(_lights1k_bench(args, frames))
     result["device"] = _device_label(device)
     print(json.dumps(result))
     return result
@@ -207,14 +237,16 @@ def _fidelity_gate(pipe, cam, tol: float = RMSE_BAR) -> tuple[float, str]:
 def _gate_safe_pipeline(pipe) -> DeferredRenderPipeline:
     """`pipe`'s scene and knobs with the texture and env taps through the
     plain samplers (`tex_caps=None, use_tex_kernel=False, env_budget=None`);
-    the raster kernel, and the tiled lights where `pipe` has them, stay."""
+    the raster kernel, and the tiled lights where `pipe` has them, stay.
+    The raster's two-pass split takes its default caps, as in `bench.py`'s
+    re-measure (the reference cell's tuned `raster_caps` are left out)."""
     return DeferredRenderPipeline(
         pipe.scene, pipe.config, tile_h=pipe.tile_h, tile_w=pipe.tile_w,
         bin_cap=pipe.bin_cap, atlas_max_dim=pipe.atlas_max_dim,
         prefilter_size=pipe.prefilter_size, brdf_lut_size=pipe.brdf_lut_size,
         use_pallas=pipe.use_pallas, use_tex_kernel=False,
         texture_filter=pipe.texture_filter, max_active_lights=pipe.max_active_lights,
-        tex_caps=None, env_budget=None, raster_caps=pipe.raster_caps, device=pipe.device)
+        tex_caps=None, env_budget=None, device=pipe.device)
 
 
 def _measure_cell(pipe, cam, frames: int) -> dict:
@@ -252,6 +284,19 @@ def _bench_camera(cfg: RenderConfig) -> Camera:
     cam.move([0, 6, 18])
     cam.rotate(0, np.pi, 0.35)
     return cam
+
+
+def _reference_bench(args, frames: int = 32) -> dict:
+    """The reference scene through the port's App at the AppConfig defaults
+    and --width x --height, at the App's camera: the cell's fps, counters
+    and gate (`_measure_cell`)."""
+    app = App(AppConfig(asset_root=args.asset_root, width=args.width, height=args.height,
+                        frames=frames, device=args.device))
+    pipe = app.pipeline
+    if args.texture_filter != "trilinear":
+        pipe = DeferredRenderPipeline(app.scene, pipe.config,
+                                      texture_filter=args.texture_filter, device=args.device)
+    return _measure_cell(pipe, app.camera, frames)
 
 
 def _stress_bench(args, frames: int = 32, cells: tuple[int, int] = (512, 256)) -> dict:

@@ -5,18 +5,21 @@ library with a plain C interface and loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use into
 `build/kernels/` at the repository root (git-ignored), keyed on a hash of
 the source, the local headers it includes and the flags, so an edited
-source or header is rebuilt and an unchanged one is reused.
+source or header is rebuilt and an unchanged one is reused. The first use
+may come from any thread (the viewer renders on its HTTP handler threads):
+`load` builds and loads each library once per process under a lock, and a
+build writes a temporary file of its own process.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -82,7 +85,17 @@ def build(name: str) -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
-@functools.cache
+_LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load `csrc/<name>.cu`'s library (once per process)."""
-    return ctypes.CDLL(str(build(name)[0]))
+    """Build if needed, then load `csrc/<name>.cu`'s library (once per
+    process, whichever thread comes first; the others wait for it)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                lib = _LOADED[name] = ctypes.CDLL(str(build(name)[0]))
+    return lib

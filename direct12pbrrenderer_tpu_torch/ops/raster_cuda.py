@@ -50,29 +50,42 @@ def pack_raster_rows(setup: raster.TriangleSetup) -> torch.Tensor:
     return torch.cat([e[:, 0:2], ec0[:, None], e[:, 3:9], setup.z, setup.w_clip, tri_id], 1)
 
 
-def raster_extents(setup: raster.TriangleSetup) -> torch.Tensor:
+def raster_extents(setup: raster.TriangleSetup, viewport=None) -> torch.Tensor:
     """(T, 4) [xmin, ymin, xmax, ymax]: the conservative integer screen AABB
     (binning's) that the kernels' band and per-warp rejects test; -3e38 for
     an invalid triangle, whose xmax then exceeds no pixel edge, so it meets
-    no rectangle."""
-    return torch.where(setup.valid[:, None], setup.aabb, -3e38)
+    no rectangle.
+
+    `setup_triangles` clamps the AABB to the viewport it was given, but a
+    canvas padded up to the tile grid (the App's 1440x960 on 1536x960) goes
+    on past the viewport's right and bottom edges, where the plain fold
+    still covers pixels. So with `viewport` (width, height) given, a max at
+    or past its edge is opened to 3e38."""
+    aabb = setup.aabb
+    if viewport is not None:
+        x1, y1 = aabb[:, 2], aabb[:, 3]
+        aabb = torch.stack([aabb[:, 0], aabb[:, 1], torch.where(x1 >= viewport[0], 3e38, x1),
+                            torch.where(y1 >= viewport[1], 3e38, y1)], 1)
+    return torch.where(setup.valid[:, None], aabb, -3e38)
 
 
-def pack_rows64(setup: raster.TriangleSetup, payload: torch.Tensor) -> torch.Tensor:
+def pack_rows64(setup: raster.TriangleSetup, payload: torch.Tensor,
+                viewport=None) -> torch.Tensor:
     """Kernel A's (T, 64) per-triangle row: [raster row 16 | payload 40
     (material 16, vertex attr rows 24) | AABB 4 (`raster_extents`) | pad 4]."""
     pad = torch.zeros((setup.edges.shape[0], 4), dtype=torch.float32, device=payload.device)
-    return torch.cat([pack_raster_rows(setup), payload, raster_extents(setup), pad], 1)
+    return torch.cat([pack_raster_rows(setup), payload, raster_extents(setup, viewport), pad],
+                     1)
 
 
-def pack_depth_rows(setup: raster.TriangleSetup) -> torch.Tensor:
+def pack_depth_rows(setup: raster.TriangleSetup, viewport=None) -> torch.Tensor:
     """Kernel H's (T, 20) per-triangle row, in two launches: [edges 9, z 3,
     w 3 (`pack_raster_rows`' columns 0:15) | a copy of w2, not read | AABB 4
     (`raster_extents`)], every column -3e38 for an invalid triangle (its AABB
     meets nothing, so its row is never read)."""
     t = setup.edges.shape[0]
     row = torch.cat([setup.edges.reshape(t, 9), setup.z, setup.w_clip, setup.w_clip[:, 2:],
-                     setup.aabb], 1)
+                     raster_extents(setup, viewport)], 1)
     return torch.where(setup.valid[:, None], row, -3e38)
 
 
@@ -241,17 +254,19 @@ def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_sm
 
 def rasterize_depth(setup: raster.TriangleSetup, bins: raster.Bins, width: int, height: int,
                     tile_h: int, tile_w: int, y_offset=0, cap_small: int | None = None,
-                    hot_k: int | None = None):
+                    hot_k: int | None = None, viewport=None):
     """Depth-only raster (kernel H): -> (tri_id (H, W) int32 [-1 background],
     z (H, W) f32 [1.0 background]), the outputs of raster.rasterize, with the
     TPU kernel's two-pass list limits (every tile folds its first cap_small
-    entries, the hot_k fullest their full list)."""
+    entries, the hot_k fullest their full list). `viewport`: the (width,
+    height) that `setup` was made at, where the canvas is padded past it
+    (`raster_extents`)."""
     if setup.edges.device.type == "cpu":
         return rasterize_depth_reference(setup, bins, width, height, tile_h, tile_w,
                                          y_offset, cap_small, hot_k)
     if setup.edges.device.type != "cuda":
         raise ValueError(f"rasterize_depth: unsupported device {setup.edges.device}")
-    rows = pack_depth_rows(setup)
+    rows = pack_depth_rows(setup, viewport)
     num_tiles, cap = _check_raster_args(rows, width, height, tile_h, tile_w, bins, 20)
     cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)
     ids, counts = bins.ids.contiguous(), bins.counts.contiguous()
@@ -297,9 +312,11 @@ def _library(name: str) -> ctypes.CDLL:
 
 def rasterize_depth_reference(setup: raster.TriangleSetup, bins: raster.Bins, width: int,
                               height: int, tile_h: int, tile_w: int, y_offset=0,
-                              cap_small: int | None = None, hot_k: int | None = None):
+                              cap_small: int | None = None, hot_k: int | None = None,
+                              viewport=None):
     """Plain PyTorch version of kernel H: the plain chunked rasterizer on the
-    bin lists cut to the two-pass limits (padding past each tile's limit)."""
+    bin lists cut to the two-pass limits (padding past each tile's limit).
+    It has no AABB rejects, so `viewport` changes nothing."""
     num_tiles = (height // tile_h) * (width // tile_w)
     cap = bins.ids.shape[1]
     cap_small, hot_k = resolve_caps(cap, num_tiles, cap_small, hot_k)

@@ -318,7 +318,7 @@ class DeferredRenderPipeline:
                 # the G-buffer tile blocks, the (H, W) planes are for parity
                 tri_id, depth, pl_tiles, id_tiles, z_tiles = stages.rasterize_interp(
                     setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
-                    return_tiled=True, raster_caps=self.raster_caps)
+                    return_tiled=True, raster_caps=self.raster_caps, viewport=(w, h))
                 out = gbuffer.gbuffer_shade_fused(
                     tri_id, depth, pl_tiles, id_tiles, env["atlas"], rh, rw, self.tile_h,
                     self.tile_w, self.texture_filter, tex_caps=self.tex_caps,
@@ -343,7 +343,7 @@ class DeferredRenderPipeline:
                 # winning row is gathered once per pixel inside the kernel
                 tri_id, depth, planes = stages.rasterize_interp(
                     setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
-                    raster_caps=self.raster_caps)
+                    raster_caps=self.raster_caps, viewport=(w, h))
                 gb = gbuffer.gbuffer_shade_planar(
                     tri_id, depth, planes, env["atlas"], self.texture_filter,
                     use_tex_kernel=self.use_tex_kernel, tex_caps=self.tex_caps,
@@ -351,7 +351,8 @@ class DeferredRenderPipeline:
             else:
                 tri_id, depth = stages.rasterize(setup, bins, rw, rh, self.tile_h,
                                                  self.tile_w, self.use_pallas,
-                                                 raster_caps=self.raster_caps)
+                                                 raster_caps=self.raster_caps,
+                                                 viewport=(w, h))
                 gb = stages.gbuffer_shade(
                     tri_id, depth, setup, env, vattrs, rw, rh,
                     texture_filter=self.texture_filter, use_tex_kernel=self.use_tex_kernel,

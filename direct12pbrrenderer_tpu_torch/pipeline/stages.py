@@ -41,34 +41,38 @@ def binning(setup, width: int, band_h: int, tile_h: int, tile_w: int, bin_cap: i
 
 
 def rasterize(setup, bins, width: int, band_h: int, tile_h: int, tile_w: int,
-              use_pallas: bool, y_offset=0, raster_caps: tuple | None = None):
+              use_pallas: bool, y_offset=0, raster_caps: tuple | None = None, viewport=None):
     """Depth-only raster: (tri_id, z). With use_pallas, the depth-only kernel
     (kernel H) with the two-pass list limits `raster_caps` (cap_small,
-    hot_k); otherwise the plain chunked fold over the whole lists."""
+    hot_k); otherwise the plain chunked fold over the whole lists.
+    `viewport`: the (width, height) `setup` was made at, where the canvas is
+    padded past it (`raster_cuda.raster_extents`)."""
     if use_pallas:
         cs, hk = raster_caps if raster_caps is not None else (None, None)
         return raster_cuda.rasterize_depth(setup, bins, width, band_h, tile_h, tile_w,
-                                           y_offset=y_offset, cap_small=cs, hot_k=hk)
+                                           y_offset=y_offset, cap_small=cs, hot_k=hk,
+                                           viewport=viewport)
     return raster.rasterize(setup, bins, width, band_h, tile_h, tile_w, y_offset=y_offset)
 
 
-def pack_rows64(setup, buffers, vattrs):
+def pack_rows64(setup, buffers, vattrs, viewport=None):
     """The (T, 64) per-triangle row shared by both G-buffer paths
     (raster_cuda.pack_rows64) with the triangle's material row and its three
     vertices' attribute rows as payload."""
     t = setup.edges.shape[0]
     payload = torch.cat([buffers["mat_rows"][buffers["tri_material"].long()],
                          vattrs[buffers["tris"].long()].reshape(t, 24)], dim=1)
-    return raster_cuda.pack_rows64(setup, payload)
+    return raster_cuda.pack_rows64(setup, payload, viewport)
 
 
 def rasterize_interp(setup, bins, buffers, vattrs, width: int, band_h: int, tile_h: int,
                      tile_w: int, y_offset=0, return_tiled: bool = False,
-                     raster_caps: tuple | None = None):
+                     raster_caps: tuple | None = None, viewport=None):
     """Fused raster + attribute interpolation (kernel A): (tri_id, depth,
     planes (24, band_h, width)); with return_tiled, (tri_id, depth, pl_tiles,
-    id_tiles, z_tiles) tile blocks for the fused G-buffer and deferred passes."""
-    rows64 = pack_rows64(setup, buffers, vattrs)
+    id_tiles, z_tiles) tile blocks for the fused G-buffer and deferred passes.
+    `viewport`: as in `rasterize`."""
+    rows64 = pack_rows64(setup, buffers, vattrs, viewport)
     cs, hk = raster_caps if raster_caps is not None else (None, None)
     return raster_cuda.rasterize_interp(setup, bins, rows64, width, band_h, tile_h, tile_w,
                                         y_offset=y_offset, cap_small=cs, hot_k=hk,

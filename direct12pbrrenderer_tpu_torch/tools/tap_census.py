@@ -17,10 +17,16 @@ Differences from the JAX package's module:
 * `census_for_pose` and `env_census_for_pose` pass the band height and
   y_offset 0 of the port's `stages` signatures;
 * the env atlas is the pipeline's `buffers["EnvCache"]`;
-* `main()` is not ported: it builds the `App` (ROADMAP module item 6).
+* `main()` takes `--device` (default `cuda`) for the port's `App`.
+
+    python -m direct12pbrrenderer_tpu_torch.tools.tap_census --asset-root DIR \
+        [--width W --height H] [--poses N] [--headroom X] [--device D]
 """
 
 from __future__ import annotations
+
+import argparse
+import json
 
 import numpy as np
 import torch
@@ -110,3 +116,62 @@ def run_census(pipe, camera, poses: int = 8, yaw_sweep_deg: float = 360.0,
         if getattr(pipe, "env_ids", None) is not None:
             env_results.append(env_census_for_pose(pipe, camera))
     return results, texcache.recommend_caps(results, headroom=headroom), env_results
+
+
+def main(argv=None):
+    from ..app.app import DEFAULT_ASSET_ROOT, App, AppConfig
+    from ..ops import envcache, texcache
+
+    ap = argparse.ArgumentParser(
+        prog="python -m direct12pbrrenderer_tpu_torch.tools.tap_census")
+    ap.add_argument("--asset-root", default=DEFAULT_ASSET_ROOT)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--poses", type=int, default=8)
+    ap.add_argument("--headroom", type=float, default=1.5)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to render on (default cuda; cpu for a CPU run)")
+    args = ap.parse_args(argv)
+
+    app = App(
+        AppConfig(
+            asset_root=args.asset_root,
+            width=args.width,
+            height=args.height,
+            bin_cap=2048,
+            tile_h=24,
+            tile_w=128,
+            device=args.device,
+        )
+    )
+    censuses, caps, env_censuses = run_census(
+        app.pipeline, app.camera, poses=args.poses, headroom=args.headroom
+    )
+    for i, c in enumerate(censuses):
+        print(f"pose {i}: lo max={c['lo']['max']} p99={c['lo']['p99']} "
+              f"mean={c['lo']['mean']:.1f} | hi max={c['hi']['max']} "
+              f"p99={c['hi']['p99']} mean={c['hi']['mean']:.1f} | "
+              f"tile_total max={c['tile_total']['max']} "
+              f"p99={c['tile_total']['p99']} "
+              f"mean={c['tile_total']['mean']:.0f}")
+    for i, c in enumerate(env_censuses):
+        print(f"env pose {i}: group max={c['group']['max']} "
+              f"p99={c['group']['p99']} mean={c['group']['mean']:.1f} | "
+              f"tile_total max={c['tile_total']['max']} "
+              f"p99={c['tile_total']['p99']} "
+              f"mean={c['tile_total']['mean']:.0f}")
+    result = {
+        "cap_lo": caps[0], "cap_hi": caps[1],
+        "stage_budget": texcache.recommend_budget(censuses, headroom=args.headroom),
+        "env_budget": envcache.recommend_budget(
+            env_censuses, headroom=args.headroom
+        ) if env_censuses else None,
+        "headroom": args.headroom, "poses": args.poses,
+        "width": args.width, "height": args.height,
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

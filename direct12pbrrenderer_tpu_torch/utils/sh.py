@@ -8,7 +8,10 @@ deterministic quadrature over the cubemap texels (per-texel solid angle
 weights) — same integral, no sampling noise, and fully vectorized.
 
 The shader consumes the pack as 7 float4s (global.hlsli:27-36) and evaluates
-irradiance as in deferred_shading.hlsl:23-54 (ops/shading.py)."""
+irradiance as in deferred_shading.hlsl:23-54 (ops/shading.py);
+`eval_irradiance` mirrors that shader path on the host (the console's
+GenerateIrradianceMap; the CPU debug path SH.cpp:224-238 drops the
+xy/yz/zx terms, a known reference quirk)."""
 
 from __future__ import annotations
 
@@ -149,3 +152,29 @@ def pack_sh_coefficients(coeffs: np.ndarray) -> SH2CoefficientsPack:
 def generate_sh_coefficients(cubemap) -> SH2CoefficientsPack:
     """CubeMapTextureData::GenerateSHCoefficients equivalent."""
     return pack_sh_coefficients(project_environment_map(cubemap.face_arrays(0)))
+
+
+def eval_irradiance(pack: SH2CoefficientsPack, normals: np.ndarray) -> np.ndarray:
+    """Evaluate packed SH irradiance for (..., 3) normals — the *shader* path
+    (deferred_shading.hlsl:23-47), including all five band-2 terms."""
+    n = np.asarray(normals, dtype=np.float32)
+    a = np.concatenate([n, np.ones_like(n[..., :1])], axis=-1)  # (x,y,z,1)
+    x, y, z = n[..., 0], n[..., 1], n[..., 2]
+    b = np.stack([x * y, y * z, z * z, z * x], axis=-1)  # normal.xyzz * normal.yzzx
+    c = x * x - y * y
+    l0l1 = np.stack(
+        [a @ pack.sha_r, a @ pack.sha_g, a @ pack.sha_b], axis=-1
+    )
+    l2 = np.stack([b @ pack.shb_r, b @ pack.shb_g, b @ pack.shb_b], axis=-1)
+    l2 = l2 + np.stack([pack.shc[0] * c, pack.shc[1] * c, pack.shc[2] * c], axis=-1)
+    return l0l1 + l2
+
+
+def generate_irradiance_map(cubemap, map_size: int) -> np.ndarray:
+    """SHBaker::GenerateIrradianceMap equivalent -> (6, S, S, 3) float32.
+
+    Uses the shader evaluation path (CalcIrradiance2-complete), see module
+    docstring for the reference quirk."""
+    pack = generate_sh_coefficients(cubemap)
+    dirs, _ = cubemap_texel_directions_and_weights(map_size)
+    return eval_irradiance(pack, dirs.astype(np.float32))

@@ -3,6 +3,13 @@
 * `--smoke --device cpu` prints one JSON line with `bench.py`'s smoke keys
   plus `device` and `reference_scene`; without `--device` and with no card
   it raises.
+* The reference-scene cell: `--asset-root` and `--texture-filter` are
+  accepted with `bench.py`'s choices. On a console-built tree holding the
+  App's default scene the port's App at the AppConfig defaults (at 256x96,
+  one frame, its pipeline and the gate's with a 32x32 BRDF LUT) is the
+  headline, measured with its binding gate, with either filter; the stress
+  cells follow unless `--skip-secondary`. Without the scene the cell reads
+  "not measured" with the path it looked for (the stress cells stubbed).
 * `tools.tiny_scene.tiny_pipeline` renders `__graft_entry__._tiny_pipeline`'s
   frame.
 * Knob parity with the repo's `bench.py`: its pipeline class and
@@ -24,6 +31,7 @@
 import argparse
 import dataclasses
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -35,9 +43,14 @@ import chip_smoke
 import direct12pbrrenderer_tpu.pipeline.deferred as jax_deferred
 import direct12pbrrenderer_tpu.tools.stress_scene as jax_stress
 from direct12pbrrenderer_tpu_torch import bench
+from direct12pbrrenderer_tpu_torch.app import app
 from direct12pbrrenderer_tpu_torch.config import RenderConfig
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, FrameStats
+from direct12pbrrenderer_tpu_torch.resource import loader as tloader
 from direct12pbrrenderer_tpu_torch.tools import tiny_scene
+from test_torch_app import small_lut
+from test_torch_assets import _write_sources
+from test_torch_console import console_tree
 
 torch.set_num_threads(2)
 SMOKE_KEYS = {"metric", "value", "unit", "vs_baseline", "per_call_loop_fps", "headline_method",
@@ -66,14 +79,99 @@ def test_no_card_raises(monkeypatch):
         bench.main(["--smoke"])
 
 
+def stub_stress_cells(monkeypatch) -> list[str]:
+    """Replaces the two stress cells by stubs that return fixed cells;
+    returns the names of the cells called, in order."""
+    called = []
+
+    def stub(name, out):
+        def cell(args, frames):
+            called.append(name)
+            return dict(out)
+        monkeypatch.setattr(bench, name, cell)
+
+    stub("_stress_bench", {"sponza_class_triangles": 2, "sponza_class_fps": 30.0,
+                           "sponza_class_rmse_gate": "pass"})
+    stub("_lights1k_bench", {"lights1k_fps": 20.0, "lights1k_rmse_gate": "pass"})
+    return called
+
+
 @pytest.mark.parametrize("flag", [["--asset-root", "assets"], ["--texture-filter", "bilinear"]],
                          ids=["asset-root", "texture-filter"])
-def test_reference_scene_flags_are_rejected(flag, capsys):
-    # the reference-scene cell's knobs come with that cell: until then a run
-    # that passes them fails rather than measuring something else
+def test_reference_scene_flags_are_rejected(flag, tmp_path, monkeypatch, capsys):
+    # bench.py's reference-scene flags are accepted, with bench.py's choices
+    # (a filter outside them is rejected); without the App's scene under the
+    # asset root the cell reads "not measured" with the path it looked for,
+    # nothing stands in for it, and sponza_class is the headline
+    called = stub_stress_cells(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    result = bench.main(["--device", "cpu", "--frames", "1", *flag])
+    root = pathlib.Path("assets" if flag[0] == "--asset-root" else app.DEFAULT_ASSET_ROOT)
+    assert result["reference_scene"] == \
+        f"not measured: no scene at {root / 'Asset/Scene/main.json'}"
+    assert result["reference_scene_vs_baseline"] is None
+    assert result["vs_baseline_scene"] == "sponza_class" and result["value"] == 30.0
+    assert called == ["_stress_bench", "_lights1k_bench"]
     with pytest.raises(SystemExit) as exc:
-        bench.main(["--smoke", "--device", "cpu", *flag])
-    assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+        bench.main(["--device", "cpu", "--texture-filter", "nearest"])
+    assert exc.value.code == 2 and "invalid choice" in capsys.readouterr().err
+
+
+@pytest.fixture
+def reference_tree(tmp_path, monkeypatch):
+    """A console-built tree (`test_torch_console.console_tree`) with the
+    App's default scene; the App's and the bench's pipelines take a 32x32
+    BRDF LUT (the App's 512x512 one takes about 30 s on two CPU threads)."""
+    src = tmp_path / "src"
+    _write_sources(src)
+    old = tloader.ResourceLoader._instance
+    root = console_tree("port", src, tmp_path / "tree")
+    small_lut(monkeypatch, app)
+    small_lut(monkeypatch, bench)
+    yield root
+    tloader.ResourceLoader._instance = old
+
+
+@pytest.mark.parametrize("texture_filter", ["trilinear", "bilinear"])
+def test_reference_scene_cell_is_measured_with_its_gate(reference_tree, monkeypatch, capsys,
+                                                        texture_filter):
+    called = stub_stress_cells(monkeypatch)
+    built = []
+    real_app = bench.App
+
+    def app_and_record(cfg):
+        built.append(real_app(cfg))
+        return built[-1]
+
+    monkeypatch.setattr(bench, "App", app_and_record)
+    result = bench.main(["--asset-root", str(reference_tree), "--device", "cpu", "--frames", "1",
+                         "--width", "256", "--height", "96", "--skip-secondary",
+                         "--texture-filter", texture_filter])
+    assert _last_json(capsys) == result and called == []
+    assert result["reference_scene"] == str(reference_tree / "Asset/Scene/main.json")
+    assert result["metric"] == "deferred PBR frame rate, reference scene @ 256x96"
+    assert result["vs_baseline_scene"] == "reference_scene"
+    assert result["value"] > 0 and result["reference_scene_vs_baseline"] == result["vs_baseline"]
+    assert result["rmse_gate"] == "pass" and result["rmse_vs_xla"] <= 1e-3
+    assert "fidelity_fallback" not in result and bench.failed_gates(result) == []
+    assert (result["bin_overflow"], result["tex_approx_taps"], result["env_approx_taps"]) == \
+        (0, 0, 0)
+    (a,) = built   # the App at the AppConfig defaults but the size and the frames
+    want = dataclasses.replace(app.AppConfig(), asset_root=str(reference_tree), width=256,
+                               height=96, frames=1, device="cpu")
+    assert a.cfg == want
+
+
+def test_reference_scene_cell_leads_the_secondary_cells(reference_tree, monkeypatch):
+    called = stub_stress_cells(monkeypatch)
+    monkeypatch.setattr(bench, "_reference_bench", lambda args, frames: {
+        "fps": 12.0, "rmse": 0.0, "rmse_gate": "pass", "bin_overflow": 0,
+        "tex_approx_taps": 0, "env_approx_taps": 0})
+    result = bench.main(["--asset-root", str(reference_tree), "--device", "cpu"])
+    assert called == ["_stress_bench", "_lights1k_bench"]
+    assert result["value"] == 12.0 and result["reference_scene_vs_baseline"] == 12.0 / 60.0
+    assert result["vs_baseline"] == 30.0 / 60.0 and result["vs_baseline_scene"] == "sponza_class"
+    assert result["lights1k_fps"] == 20.0 and result["sponza_class_fps"] == 30.0
 
 
 def test_tiny_pipeline_matches_graft_entry():
@@ -302,3 +400,23 @@ def test_chip_smoke_bench_faults(planted, want):
     assert len(faults) == len(want)
     for fault, start in zip(faults, want):
         assert fault.startswith(start), fault
+
+
+def test_gate_safe_pipeline_takes_the_default_raster_caps():
+    # as bench.py's re-measure builds it: the plain samplers, the raster
+    # kernel at its default two-pass caps (the tuned raster_caps left out)
+    pipe, _, _ = tiny_scene.tiny_pipeline("cpu")
+    pipe.raster_caps, pipe.tex_caps, pipe.env_budget = (128, 4), (92, 44), 64
+    safe = bench._gate_safe_pipeline(pipe)
+    assert safe.raster_caps is None and safe.tex_caps is None and safe.env_budget is None
+    assert not safe.use_tex_kernel and safe.use_pallas == pipe.use_pallas
+
+
+def test_chip_smoke_fail_names_the_phase_on_both_streams(capsys):
+    """A failed phase exits 1 and names itself on stdout and on stderr, so a
+    run whose stderr alone is kept still says which check failed."""
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.fail("lights1k", "planted")
+    out, err = capsys.readouterr()
+    assert exc.value.code == 1
+    assert out == err == "[lights1k] FAIL planted\n"

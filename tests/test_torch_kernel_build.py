@@ -1,9 +1,13 @@
 """The kernels' build keys (`kernels/build.py`), on the CPU: a library is
 keyed on its `.cu` source and every local header that source includes,
 transitively, so an edit to a shared header rebuilds exactly the kernels
-that use it. No compiler is run."""
+that use it. No CUDA compiler is run: the first-use test stands a script
+that links an empty library with g++ in for nvcc, and checks that a first
+use from many threads at once (the viewer renders on its HTTP handler
+threads) builds once and hands every thread the same library."""
 
 import shutil
+import threading
 
 import pytest
 
@@ -57,3 +61,40 @@ def test_shared_header_edit_rekeys_exactly_its_users(header, tmp_path, monkeypat
         f.write("// edited\n")
     after = {name: build.library_path(name) for name in SOURCES}
     assert {n for n in SOURCES if before[n] != after[n]} == set(SHARED[header])
+
+
+def test_first_use_from_many_threads_builds_once(tmp_path, monkeypatch):
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(f"""#!/bin/sh
+echo "$$" >> {calls}
+sleep 0.3
+while [ "$1" != "-o" ]; do shift; done
+exec g++ -shared -fPIC -x c /dev/null -o "$2"
+""")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LOADED", {})
+    n = 8
+    barrier = threading.Barrier(n)
+    libs, errors = [], []
+
+    def first_use():
+        barrier.wait()
+        try:
+            libs.append(build.load("fused_cover"))
+        except Exception as e:  # noqa: BLE001 — reported by the assertion below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and len(libs) == n
+    assert all(lib is libs[0] for lib in libs)
+    assert len(calls.read_text().splitlines()) == 1
+    assert sorted(build.BUILD_DIR.iterdir()) == [build.library_path("fused_cover")]

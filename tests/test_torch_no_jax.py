@@ -5,8 +5,9 @@ tests/conftest.py imports jax into the test process, so the frames (the
 default path on an accelerator, the 1024-light path and the planar
 texture-cache path) are rendered in a fresh interpreter from the port's own
 scene and camera, which then reports whether jax or the JAX package was ever
-imported; the bench's smoke run and the asset loader, the census tools and
-the native library are imported the same way.
+imported; the bench's smoke run, the App's command line on a console-built
+tree, and the asset loader, the census tools and the native library are
+imported the same way.
 """
 
 import json
@@ -127,17 +128,21 @@ def test_bench_smoke_runs_without_importing_jax():
 def test_package_sources_name_no_jax():
     # `\b` does not end a name before "_torch": the port's own imports pass
     pat = re.compile(r"^\s*(import|from) (jax|direct12pbrrenderer_tpu)\b", re.M)
-    offenders = [str(p.relative_to(REPO)) for p in [*PACKAGE.rglob("*.py"),
-                                                    REPO / "chip_smoke.py"]
-                 if pat.search(p.read_text())]
+    sources = [*PACKAGE.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in sources if pat.search(p.read_text())]
     assert offenders == []
+    # the App, its console and viewer, and the tools are among the files read
+    names = {p.relative_to(PACKAGE).as_posix() for p in sources if PACKAGE in p.parents}
+    assert {"app/__init__.py", "app/__main__.py", "app/app.py", "app/console.py",
+            "app/viewer.py", "tools/profile.py", "tools/tap_census.py"} <= names
     # every kernel wrapper launches or raises: no fallback to the plain version
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
                  "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two"):
         assert "except" not in (PACKAGE / "ops" / f"{name}.py").read_text(), name
     # the bench and its helpers, the census and the asset path let every
     # failure through (a missing blob is an explicit check, not a handler)
-    for path in ("bench.py", "tools/tiny_scene.py", "utils/fidelity.py",
+    for path in ("bench.py", "app/app.py", "app/__main__.py", "tools/profile.py",
+                 "tools/tiny_scene.py", "utils/fidelity.py",
                  "tools/tap_census.py", "pipeline/deferred.py", "resource/loader.py",
                  "resource/bc.py", "resource/native_codec.py", "resource/resources.py",
                  "resource/serialization.py", "resource/reflection_def.py",
@@ -148,6 +153,14 @@ def test_package_sources_name_no_jax():
     threading_src = (PACKAGE / "utils" / "threading.py").read_text()
     assert re.findall(r"^\s*except\b.*$", threading_src, re.M) == [
         "            except BaseException as e:  # noqa: BLE001 — propagate via future"]
+    # the console's REPL takes argparse's exit on a bad line; the viewer reads
+    # a malformed input body as no input and stops on an interrupt
+    handlers = {name: re.findall(r"^\s*except\b.*$", (PACKAGE / "app" / name).read_text(), re.M)
+                for name in ("console.py", "viewer.py")}
+    assert handlers == {
+        "console.py": ["            except SystemExit:  # argparse has printed the usage error"],
+        "viewer.py": ["            except json.JSONDecodeError:",
+                      "    except KeyboardInterrupt:"]}
 
 
 def test_loader_and_census_import_without_jax():
@@ -167,3 +180,49 @@ def test_loader_and_census_import_without_jax():
     assert "direct12pbrrenderer_tpu_torch.resource.reflection_def" in imported
     assert "direct12pbrrenderer_tpu_torch.native" in imported
     assert [m for m in imported if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []
+
+
+_APP_MAIN = r"""
+import runpy
+import sys
+import torch
+torch.set_num_threads(2)
+from direct12pbrrenderer_tpu_torch.app import app
+
+class SmallLut(app.DeferredRenderPipeline):   # the App's 512x512 LUT takes ~30 s here
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **{**kwargs, "brdf_lut_size": 32})
+
+app.DeferredRenderPipeline = SmallLut
+sys.argv = ["direct12pbrrenderer_tpu_torch.app", *sys.argv[1:]]
+runpy.run_module("direct12pbrrenderer_tpu_torch.app", run_name="__main__", alter_sys=True)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu"))
+print("imported:", bad)
+"""
+
+
+def test_app_command_line_runs_without_importing_jax(tmp_path):
+    from direct12pbrrenderer_tpu_torch.resource import loader as tloader
+    from test_torch_assets import _write_sources
+    from test_torch_console import console_tree
+
+    old = tloader.ResourceLoader._instance
+    _write_sources(tmp_path / "src")
+    root = console_tree("port", tmp_path / "src", tmp_path / "tree")
+    tloader.ResourceLoader._instance = old
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c", _APP_MAIN, "--asset-root",
+                           str(root), "--width", "64", "--height", "48", "--frames", "2",
+                           "--out", str(tmp_path / "frames"), "--device", "cpu"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    *_, report, imported = proc.stdout.strip().splitlines()
+    assert imported == "imported: []", proc.stdout
+    report = json.loads(report)
+    assert report["resolution"] == "64x48" and report["frames"] == 2
+    assert sorted(p.name for p in (tmp_path / "frames").iterdir()) == ["frame_0000.png",
+                                                                       "frame_0001.png"]
+    modules = [line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+               if line.startswith("import time:")]
+    assert {"direct12pbrrenderer_tpu_torch.app.app",
+            "direct12pbrrenderer_tpu_torch.utils.threading"} <= set(modules)
+    assert [m for m in modules if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []

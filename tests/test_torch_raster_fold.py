@@ -138,11 +138,11 @@ def _meets(e, x0, x1, y0, y1):
 
 
 def emulate_kernel_fold(setup, bins, width, height, tile_h, tile_w, y_offset=0,
-                        cap_small=None, hot_k=None, slice_len=trc.SLICE):
+                        cap_small=None, hot_k=None, slice_len=trc.SLICE, viewport=None):
     """raster_fold.cuh's fold of every (tile, 8-row band, list slice) work
     item, in numpy, then the key merge of split bands: -> (tri_id, z) images
     as `rasterize_depth` returns them."""
-    rows = trc.pack_depth_rows(setup).numpy()        # kernel H's rows
+    rows = trc.pack_depth_rows(setup, viewport).numpy()   # kernel H's rows
     ext = rows[:, 16:20]
     num_tiles, cap = bins.ids.shape
     cap_small, hot_k = trc.resolve_caps(cap, num_tiles, cap_small, hot_k)
@@ -304,6 +304,32 @@ def test_kernel_fold_emulation_equals_plain_version(scene, seed, shape, cap, cap
     assert torch.equal(z_e.view(torch.int32), z_p.view(torch.int32))
 
 
+@pytest.mark.parametrize("scene,seed,viewport,canvas,caps", [
+    ("stress", 0, (200, 96), (256, 96, 24, 128), {"cap_small": 128, "hot_k": 1}),
+    ("near_plane", 3, (300, 190), (320, 192, 24, 64), {}),
+    ("random", 4, (250, 180), (256, 192, 24, 128), {}),
+])
+def test_kernel_fold_emulation_on_a_padded_canvas(scene, seed, viewport, canvas, caps):
+    """The pipeline's canvas is padded up to the tile grid past the
+    viewport's right and bottom edges (the App's 1440x960 on 1536x960):
+    triangles are set up at the viewport's size, whose AABB clamp stops at
+    its edges, and folded on the canvas. The plain fold covers the padding;
+    the kernels do too once the rows carry the viewport (`raster_extents`
+    opens the clamped maxima), and drop covered pixels without it."""
+    (vw, vh), (w, h, th, tw) = viewport, canvas
+    setup = SCENES[scene](seed, vw, vh)
+    bins = tr.bin_triangles(setup, h // th, w // tw, th, tw, 512)
+    ids_p, z_p = trc.rasterize_depth_reference(setup, bins, w, h, th, tw, **caps)
+    # pixels past the viewport's edge that the plain fold covers
+    assert (ids_p[:, vw:] >= 0).any() or (ids_p[vh:] >= 0).any()
+    ids_e, z_e = emulate_kernel_fold(setup, bins, w, h, th, tw, **caps, slice_len=128,
+                                     viewport=(vw, vh))
+    assert torch.equal(ids_e, ids_p)
+    assert torch.equal(z_e.view(torch.int32), z_p.view(torch.int32))
+    ids_c, _ = emulate_kernel_fold(setup, bins, w, h, th, tw, **caps, slice_len=128)
+    assert not torch.equal(ids_c, ids_p)
+
+
 @pytest.mark.parametrize("kind,slice_len", [
     ("subpixel", trc.SLICE), ("duplicates", 128), ("depth_bounds", 128),
     ("warp_edges", 128), ("nan_scores", 128)])
@@ -347,6 +373,25 @@ def test_depth_rows_layout():
     assert torch.equal(rows[:, 16:], ext) and torch.equal(ext[v], setup.aabb[v])
     assert (rows[~v] == -3e38).all()
     rows64 = trc.pack_rows64(setup, torch.zeros((v.shape[0], 40)))
+    assert torch.equal(rows64[:, 56:60], ext)
+
+
+def test_extents_open_the_viewport_clamp():
+    """With the viewport given, `raster_extents` (and so kernel H's rows and
+    kernel A's rows64) opens each max at or past the viewport's edge to
+    3e38, where `setup_triangles` clamped it; every other column is the
+    AABB, -3e38 for an invalid triangle."""
+    setup = _odd(0, 200, 90)
+    ext = trc.raster_extents(setup, (200, 90))
+    v = setup.valid
+    hi = setup.aabb[v, 2:]
+    clamped = hi >= torch.tensor([200.0, 90.0])
+    assert clamped.any(0).all() and not clamped.all()
+    assert torch.equal(ext[v, :2], setup.aabb[v, :2])
+    assert torch.equal(ext[v, 2:], torch.where(clamped, 3e38, hi))
+    assert (ext[~v] == -3e38).all()
+    assert torch.equal(trc.pack_depth_rows(setup, (200, 90))[:, 16:], ext)
+    rows64 = trc.pack_rows64(setup, torch.zeros((v.shape[0], 40)), (200, 90))
     assert torch.equal(rows64[:, 56:60], ext)
 
 
