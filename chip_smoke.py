@@ -27,6 +27,14 @@ on the card, then renders at 1920x1080 with a procedural sky:
   1024-light path: kernels A, B, C for the G-buffer, then the unfused
   deferred pass with the env cache (plan with kernel B, resolve with kernel
   F) and the tile-clustered point lights (kernel G);
+* the band frame (`parallel/frame_sharded.py`): the textured cell on four
+  gloo ranks sharing the card in 270-row bands on 288-row canvases
+  ([sharded]), on one NCCL rank ([sharded-nccl]), and the 1024-light cell on
+  two gloo ranks in 540-row bands on 552-row canvases ([sharded-lights1k]);
+  each rank holds its band frame's kernel calls to their plain versions,
+  counts its launches (A, B four times, C, D; or A, B four times, C, F, G)
+  and times the frame and its collectives, and rank 0 holds the gathered
+  frame to the single-card `render()` of the pose;
 * the textured cell's content as an asset tree ([asset-auto]): written as
   OBJ/MTL/PNG and HDR faces, imported by the port's importers (BC1, BC6H),
   reloaded through a fresh ResourceLoader and rendered with
@@ -60,6 +68,10 @@ on the card, then renders at 1920x1080 with a procedural sky:
   App at the AppConfig defaults) is not run here: on tree T its gate fails
   for the knobs' counted losses and the cell falls back (ROADMAP.md
   section 3).
+
+`python3 chip_smoke.py --cards` runs only the band frame of the textured
+cell, on one NCCL rank and then on one NCCL rank a card on every card of
+the machine (`[sharded-cards]`), for the band frame's time on several cards.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after; each frame is checked against the all-plain pipeline
@@ -130,6 +142,24 @@ APP_KERNELS = {"raster_interp": 1, "fused_cover": 5, "resolve_shade": 1, "deferr
 APP_COUNTED = 8          # frames whose launches [app] counts
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
+BASE_KNOBS = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=256)
+# the band phases (parallel/frame_sharded.py): phase -> (cell, ranks, device
+# of the ranks, the kernels of the band path with their launches a band
+# frame, the kernels it must not launch). Four gloo ranks share card 0 in
+# 270-row bands on 288-row canvases; one NCCL rank renders the whole frame
+# as one band; two gloo ranks render the 1024-light cell in 540-row bands
+# on 552-row canvases (kernels F and G at y_offset 540).
+BAND_A_D = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "deferred_shade": 1}
+BAND_L1K = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
+            "point_lights": 1}
+BAND_PHASES = {
+    "sharded": ("textured", 4, "cuda:0", BAND_A_D, ("env_resolve", "point_lights")),
+    "sharded-nccl": ("textured", 1, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
+    "sharded-lights1k": ("lights1k", 2, "cuda:0", BAND_L1K, ("deferred_shade",)),
+    # `--cards` only: one NCCL rank on each card of the machine (0: every card)
+    "sharded-cards": ("textured", 0, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
+}
+BAND_FRAMES = 4   # band frames timed a rank; the launch counts are read after them
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch counter)
@@ -353,15 +383,17 @@ def only_kernel(phase, fn, name: str) -> list[str]:
     return ops
 
 
-def compare(phase, got, want) -> tuple[float, int]:
+def compare(phase, got, want, empty_ok: bool = False) -> tuple[float, int]:
     """Hold a raster's outputs (tri_id, z[, planes]) against another's bit for
     bit: kernels A and H and their plain versions evaluate the same float32
     formulas with every product and sum rounded on its own and one tie rule.
     Returns (max abs error of z and planes where the ids agree, id
-    mismatches), both 0 when it passes."""
+    mismatches), both 0 when it passes. Fails on a canvas where the plain
+    version covers no pixel, unless `empty_ok` (a band of the frame may
+    hold only sky)."""
     ids_k, ids_p = got[0], want[0]
     agree = ids_k == ids_p
-    if not (agree & (ids_p >= 0)).any():
+    if not empty_ok and not (agree & (ids_p >= 0)).any():
         fail(phase, "no covered pixels")
     err = max(float((k - p).abs()[..., agree].max()) for k, p in zip(got[1:], want[1:]))
     nmis = int((~agree).sum())
@@ -571,17 +603,17 @@ def hold_bench_cell(cell: str, pipe, cam) -> str:
             + "; ".join(f"{ms:.2f} ms {name[:60]}" for ms, name in top))
 
 
-def hold_call(phase: str, name: str, args, kw) -> float:
+def hold_call(phase: str, name: str, args, kw, empty_ok: bool = False) -> float:
     """Hold one recorded call of kernel `name`'s wrapper against its plain
     version on the same inputs, at the bar the kernels line holds it to;
-    returns the max abs error."""
+    returns the max abs error. `empty_ok`: as in `compare`."""
     fn, _ = wrapper(name)
     ref = getattr(sys.modules[fn.__module__], f"{KERNELS[name][2]}_reference")
     if name == "raster_interp":   # the plain version gives the untiled outputs
         kw = {k: v for k, v in kw.items() if k != "return_tiled"}
     got, want = fn(*args, **kw), ref(*args, **kw)
     if name == "raster_interp":
-        return compare(phase, got, want)[0]
+        return compare(phase, got, want, empty_ok)[0]
     if name == "fused_cover":
         for g, r, out in zip(got, want, ("list", "count", "slot", "covered")):
             if not torch.equal(g, r):
@@ -771,17 +803,35 @@ def textured_cell(dev):
     default frame's camera)."""
     from direct12pbrrenderer_tpu_torch.config import RenderConfig
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
-    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 
     scene = stress_scene(512, 256, 256, 80.0)
     cfg = RenderConfig(W, H, max_instances=2)
-    base_knobs = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=256)
-    knobs = dict(base_knobs, brdf_lut_size=BRDF_LUT)
+    knobs = dict(BASE_KNOBS, brdf_lut_size=BRDF_LUT)
     pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **knobs)
+    return scene, cfg, dict(BASE_KNOBS), knobs, pipe, cell_camera(cfg)
+
+
+def cell_camera(cfg):
+    """The stress cells' pose: (0, 6, 18), yaw pi, pitch 0.35."""
+    from direct12pbrrenderer_tpu_torch.scene.camera import Camera
+
     cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
     cam.move([0, 6, 18])
     cam.rotate(0, math.pi, 0.35)
-    return scene, cfg, base_knobs, knobs, pipe, cam
+    return cam
+
+
+def lights1k_cell(dev, knobs):
+    """The 1024-light cell on `dev` with the textured cell's `knobs`:
+    (scene, render config, the cell's knobs, its pipeline)."""
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    scene = stress_scene(*L1K_CELLS, 256, 80.0, n_lights=L1K_LIGHTS)
+    cfg = RenderConfig(W, H, max_instances=2, max_lights=L1K_LIGHTS)
+    l1k_knobs = dict(knobs, bin_cap=L1K_BIN_CAP, max_active_lights=L1K_LIGHTS)
+    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **l1k_knobs)
+    return scene, cfg, l1k_knobs, pipe
 
 
 def frame_inputs(pipe, cam):
@@ -1051,15 +1101,11 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     recorded inputs, times 16 frames, the passes, and the frame's fidelity.
     Adds F's and G's (max abs error, ms, plain ms) to `measured` and their
     bounds to `bounds`; returns the frames' launch counts."""
-    from direct12pbrrenderer_tpu_torch.config import RenderConfig
     from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, envcache, lights_cuda
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 
     t0 = time.perf_counter()
-    scene = stress_scene(*L1K_CELLS, 256, 80.0, n_lights=L1K_LIGHTS)
-    cfg = RenderConfig(W, H, max_instances=2, max_lights=L1K_LIGHTS)
-    l1k_knobs = dict(knobs, bin_cap=L1K_BIN_CAP, max_active_lights=L1K_LIGHTS)
-    pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS, **l1k_knobs)
+    scene, cfg, l1k_knobs, pipe = lights1k_cell(dev, knobs)
     torch.cuda.synchronize()
     if not (pipe.use_fused_gbuffer and pipe.light_tile == (TILE_H, TILE_W)
             and not pipe.use_fused_deferred and "EnvCache" in pipe.buffers):
@@ -1203,6 +1249,127 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
         f"{rmse_j:.6f}, tex_approx_taps {st_j.tex_approx_taps}, env_approx_taps "
         f"{st_j.env_approx_taps}, light_tile_overflow {st_j.light_tile_overflow}")
     return launches
+
+
+def band_rank(mesh, phase: str, smi: str) -> list[str]:
+    """One rank of band phase `phase` (BAND_PHASES): builds the cell's
+    pipeline on the rank's card, renders one band frame
+    (`frame_sharded.build_sharded_frame`) with the path's kernel calls
+    recorded and holds each call to its plain version at the kernels line's
+    bars, then renders it again with every launch count set to 0 just before
+    and read just after, timing the frame and its collectives. Rank 0 also
+    holds the gathered frame to the single-card `render()` of the same pose.
+    Fails (the rank exits 1) on a call that disagrees, a kernel of the path
+    launched fewer times than the phase wants or one it must not launch, a
+    fallback counter above 0, or a frame off the bars. Returns its lines."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from direct12pbrrenderer_tpu_torch.parallel import frame_sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell, _, device, want, absent = BAND_PHASES[phase]
+    dev, r, n = mesh.device, mesh.rank, mesh.size
+    t0 = time.perf_counter()
+    if cell == "textured":
+        pipe, cam = textured_cell(dev)[4:]
+    else:
+        pipe = lights1k_cell(dev, dict(BASE_KNOBS, brdf_lut_size=BRDF_LUT))[3]
+        cam = cell_camera(pipe.config)
+    frame = frame_sharded.build_sharded_frame(mesh, pipe, collect_stats=True)
+    args = frame_sharded.frame_args(pipe, cam, float(pipe.avg_luminance))
+    build_s = time.perf_counter() - t0
+    tag = f"rank {r}/{n} ({dist.get_backend()} on {dev}, y_offset {r * H // n})"
+
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(recording(importlib.import_module(
+            f"direct12pbrrenderer_tpu_torch.ops.{KERNELS[name][1]}"), KERNELS[name][2]))
+            for name in want}
+        frame(*args)
+        torch.cuda.synchronize()
+    held = []
+    for name in want:
+        if not calls[name]:
+            fail(phase, f"{tag}: the band frame made no call of {name}")
+        errs = [hold_call(phase, name, a, kw, empty_ok=True) for a, kw in calls[name]]
+        held.append(f"{name} {len(errs)} calls, max_abs_err {max(errs):.3e}")
+    del calls
+
+    mesh.all_reduce(torch.zeros(1, device=dev))   # the ranks start the timed frames together
+    torch.cuda.synchronize()
+    reset_launches()
+    mesh.time_collectives, mesh.collective_s = True, 0.0
+    times = []
+    for _ in range(BAND_FRAMES):
+        t1 = time.perf_counter()
+        rgb8, avg, bin_counts, tex, trunc, env = frame(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = read_launches()
+    mesh.time_collectives = False
+    coll_ms = mesh.collective_s * 1e3 / BAND_FRAMES
+    short = {k: v for k, v in launches.items() if k in want and v < want[k] * BAND_FRAMES}
+    extra = {k: launches[k] for k in (*absent, WIDE) if launches[k]}
+    if short or extra:
+        fail(phase, f"{tag}: kernel launches {launches} in {BAND_FRAMES} band frames: fewer "
+             f"than {want} a frame ({short}) or launched where none may be ({extra})")
+    counts = bin_counts.cpu().numpy()
+    overflow = max(pipe._stats(c, np.zeros(2, np.int64), 0, 0, 0).bin_overflow
+                   for c in np.split(counts, n))
+    counters = {"bin_overflow": overflow, "tex_approx_taps": int(tex),
+                "env_approx_taps": int(env), "light_tile_overflow": int(trunc)}
+    if any(counters.values()):
+        fail(phase, f"{tag}: FrameStats fallbacks of the band frame {counters} (all must be 0)")
+    lines = [f"{tag}: pipeline built in {build_s:.2f} s; one band frame's kernel calls held to "
+             f"their plain versions at the kernels line's bars: " + "; ".join(held)
+             + f"; kernel launches of {BAND_FRAMES} band frames {launches}; band frame mean "
+             f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, the ranks "
+             f"started together, synchronized per frame), of it collectives {coll_ms:.2f} ms a "
+             f"frame (each bracketed by synchronizations, the wait for the other ranks "
+             f"included); " + (f"{n} ranks share one card, so not a scaling figure" if n > 1
+                               and device != "cuda" else "one card a rank")
+             + f"; on {smi}"]
+    full = frame_sharded.gather_rows(mesh, rgb8).cpu().numpy()
+    if r:
+        return lines
+    single = pipe.render(cam).cpu().numpy()   # the same pose, the same exposure carry
+    diff = np.abs(full.astype(np.int64) - single.astype(np.int64))
+    rmse = float(np.sqrt(np.mean((diff / 255.0) ** 2)))
+    off = float((diff > 1).any(-1).mean())
+    lit = float((full.max(-1) > 16).mean())
+    if full.shape != (H, W, 3) or rmse > RMSE_BAR or off >= 1e-3 or lit < 0.05:
+        fail(phase, f"gathered frame {full.shape}, lit {lit:.3f}: rmse vs render() {rmse:.6f} "
+             f"(bar {RMSE_BAR}), share of pixels off by more than 1 {off:.2e} (bar 1e-3)")
+    return lines + [f"rank 0: the gathered {W}x{H} frame vs the single-card render() of the "
+                    f"same pose: rmse {rmse:.6f} <= {RMSE_BAR}, share of pixels off by more "
+                    f"than 1 {off:.2e} < 1e-3, {int(diff.any(-1).sum())} pixels differ; avg "
+                    f"luminance {float(avg):.6f} (render() {float(pipe.avg_luminance):.6f}); "
+                    f"band FrameStats fallbacks {counters}; lit {lit:.3f}"]
+
+
+def band_phases(smi: str, phases=("sharded", "sharded-nccl", "sharded-lights1k")) -> None:
+    """The band frame (parallel/frame_sharded.py) on the card: each of
+    `phases` (BAND_PHASES) launches its ranks (`frame_sharded.launch`, which
+    spawns them; the kernels are built already) and prints each rank's
+    lines. A rank that fails fails the phase."""
+    from torch.multiprocessing.spawn import ProcessException
+
+    from direct12pbrrenderer_tpu_torch.parallel import frame_sharded
+
+    for phase in phases:
+        cell, n, device, _, _ = BAND_PHASES[phase]
+        n = n or torch.cuda.device_count()
+        t0 = time.perf_counter()
+        try:
+            ranks = frame_sharded.launch(n, band_rank, phase, smi, device=device)
+        except ProcessException as e:
+            fail(phase, f"a rank failed: {e}")
+        for lines in ranks:
+            for line in lines:
+                say(phase, line)
+        say(phase, f"{cell} cell, {n} {frame_sharded.backend_for(n, device)} rank(s) on "
+            f"{device}: passed in {time.perf_counter() - t0:.1f} s")
 
 
 def write_asset_sources(src, scene) -> np.ndarray:
@@ -2294,17 +2461,34 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     return out
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on the GPU.")
+    ap.add_argument("--cards", action="store_true",
+                    help="only the band frame of the textured cell: one NCCL rank, then one "
+                         "NCCL rank on each card of the machine")
+    cards = ap.parse_args(argv).cards
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this smoke run needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    say("device", f"{torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
+    smi_all = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()
+    smi = smi_all[0]
+    say("device", f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()} | "
+        f"nvidia-smi: {' | '.join(smi_all)} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    if cards:
+        build_kernels()
+        band_phases(smi, ("sharded-nccl", "sharded-cards"))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     from direct12pbrrenderer_tpu_torch.ops import (
         cover_cuda,
@@ -2630,6 +2814,7 @@ def main() -> None:
     launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
     torch.cuda.empty_cache()
+    band_phases(smi)
     n_h_assets = asset_auto(dev, cam, smi)
     # H's launches: the depth-only stage call and the asset-auto census's
     launches.update(launches_ptex, raster_depth=n_h + n_h_assets)

@@ -22,10 +22,12 @@ from . import common
 _R = 4
 
 
-def _shift(img, dy, dx):
-    """Clamp-to-edge shifted view (the LinearClamp sampling analog)."""
+def _shift(img, dy, dx, lo=0, hi=None):
+    """Clamp-to-edge shifted view (the LinearClamp sampling analog) of rows
+    [lo, hi) (all rows by default)."""
     h, w = img.shape[0], img.shape[1]
-    ys = torch.clamp(torch.arange(h, device=img.device) + dy, 0, h - 1)
+    hi = h if hi is None else hi
+    ys = torch.clamp(torch.arange(lo, hi, device=img.device) + dy, 0, h - 1)
     xs = torch.clamp(torch.arange(w, device=img.device) + dx, 0, w - 1)
     return img[ys][:, xs]
 
@@ -103,11 +105,15 @@ def bloom_threshold(color, threshold=BLOOM_THRESHOLD, knee=BLOOM_KNEE):
 def prefilter(img, out_h: int, out_w: int):
     """bloom_prefilter at half resolution: 5-tap cross, luma-weighted to
     suppress fireflies (bloom_prefilter.hlsl:30-53)."""
-    base = resize_bilinear(img, out_h, out_w, half_phase=False)
-    total = torch.zeros_like(base)
-    weight = torch.zeros(base.shape[:2] + (1,), dtype=base.dtype, device=base.device)
+    return _cross_filter(resize_bilinear(img, out_h, out_w, half_phase=False), 0, out_h)
+
+
+def _cross_filter(base, lo: int, hi: int):
+    """The prefilter's 5-tap cross on rows [lo, hi) of the whole half-res
+    grid `base` (the taps read rows lo - 1 and hi, clamped to its edges)."""
+    total = weight = 0.0
     for dy, dx in [(0, 0), (-1, -1), (-1, 1), (1, -1), (1, 1)]:
-        c = bloom_threshold(_shift(base, dy, dx))
+        c = bloom_threshold(_shift(base, dy, dx, lo, hi))
         wgt = 1.0 / (common.luminance(c)[..., None] + 1.0)
         total = total + c * wgt
         weight = weight + wgt
@@ -139,3 +145,60 @@ def bloom(hdr):
     full = _mm_cols(_blur_resize_mat(w, mip_size(1)[1]),
                     _mm_rows(_blur_resize_mat(h, mip_size(1)[0]), a[1]))
     return hdr + full
+
+
+def bloom_band(band, height: int, mesh):
+    """`bloom`'s rows of one band: the frame's `height` rows split into
+    `mesh.size` equal row bands, `band` (height // size, W, 3) being band
+    `mesh.rank`. Returns the band's rows of bloom(hdr). `mesh` is the
+    band group (`parallel/frame_sharded.BandMesh`): its `all_reduce` sums a
+    tensor over the ranks and its `gather` builds a whole level from each
+    rank's rows (every rank calls them in the same order).
+
+    A pyramid level is row-parallel when each rank keeps at least 16 of its
+    rows (the JAX package's row-sharding rule, `ops/bloom.py`): a rank then
+    multiplies only its rows of the level's row matrix by the whole
+    previous level, which it gathers as a sum of zero-filled levels holding
+    each rank's rows (exact). Smaller levels are computed whole on every
+    rank. The prefilter's half-resolution grid is the sum of each band's
+    share of the row resize; the cross filter then reads its rows' +-1
+    neighbours from the whole grid."""
+    band_h, w = band.shape[0], band.shape[1]
+    rank, n = mesh.rank, mesh.size
+    y0 = rank * band_h
+
+    def mip_size(m):
+        return max(1, height >> m), max(1, w >> m)
+
+    def rows_of(n_rows):
+        if n_rows // n >= 16:
+            return n_rows * rank // n, n_rows * (rank + 1) // n
+        return 0, n_rows
+
+    def whole(part, n_rows):
+        lo, hi = rows_of(n_rows)
+        return part if (lo, hi) == (0, n_rows) else mesh.gather(part, n_rows, lo)
+
+    h1, w1 = mip_size(1)
+    rows = _resize_matrix(h1, height, False)[:, y0:y0 + band_h]   # the band's columns
+    base = mesh.all_reduce(_mm_cols(_resize_matrix(w1, w, False), _mm_rows(rows, band)))
+    full = {1: whole(_cross_filter(base, *rows_of(h1)), h1)}
+    for m in range(1, BLOOM_STEPS + 1):
+        hh, ww = mip_size(m)
+        lo_h, lo_w = mip_size(m + 1)
+        r0, r1 = rows_of(lo_h)
+        part = _mm_cols(_blur_resize_mat(lo_w, ww),
+                        _mm_rows(_blur_resize_mat(lo_h, hh)[r0:r1], full[m]))
+        full[m + 1] = whole(part, lo_h)
+    for m in range(BLOOM_STEPS, 0, -1):
+        hh, ww = mip_size(m)
+        lh, lw = mip_size(m + 1)
+        r0, r1 = rows_of(hh)
+        bv = _blur_mat(hh).astype(np.float32)[r0:r1]
+        bh = _blur_mat(ww).astype(np.float32)
+        part = (_mm_cols(bh, _mm_rows(bv, full[m]))
+                + _mm_cols(_blur_resize_mat(ww, lw),
+                           _mm_rows(_blur_resize_mat(hh, lh)[r0:r1], full[m + 1])))
+        full[m] = whole(part, hh)
+    return band + _mm_cols(_blur_resize_mat(w, w1),
+                           _mm_rows(_blur_resize_mat(height, h1)[y0:y0 + band_h], full[1]))

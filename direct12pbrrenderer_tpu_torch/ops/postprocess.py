@@ -49,10 +49,21 @@ def _ema(weighted, black, pixel_count, prev_luminance, delta_time):
 def average_luminance_direct(hdr_rgb, pixel_count, prev_luminance, delta_time):
     """average_luminance without the histogram: sum of bin indices (exact,
     in int64) and the black-pixel count, then the same EMA."""
+    return average_luminance_from_sums(luminance_sums(hdr_rgb), pixel_count, prev_luminance,
+                                       delta_time)
+
+
+def luminance_sums(hdr_rgb) -> torch.Tensor:
+    """(2,) int64: the sum of the pixels' histogram bin indices and the
+    count of black pixels (bin 0). Integers, so the sums of row bands add
+    up to the frame's exactly."""
     bins = luminance_bins(hdr_rgb)
-    weighted = bins.sum(dtype=torch.int64).float()
-    black = (bins == 0).sum().float()
-    return _ema(weighted, black, pixel_count, prev_luminance, delta_time)
+    return torch.stack([bins.sum(dtype=torch.int64), (bins == 0).sum()])
+
+
+def average_luminance_from_sums(sums, pixel_count, prev_luminance, delta_time):
+    """`average_luminance_direct`'s EMA from `luminance_sums` of the frame."""
+    return _ema(sums[0].float(), sums[1].float(), pixel_count, prev_luminance, delta_time)
 
 
 def average_luminance(histogram, pixel_count, prev_luminance, delta_time):

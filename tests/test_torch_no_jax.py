@@ -134,7 +134,8 @@ def test_package_sources_name_no_jax():
     # the App, its console and viewer, and the tools are among the files read
     names = {p.relative_to(PACKAGE).as_posix() for p in sources if PACKAGE in p.parents}
     assert {"app/__init__.py", "app/__main__.py", "app/app.py", "app/console.py",
-            "app/viewer.py", "tools/profile.py", "tools/tap_census.py"} <= names
+            "app/viewer.py", "tools/profile.py", "tools/tap_census.py",
+            "parallel/__init__.py", "parallel/frame_sharded.py"} <= names
     # every kernel wrapper launches or raises: no fallback to the plain version
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
                  "lights_cuda", "env_resolve_cuda", "atlas_resolve_cuda", "cover_two"):
@@ -147,7 +148,8 @@ def test_package_sources_name_no_jax():
                  "resource/bc.py", "resource/native_codec.py", "resource/resources.py",
                  "resource/serialization.py", "resource/reflection_def.py",
                  "resource/hdr.py", "resource/storage.py", "scene/scene.py",
-                 "native/__init__.py", "utils/tlsf.py", "utils/octree.py"):
+                 "native/__init__.py", "utils/tlsf.py", "utils/octree.py",
+                 "parallel/frame_sharded.py"):
         assert "except" not in (PACKAGE / path).read_text(), path
     # the thread pool's one handler hands a task's exception to its future
     threading_src = (PACKAGE / "utils" / "threading.py").read_text()
@@ -179,6 +181,22 @@ def test_loader_and_census_import_without_jax():
                 if line.startswith("import time:")]
     assert "direct12pbrrenderer_tpu_torch.resource.reflection_def" in imported
     assert "direct12pbrrenderer_tpu_torch.native" in imported
+    assert [m for m in imported if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []
+
+
+def test_band_frame_imports_without_jax():
+    # the band frame and its launcher, from a fresh interpreter
+    code = ("from direct12pbrrenderer_tpu_torch.parallel import frame_sharded; "
+            "from direct12pbrrenderer_tpu_torch.tools.tiny_scene import dryrun_multichip; "
+            "print(frame_sharded.backend_for(2, 'cpu'))")
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "gloo"
+    imported = [line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "direct12pbrrenderer_tpu_torch.parallel.frame_sharded" in imported
+    assert "direct12pbrrenderer_tpu_torch.tools.tiny_scene" in imported
     assert [m for m in imported if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []
 
 
