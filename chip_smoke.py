@@ -23,10 +23,18 @@ on the card, then renders at 1920x1080 with a procedural sky:
 * the anisotropic filter (the planar path without kernel E);
 * the depth-only raster stage, `stages.rasterize(use_pallas=True)`, on the
   default frame's geometry (kernel H);
+* the default path with `fused_light_dtype="bfloat16"` ([frame-bf16]): kernel
+  D's bfloat16 light loop, its frame against the float32 and the all-plain
+  frames (rmse printed, not gated), its FrameStats equal to the float32
+  frame's;
 * the 1024-light stress scene (the JAX bench's third scene) through the
   1024-light path: kernels A, B, C for the G-buffer, then the unfused
   deferred pass with the env cache (plan with kernel B, resolve with kernel
   F) and the tile-clustered point lights (kernel G);
+* the same scene at `max_active_lights=64` ([kernel-deferred-dtypes]): the
+  fused deferred pass with kernel D's float32, bfloat16 and float16 light
+  loops (`fused_light_dtype`) at D's most, 64 active lights, each instance
+  launched on its path, held to its plain version bit for bit and timed;
 * the band frame (`parallel/frame_sharded.py`): the textured cell on four
   gloo ranks sharing the card in 270-row bands on 288-row canvases
   ([sharded]), on one NCCL rank ([sharded-nccl]), and the 1024-light cell on
@@ -59,7 +67,8 @@ on the card, then renders at 1920x1080 with a procedural sky:
   line says so); the viewer in a fresh process, whose first frame
   and first kernel use come on an HTTP handler thread; tools/profile's
   stages on the App's pipeline; tools/tap_census.main over 8 poses (16
-  launches of H);
+  launches of H); tools/checklist in a process of its own at 1440x960
+  (baseline, staging and env budgets, the `rpc` split of `render`);
 * last, the port's bench (`direct12pbrrenderer_tpu_torch.bench`) as a user
   runs it, `--smoke`, then the full run at its default 32 frames: the smoke
   sphere (kernels A, B, E, F), the Sponza-class headline (A-D) and the
@@ -116,11 +125,19 @@ BRDF_LUT = 64
 FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
 PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic paths
+BF16_FRAMES = 8           # the default path with fused_light_dtype="bfloat16"
+DTYPE_FRAMES, DTYPE_LIGHTS = 4, 64   # [kernel-deferred-dtypes]: frames a light_dtype,
+                                     # active lights (kernel D's most)
+# kernel D's light body (csrc/deferred_shade.cu light_body): 96 sums,
+# products and maxima in the loop's type and 10 float32 operations (2 square
+# roots, 5 reciprocals, 3 accumulations) for each (lit pixel, light) hit;
+# 18 float32 operations of the cluster-sphere test and the hit counter for
+# every (pixel, light) pair
+D_BODY_OPS, D_BODY_F32_OPS, D_SPHERE_OPS = 96, 10, 18
 PTEX_TILE = (24, 160)     # the planar-tex cell's raster tile: not 128 wide
 CAP156 = (156, 44, None, (32, 16))  # a lo-half cap above 128: kernel I
 RMSE_BAR = 1e-3          # uint8/255 frame rmse, the JAX package's fidelity bar
 SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of values
-D_RTOL, D_ATOL, D_FRAC = 1e-4, 1e-5, 1e-3    # kernel D: the CPU tests' bar
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
                                                    # cluster edge flips a membership
 F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
@@ -160,8 +177,9 @@ BAND_PHASES = {
     "sharded-cards": ("textured", 0, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
 }
 BAND_FRAMES = 4   # band frames timed a rank; the launch counts are read after them
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s
-HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s;
+# the Hopper architecture whitepaper: float16 and bfloat16 (non-tensor) FLOP/s
+HBM_BYTES_PER_S, F32_FLOP_PER_S, F16_FLOP_PER_S = 3.35e12, 67e12, 133.8e12
 KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch counter)
     "raster_interp": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:157", "raster_cuda",
                       "rasterize_interp", "launches"),
@@ -184,8 +202,18 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch 
     "cover_wide": ("direct12pbrrenderer_tpu/ops/texcache.py:278 (_block_cover_kernel) and "
                    "direct12pbrrenderer_tpu/ops/texcache.py:331 (_pix_match_kernel)",
                    "cover_cuda", "fused_cover", "wide_launches"),
+    # kernel D's light_dtype instances (the pipeline's fused_light_dtype): its
+    # launches with that light loop, counted apart (and in D's count too)
+    **{f"deferred_shade_{ld}": (f"direct12pbrrenderer_tpu/ops/shade_pallas.py:61 "
+                                f"(light_dtype={ld!r}, :218-312)", "shade_fused",
+                                "deferred_kernel", f"{ld}_launches")
+       for ld in ("float32", "bfloat16", "float16")},
 }
 WIDE = "cover_wide"
+D_DTYPES = {f"deferred_shade_{ld}": ld for ld in ("float32", "bfloat16", "float16")}
+# counters of a kernel's launches at one instance of it: a path launches
+# them only where it asks for them
+INSTANCES = (WIDE, *D_DTYPES)
 # the port's bench (`python -m direct12pbrrenderer_tpu_torch.bench`): each
 # cell and the kernels its path launches on the card. The smoke scene's
 # tile is 64 wide, so its frame takes the planar texture cache (B, E) and
@@ -197,7 +225,8 @@ BENCH_CELLS = {
                  "point_lights"),
 }
 BENCH_TRACE = 8   # frames of each bench cell traced by torch.profiler
-SOURCES = {WIDE: "fused_cover"}   # kernel I runs kernel B's source and device kernel
+# kernel I runs kernel B's source and device kernel, D's instances D's
+SOURCES = {WIDE: "fused_cover", **{name: "deferred_shade" for name in D_DTYPES}}
 
 
 def source_of(name: str) -> str:
@@ -479,6 +508,19 @@ def deferred_reads(dargs, dkw) -> dict[str, torch.Tensor]:
     return {"rec": taps, "fx": taps, "fy": taps, "gb": torch.stack(ch, 1)}
 
 
+def deferred_bytes(dargs, dkw) -> tuple[int, int]:
+    """Bytes kernel D's call must move: const, lights, off and cnts, the
+    planes' words that the output reads (`deferred_reads`), of the staged
+    pages the words its taps address, and the (tiles, 4, blocks, 128)
+    output; and the same over every word of every input."""
+    rec = dargs[5]
+    out = rec.shape[0] * 4 * rec.shape[2] * 128 * 4
+    reads = deferred_reads(dargs, dkw)
+    return (nbytes(*dargs[:4]) + sum(int(m.sum()) * 4 for m in reads.values())
+            + staged_read_bytes(*dargs[2:6], 8, reads["rec"]) + out,
+            nbytes(*dargs[:4], *dargs[5:]) + staged_read_bytes(*dargs[2:6], 8) + out)
+
+
 def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
     """(least ms, what bounds it) for a call that must move `n_bytes` (each
     input read once, each output written once) and do `flops` float32
@@ -524,7 +566,9 @@ def recording(module, name: str):
         calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
-    rec.launches = rec.wide_launches = 0
+    for *_, fn, counter in KERNELS.values():
+        if fn == name:
+            setattr(rec, counter, 0)
     setattr(module, name, rec)
     try:
         yield calls
@@ -621,8 +665,8 @@ def hold_call(phase: str, name: str, args, kw, empty_ok: bool = False) -> float:
         return 0.0
     if name == "resolve_shade":
         return check_shade(phase, got, want)
-    if name == "deferred_shade":
-        return check_deferred(phase, got, want)[0]
+    if name.startswith("deferred_shade"):
+        return check_deferred(phase, got, want)
     if name == "point_lights":
         return check_lights(phase, args, got, want)[0]
     return check_close(phase, got, want)   # kernels E and F
@@ -963,18 +1007,21 @@ def check_shade(phase, got, want) -> float:
     return float(diff.max())
 
 
-def check_deferred(phase, got, want) -> tuple[float, float]:
-    """Kernel D's bar: rgb within rtol 1e-4 / atol 1e-5 on all but 0.1% of
-    the pixels; the hit counter equal on all but 0.1%."""
+def check_deferred(phase, got, want) -> float:
+    """Kernel D's bar, each of its light loops: every output value finite
+    and bit-equal to the plain version's (the same formulas, each product
+    and sum rounded once to the loop's type, sqrt and division correctly
+    rounded, logf and powf as torch computes them on the card). Returns the
+    max abs error, 0 when it passes."""
     a, b = got.cpu().numpy(), want.cpu().numpy()
     if not np.isfinite(a).all():
         fail(phase, "non-finite kernel output")
-    bad = ~np.isclose(a[:, :3], b[:, :3], rtol=D_RTOL, atol=D_ATOL).all(1)
-    cnt_bad = a[:, 3] != b[:, 3]
-    if bad.mean() > D_FRAC or cnt_bad.mean() > D_FRAC:
-        fail(phase, f"{bad.mean():.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, "
-             f"{cnt_bad.mean():.2e} with another hit count (bar {D_FRAC})")
-    return float(np.abs(a - b).max()), float(bad.mean())
+    differ = a.view(np.int32) != b.view(np.int32)
+    if differ.any():
+        fail(phase, f"{int(differ.sum())} of {differ.size} values differ from the plain "
+             f"version ({int(differ[:, 3].sum())} hit counts), max abs error "
+             f"{float(np.abs(a - b).max()):.3e}")
+    return 0.0
 
 
 def check_close(phase, got, want) -> float:
@@ -1009,12 +1056,13 @@ def plane_layouts(xs) -> str:
                      if isinstance(x, torch.Tensor) and x.dim() == 4)
 
 
-def deferred_census(dargs, dkw) -> str:
+def deferred_census(dargs, dkw) -> tuple[dict[str, int], str]:
     """Kernel D's light loop on its inputs, from the plain version run over
     the first s active lights for s = 1..n (its hit counter then says which
     pixels light s hit): lit pixels, (pixel, light) hits, and the bodies a
     full loop evaluates (pixels x lights) against those of a loop that skips
-    a light for a warp (32 pixels of a row) none of whose lit pixels it hits."""
+    a light for a warp (32 pixels of a row) none of whose lit pixels it hits.
+    Returns ({pixels, lights, lit_hits}, the census line)."""
     from direct12pbrrenderer_tpu_torch.ops import shade_fused
 
     const, lights, gb = dargs[0], dargs[1], dargs[8]
@@ -1026,18 +1074,21 @@ def deferred_census(dargs, dkw) -> str:
     for s in range(1, n + 1):
         c = const.clone()
         c[21] = s
-        count = shade_fused.deferred_kernel_reference(c, *dargs[1:], **dkw)[:, 3]
+        count = shade_fused.deferred_kernel_reference(c, *dargs[1:], **dict(dkw,
+                                                                          light_dtype=None))[:, 3]
         hit = count > prev
         prev = count
         lit_hits += int((hit & mask).sum())
         runs = int((hit & mask).reshape(-1, 32).any(-1).sum())
         warp_lights += runs
         skip.append(1 - runs / n_warps)
-    return (f"census: {n_px} pixels, lit share {float(mask.float().mean()):.4f}; (pixel, light) "
-            f"hits {int(prev.sum())} ({lit_hits} on lit pixels) of {n_px * n} pairs; light "
-            f"bodies evaluated by a full loop {n_px * n}, by the warp skip {32 * warp_lights} "
-            f"({32 * warp_lights / max(n_px * n, 1):.4f}); share of warps that skip each light "
-            f"{[round(x, 4) for x in skip]}")
+    counts = {"pixels": n_px, "lights": n, "lit_hits": lit_hits}
+    return counts, (
+        f"census: {n_px} pixels, lit share {float(mask.float().mean()):.4f}; (pixel, light) "
+        f"hits {int(prev.sum())} ({lit_hits} on lit pixels) of {n_px * n} pairs; light "
+        f"bodies evaluated by a full loop {n_px * n}, by the warp skip {32 * warp_lights} "
+        f"({32 * warp_lights / max(n_px * n, 1):.4f}); share of warps that skip each light "
+        f"{[round(x, 4) for x in skip]}")
 
 
 def camera_path(cam, n):
@@ -1052,8 +1103,9 @@ def camera_path(cam, n):
 def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
     """Render `path` with every launch count set to 0 just before and read
     just after; fail when a kernel of the path launched fewer times than
-    `want`, or a kernel in `absent` launched at all (kernel I too, unless
-    `want` names it). Returns (host ms per frame, launches)."""
+    `want`, or a kernel in `absent` launched at all (kernel I and D's
+    light_dtype instances too, unless `want` names them). Returns (host ms
+    per frame, launches)."""
     torch.cuda.synchronize()
     reset_launches()
     times = []
@@ -1067,7 +1119,7 @@ def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
         if launches[name] < n:
             fail(phase, f"kernel {name} launched {launches[name]} times in {len(path)} "
                  f"frames, want >= {n}")
-    for name in (*absent, *[WIDE] * (WIDE not in want)):
+    for name in (*absent, *(k for k in INSTANCES if k not in want)):
         if launches[name]:
             fail(phase, f"kernel {name} launched {launches[name]} times, want none")
     return times, launches
@@ -1092,6 +1144,163 @@ def fidelity(pipe, ref, cam) -> tuple[float, int]:
     pipe.avg_luminance = prev
     b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
     return float(np.sqrt(np.mean((a / 255.0 - b / 255.0) ** 2))), int((a != b).any(-1).sum())
+
+
+def frame_bf16(dev, smi, scene, cfg, knobs, pipe, ref, cam) -> None:
+    """[frame-bf16]: the textured cell with fused_light_dtype="bfloat16"
+    (kernels A, B, C and D's bfloat16 light loop), BF16_FRAMES frames with
+    the launch counts set to 0 just before; at the last pose its frame
+    against the float32 pipeline's (`pipe`) and the all-plain one (`ref`):
+    the rmse is printed, not gated (bfloat16 shading misses the 1e-3 bar,
+    shade_pallas.py:221-223); its FrameStats must equal the float32
+    pipeline's and its fallback counters be 0 at the cell's caps."""
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    phase = "frame-bf16"
+    bf16 = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS,
+                                  fused_light_dtype="bfloat16", **knobs)
+    path = camera_path(cam, WARMUP + BF16_FRAMES)
+    for c in path[:WARMUP]:
+        bf16.render(c)
+    times, launches = run_frames(phase, bf16, path[WARMUP:], {
+        "raster_interp": BF16_FRAMES, "fused_cover": 4 * BF16_FRAMES,
+        "resolve_shade": BF16_FRAMES, "deferred_shade": BF16_FRAMES,
+        "deferred_shade_bfloat16": BF16_FRAMES}, absent=("env_resolve", "point_lights"))
+    pose, keep = path[-1], pipe.avg_luminance.clone()
+    rmse_f32, ndiff_f32 = fidelity(bf16, pipe, pose)
+    stats = bf16.last_stats
+    rmse_plain, ndiff_plain = fidelity(bf16, ref, pose)
+    pipe.avg_luminance = keep.clone()
+    pipe.render(pose)
+    pipe.avg_luminance = keep
+    if stats != pipe.last_stats:
+        fail(phase, f"FrameStats {stats} differ from the float32 frame's {pipe.last_stats}")
+    if stats.tex_approx_taps or stats.env_approx_taps or stats.bin_overflow:
+        fail(phase, f"fallbacks at the cell's caps: {stats}")
+    if rmse_f32 == 0.0:
+        fail(phase, "the bfloat16 frame equals the float32 frame")
+    say(phase, f"fused_light_dtype=bfloat16, {BF16_FRAMES} frames {W}x{H} on {smi}: mean "
+        f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "
+        f"frame); kernel launches {launches}; rmse vs the float32 frame {rmse_f32:.6f} "
+        f"({ndiff_f32} pixels differ), vs use_pallas=False, use_tex_kernel=False "
+        f"{rmse_plain:.6f} ({ndiff_plain} pixels differ; not gated, bar {RMSE_BAR} for the "
+        f"float32 frame); FrameStats equal to the float32 frame's: {stats}")
+
+
+def deferred_dtypes(dev, smi, cam, knobs, measured, bounds) -> dict[str, int]:
+    """[kernel-deferred-dtypes]: kernel D's float32, bfloat16 and float16
+    light loops on 1920x1080 frames at DTYPE_LIGHTS (64) active lights, D's
+    most: the 1024-light cell's scene with max_active_lights=64, which keeps
+    the fused deferred pass (kernels A, B, C, D). For each light_dtype, a
+    pipeline built with that fused_light_dtype renders DTYPE_FRAMES frames
+    with the launch counts set to 0 just before (its instance must launch
+    once a frame); then one more frame's D call is recorded, the instance
+    held to its plain version bit for bit and timed through its wrapper
+    (CUDA events) and alone (torch.profiler), beside its plain version and
+    the float32 loop with division (light_dtype None) on the same inputs.
+    The bound is the larger of D's byte bound (`deferred_bytes`) and its
+    operations: the sphere tests of every (pixel, light) pair at the float32
+    rate and, for each (lit pixel, light) hit, the body's operations in the
+    loop's type at its rate (float32 67 TFLOP/s; bfloat16 and float16 133.8
+    TFLOP/s, the H100 SXM's non-tensor rate, Hopper whitepaper) and its
+    float32 ones at 67. Returns each instance's launches."""
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.ops import shade_fused
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+
+    phase = "kernel-deferred-dtypes"
+    scene = stress_scene(*L1K_CELLS, 256, 80.0, n_lights=L1K_LIGHTS)
+    cfg = RenderConfig(W, H, max_instances=2, max_lights=L1K_LIGHTS)
+    d_knobs = dict(knobs, bin_cap=L1K_BIN_CAP, max_active_lights=DTYPE_LIGHTS)
+    launches, census = {}, None
+    for name, ld in D_DTYPES.items():
+        t0 = time.perf_counter()
+        pipe = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS,
+                                      fused_light_dtype=ld, **d_knobs)
+        if not pipe.use_fused_deferred:
+            fail(phase, f"max_active_lights={DTYPE_LIGHTS} did not take the fused deferred pass")
+        path = camera_path(cam, 1 + DTYPE_FRAMES)
+        pipe.render(path[0])
+        _, counts = run_frames(phase, pipe, path[1:], {
+            "raster_interp": DTYPE_FRAMES, "fused_cover": 4 * DTYPE_FRAMES,
+            "resolve_shade": DTYPE_FRAMES, "deferred_shade": DTYPE_FRAMES, name: DTYPE_FRAMES},
+            absent=("env_resolve", "point_lights"))
+        launches[name] = counts[name]
+        with recording(shade_fused, "deferred_kernel") as calls:
+            pipe.render(path[-1], collect_stats=False)
+            torch.cuda.synchronize()
+        (dargs, dkw), = calls
+        if int(dargs[0][21]) != DTYPE_LIGHTS or dkw["light_dtype"] != ld:
+            fail(phase, f"kernel D ran {int(dargs[0][21])} active lights with light_dtype "
+                 f"{dkw['light_dtype']!r}, want {DTYPE_LIGHTS} and {ld!r}")
+        if census is None:
+            census, census_text = deferred_census(dargs, dkw)
+
+        def call(kw=dkw):
+            return shade_fused.deferred_kernel(*dargs, **kw)
+
+        def plain():
+            return shade_fused.deferred_kernel_reference(*dargs, **dkw)
+
+        err = check_deferred(phase, call(), plain())
+        ms = cuda_ms(call, 20)
+        alone, _ = device_ms(call, 10, "deferred_shade")
+        plain_ms = cuda_ms(plain, 2)
+        f32_ms = cuda_ms(lambda: call(dict(dkw, light_dtype=None)), 20)
+        rate = F32_FLOP_PER_S if ld == "float32" else F16_FLOP_PER_S
+        t_bytes = deferred_bytes(dargs, dkw)[0] / HBM_BYTES_PER_S * 1e3
+        t_ops = (census["pixels"] * census["lights"] * D_SPHERE_OPS / F32_FLOP_PER_S
+                 + census["lit_hits"] * (D_BODY_OPS / rate + D_BODY_F32_OPS / F32_FLOP_PER_S)
+                 ) * 1e3
+        bounds[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        measured[name] = (err, ms, plain_ms, alone)
+        say(phase, f"light_dtype={ld} on {smi}: {tuple(dargs[5].shape)} env taps, "
+            f"{DTYPE_LIGHTS} active lights, {DTYPE_FRAMES} frames launched it {counts[name]} times (launches "
+            f"{counts}); bit-equal to the plain version (max abs diff {err:.3e}); kernel "
+            f"{ms:.4f} ms through its wrapper (CUDA events), the kernel alone {alone:.4f} ms "
+            f"(torch.profiler), plain {plain_ms:.4f} ms, the float32 loop with division on the "
+            f"same inputs {f32_ms:.4f} ms; bound {bounds[name][0]:.4f} ms ({bounds[name][1]}: "
+            f"bytes {t_bytes:.4f} ms at 3.35 TB/s; operations {t_ops:.4f} ms, the body at "
+            f"{rate / 1e12:.1f} TFLOP/s for {ld}, the sphere tests and the body's float32 "
+            f"operations at 67 TFLOP/s); {time.perf_counter() - t0:.1f} s")
+        del pipe, calls, dargs
+        torch.cuda.empty_cache()
+    say(phase, census_text)
+    return launches
+
+
+def checklist_phase(smi, tree) -> None:
+    """[checklist]: tools/checklist as a user runs it, in a process of its
+    own, on tree T at the App's 1440x960, `--only
+    baseline,budget,envbudget,rpc`: one JSON line a check, then ALL. Fails
+    on a non-zero exit or a missing line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "direct12pbrrenderer_tpu_torch.tools.checklist", "--asset-root",
+         str(tree), "--width", "1440", "--height", "960", "--only",
+         "baseline,budget,envbudget,rpc"], capture_output=True, text=True, timeout=900, cwd=ROOT)
+    if proc.returncode:
+        fail("checklist", f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = {}
+    for text in proc.stdout.splitlines():
+        if text.startswith("{"):
+            line = json.loads(text)
+            lines[line.pop("check")] = line
+    rec = lines.get("env_census", {}).get("recommended")
+    want = ["frame_baseline", "stage_budget_full", "stage_budget_448", "stage_budget_256",
+            "env_census", "env_budget_full", f"env_budget_{rec}", "env_budget_48", "rpc", "ALL"]
+    missing = [k for k in dict.fromkeys(want) if k not in lines]
+    if missing:
+        fail("checklist", f"no line for {missing}: {proc.stdout[-3000:]}")
+    rpc = lines["rpc"]
+    say("checklist", f"python -m direct12pbrrenderer_tpu_torch.tools.checklist --width 1440 "
+        f"--height 960 --only baseline,budget,envbudget,rpc on tree T, on {smi}, in "
+        f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+            f"{k} {json.dumps(lines[k])}" for k in dict.fromkeys(want) if k != "ALL")
+        + f"; the device frame alone is {rpc['exec_only_ms'] / rpc['full_render_ms']:.3f} of "
+        f"render()'s time, the camera upload adds "
+        f"{rpc['with_upload_ms'] - rpc['exec_only_ms']:.3f} ms, the host-side packing "
+        f"{rpc['full_render_ms'] - rpc['with_upload_ms']:.3f} ms")
 
 
 def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
@@ -2014,8 +2223,8 @@ def census_main_phase(smi, tree) -> None:
 
 
 def app_cells(dev, smi, tmp) -> None:
-    """[app-tree], [app], [viewer], [profile-app], [census-main] on a tree
-    under `tmp`."""
+    """[app-tree], [app], [viewer], [profile-app], [census-main],
+    [checklist] on a tree under `tmp`."""
     t0 = time.perf_counter()
     tree = tmp / "T"
     info = app_tree(tree, tmp / "src", APP_CELLS, APP_GRID)
@@ -2040,6 +2249,7 @@ def app_cells(dev, smi, tmp) -> None:
     torch.cuda.empty_cache()
     census_main_phase(smi, tree)
     torch.cuda.empty_cache()
+    checklist_phase(smi, tree)
 
 
 def light_census(args, kw, counter) -> dict[str, int]:
@@ -2670,33 +2880,35 @@ def main(argv=None) -> None:
     def deferred():
         return shade_fused.deferred_kernel(*dargs, **dkw)
 
-    err_d, bad_d = check_deferred("kernel-deferred", deferred(),
-                                  shade_fused.deferred_kernel_reference(*dargs, **dkw))
+    err_d = check_deferred("kernel-deferred", deferred(),
+                           shade_fused.deferred_kernel_reference(*dargs, **dkw))
     ms_d = cuda_ms(deferred, 20)
     cold_d = cold_ms(deferred, 20)
     host_d = host_ms(deferred, 20)
     alone_d, busy_d = device_ms(deferred, 10, "deferred_shade")
     plain_ms_d = cuda_ms(lambda: shade_fused.deferred_kernel_reference(*dargs, **dkw), 3)
-    # const, lights, off and cnts, the planes' words that the output reads,
-    # of the staged pages the words its taps address, and the (tiles, 4,
-    # blocks, 128) output; about 60 flops per pixel and active light. The
-    # earlier bound read every word of every input.
+    # the words the output reads (deferred_bytes); about 60 flops per pixel
+    # and active light. The earlier bound read every word of every input.
     rec_d = dargs[5]
     px_d = rec_d.shape[0] * rec_d.shape[2] * 128
+    bytes_d, every_word_d = deferred_bytes(dargs, dkw)
     reads_d = deferred_reads(dargs, dkw)
-    bounds["deferred_shade"] = bound(
-        nbytes(*dargs[:4]) + sum(int(m.sum()) * 4 for m in reads_d.values())
-        + staged_read_bytes(*dargs[2:6], 8, reads_d["rec"]) + px_d * 4 * 4,
-        px_d * float(dargs[0][21]) * 60)
-    EARLIER_BOUNDS["deferred_shade"] = bound(
-        nbytes(*dargs[:4], *dargs[5:]) + staged_read_bytes(*dargs[2:6], 8) + px_d * 4 * 4,
-        px_d * float(dargs[0][21]) * 60)[0]
+    bounds["deferred_shade"] = bound(bytes_d, px_d * float(dargs[0][21]) * 60)
+    EARLIER_BOUNDS["deferred_shade"] = bound(every_word_d, px_d * float(dargs[0][21]) * 60)[0]
     lit_d = dargs[8][:, 10] > 0.5
     taps_lit = float(reads_d["rec"].sum(1)[lit_d].float().mean())
     ops_d = only_kernel("kernel-deferred", deferred, "deferred_shade")
+    # the light_dtype instances on these inputs, where 64% of the light
+    # bodies run (comparison launches: the paths' counts are reset later)
+    dtype_ms = {}
+    for ld in D_DTYPES.values():
+        kw = dict(dkw, light_dtype=ld)
+        check_deferred("kernel-deferred", shade_fused.deferred_kernel(*dargs, **kw),
+                       shade_fused.deferred_kernel_reference(*dargs, **kw))
+        dtype_ms[ld] = cuda_ms(lambda: shade_fused.deferred_kernel(*dargs, **kw), 20)
     say("kernel-deferred", f"{tuple(dargs[5].shape)} env taps, {int(dargs[0][21])} active "
-        f"lights: ok ({bad_d:.2e} of pixels outside rtol {D_RTOL}/atol {D_ATOL}, max abs "
-        f"diff {err_d:.3e}), kernel {ms_d:.4f} ms through its wrapper (CUDA events; "
+        f"lights: ok (bit-equal to the plain version, max abs diff {err_d:.3e}), kernel "
+        f"{ms_d:.4f} ms through its wrapper (CUDA events; "
         f"{cold_d:.4f} ms with the L2 evicted before each call; host time {host_d:.4f} ms a "
         f"call), the kernel alone "
         f"{alone_d:.4f} ms, the rest of the call's device work (layout copies) "
@@ -2706,7 +2918,9 @@ def main(argv=None) -> None:
         f"ms); env taps the output reads: {taps_lit:.3f} per lit pixel (the kernel gathers "
         f"{rec_d.shape[1] - 1}), 1 per background pixel; one call dispatches {ops_d} and "
         f"traces only its kernel; planes' strides {plane_layouts(dargs[5:])}; "
-        f"{deferred_census(dargs, dkw)}")
+        f"{deferred_census(dargs, dkw)[1]}; the light_dtype instances on these inputs, each "
+        f"bit-equal to its plain version, through the wrapper (CUDA events): "
+        + ", ".join(f"{ld} {ms:.4f} ms" for ld, ms in dtype_ms.items()))
     del shade_calls, deferred_calls, sargs, dargs
 
     # ---- GBuffer pass stages of both paths ---------------------------------
@@ -2799,6 +3013,7 @@ def main(argv=None) -> None:
         fail("fidelity-planar", f"frame rmse vs use_pallas=False {rmse:.6f} > {RMSE_BAR}")
     say("fidelity-planar", f"use_tex_kernel=False frame rmse vs use_pallas=False on the card "
         f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ")
+    frame_bf16(dev, smi, scene, cfg, knobs, pipe, ref, path[-1])
     del planar, ref
     torch.cuda.empty_cache()
     measured.update({"fused_cover": (0.0, ms_b, plain_ms_b, sum(cover_alone_ms)),
@@ -2813,6 +3028,8 @@ def main(argv=None) -> None:
 
     launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
+    torch.cuda.empty_cache()
+    launches.update(deferred_dtypes(dev, smi, cam, knobs, measured, bounds))
     torch.cuda.empty_cache()
     band_phases(smi)
     n_h_assets = asset_auto(dev, cam, smi)

@@ -21,9 +21,11 @@
 //     0/1 multiply would let a NaN of a degenerate row through; on finite
 //     values the two agree exactly);
 //   * the TPU kernel's formulas in its association order, every product and
-//     sum rounded separately (--fmad=false); logf/powf/sqrtf at full
-//     precision (a one-ulp change in log can move a pixel's cluster slice,
-//     which is why this kernel is held to a tolerance, not to bit-equality).
+//     sum rounded separately (--fmad=false); logf/powf at full precision,
+//     sqrt and division correctly rounded, as the plain version's torch ops
+//     compute them on the card, where the two agree bit for bit (against the
+//     JAX package on a CPU a one-ulp change in log can move a pixel's
+//     cluster slice, hence the tolerance of the CPU tests).
 //
 // What bounds it on an H100: bytes, 14 + 3 x G planar words in, up to 8
 // staged words per tap and 4 words out per pixel; the light loop is about
@@ -46,7 +48,28 @@
 //     slice's two;
 //   * the active-light rows (at most 64 x 14 floats) and the const vector
 //     sit in shared memory, read by every thread at once (a broadcast).
+//
+// The light loop's instances (the TPU kernel's static light_dtype,
+// shade_pallas.py:218-312), one template each, selected at launch:
+//   * F32Div (light_dtype None): float32, a / b;
+//   * F32Rcp ("float32"), Bf16 ("bfloat16"), F16 ("float16"): the
+//     loop-invariant per-pixel fields are cast once to T, a light row's
+//     words 0-9 are cast to T as they are read from the float32 rows in
+//     shared memory, every product and sum of the body is rounded to T (the
+//     _rn intrinsics: nothing contracts into an FMA, which --fmad=false does
+//     not govern for them), sqrt and the reciprocal go through float32
+//     correctly rounded (__fsqrt_rn, __frcp_rn) and are rounded back, a
+//     division is a * T(1 / f32(b)), each constant is rounded to T first
+//     (JAX's weak typing), the cluster-sphere test and the hit counter stay
+//     float32, and each channel's contribution is converted to float32 and
+//     accumulated there. Max is NaN-propagating (jnp.maximum), through
+//     float32, where it is exact.
+// Scalar arithmetic, one pixel a thread (packing two pixels a bf16x2 is
+// later speed work). The warp vote on a light's hits stays ahead of the
+// typed body.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,7 +104,101 @@ __device__ __forceinline__ float maxf(float a, float b) { return (a > b || a != 
 __device__ __forceinline__ float minf(float a, float b) { return (a < b || a != a) ? a : b; }
 __device__ __forceinline__ float clampf(float x, float lo, float hi) { return minf(maxf(x, lo), hi); }
 
-template <int kGroups>  // 4, or 5 with env content (the cascade group 4)
+// ---- the light loop's types -----------------------------------------------
+struct F32Div {  // light_dtype None: float32, division
+  using T = float;
+  static __device__ __forceinline__ T cast(float x) { return x; }
+  static __device__ __forceinline__ float up(T x) { return x; }
+  static __device__ __forceinline__ T add(T a, T b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ T sub(T a, T b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ T mul(T a, T b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ T sqrt_(T x) { return __fsqrt_rn(x); }
+  static __device__ __forceinline__ T div(T a, T b) { return __fdiv_rn(a, b); }
+};
+
+struct F32Rcp : F32Div {  // "float32": a * (1 / b)
+  static __device__ __forceinline__ T div(T a, T b) { return __fmul_rn(a, __frcp_rn(b)); }
+};
+
+template <class L>  // a 16-bit type: sqrt and the reciprocal through float32
+struct Half16 : L {
+  using T = typename L::T;
+  static __device__ __forceinline__ T sqrt_(T x) { return L::cast(__fsqrt_rn(L::up(x))); }
+  static __device__ __forceinline__ T div(T a, T b) {
+    return L::mul(a, L::cast(__frcp_rn(L::up(b))));
+  }
+};
+
+struct Bf16Ops {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T cast(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ float up(T x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ T add(T a, T b) { return __hadd_rn(a, b); }
+  static __device__ __forceinline__ T sub(T a, T b) { return __hsub_rn(a, b); }
+  static __device__ __forceinline__ T mul(T a, T b) { return __hmul_rn(a, b); }
+};
+
+struct F16Ops {
+  using T = __half;
+  static __device__ __forceinline__ T cast(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ float up(T x) { return __half2float(x); }
+  static __device__ __forceinline__ T add(T a, T b) { return __hadd_rn(a, b); }
+  static __device__ __forceinline__ T sub(T a, T b) { return __hsub_rn(a, b); }
+  static __device__ __forceinline__ T mul(T a, T b) { return __hmul_rn(a, b); }
+};
+
+using Bf16 = Half16<Bf16Ops>;
+using F16 = Half16<F16Ops>;
+
+// The per-pixel fields the light body reads, cast once to the loop's type
+template <class L>
+struct PixelT {
+  using T = typename L::T;
+  T px, py, pz, vdx, vdy, vdz, nx, ny, nz, ndv, a2, kgeo, gv, f0[3], kd[3];
+};
+
+// One light's contribution to the three channels (shade_pallas.py:264-306),
+// every step rounded to L::T, in the TPU kernel's association order.
+template <class L>
+__device__ __forceinline__ void light_body(const float* lp, const PixelT<L>& q, float out[3]) {
+  using T = typename L::T;
+  const T one = L::cast(1.f), zero = L::cast(0.f), eps = L::cast(F(1e-6));
+  auto mx = [](T a, T b) { return L::cast(maxf(L::up(a), L::up(b))); };
+  auto add = [](T a, T b) { return L::add(a, b); };
+  auto sub = [](T a, T b) { return L::sub(a, b); };
+  auto mul = [](T a, T b) { return L::mul(a, b); };
+  T ldx = sub(L::cast(lp[0]), q.px), ldy = sub(L::cast(lp[1]), q.py),
+    ldz = sub(L::cast(lp[2]), q.pz);
+  const T dist = L::sqrt_(add(add(mul(ldx, ldx), mul(ldy, ldy)), mul(ldz, ldz)));
+  const T inv_d = L::div(one, mx(dist, L::cast(F(1e-20))));
+  ldx = mul(ldx, inv_d);
+  ldy = mul(ldy, inv_d);
+  ldz = mul(ldz, inv_d);
+  const T n_dot_l = mx(add(add(mul(q.nx, ldx), mul(q.ny, ldy)), mul(q.nz, ldz)), zero);
+  const T hx = add(ldx, q.vdx), hy = add(ldy, q.vdy), hz = add(ldz, q.vdz);
+  const T inv_h = L::div(one, mx(L::sqrt_(add(add(mul(hx, hx), mul(hy, hy)), mul(hz, hz))), eps));
+  const T n_dot_h = mx(mul(add(add(mul(q.nx, hx), mul(q.ny, hy)), mul(q.nz, hz)), inv_h), zero);
+  const T t_ = add(mul(mul(n_dot_h, n_dot_h), sub(q.a2, one)), one);
+  const T d_ggx = L::div(q.a2, mx(mul(mul(L::cast(F(3.14159265359)), t_), t_), eps));
+  const T g_l = L::div(n_dot_l, mx(add(mul(n_dot_l, sub(one, q.kgeo)), q.kgeo), eps));
+  const T spec_s = L::div(mul(d_ggx, mul(q.gv, g_l)),
+                          mx(mul(mul(L::cast(4.f), n_dot_l), q.ndv), L::cast(F(1e-4))));
+  const T one_m = mx(sub(one, n_dot_l), eps);
+  const T om2 = mul(one_m, one_m);
+  const T pow5 = mul(mul(om2, om2), one_m);
+  const T att = L::div(one, mx(add(add(L::cast(lp[7]), mul(L::cast(lp[8]), dist)),
+                                   mul(L::cast(lp[9]), mul(dist, dist))), eps));
+  const T lum = mul(mul(L::cast(lp[6]), att), n_dot_l);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const T fres = add(q.f0[c], mul(sub(one, q.f0[c]), pow5));
+    out[c] = L::up(mul(add(mul(sub(one, fres), q.kd[c]), mul(fres, spec_s)),
+                       mul(L::cast(lp[3 + c]), lum)));
+  }
+}
+
+template <int kGroups, class L>  // 4, or 5 with env content (the cascade
+                                 // group 4); L the light loop's type
 __global__ void __launch_bounds__(kThreads) deferred_shade_kernel(Args a) {
   __shared__ float s_cst[kConst];
   __shared__ float s_lt[kMaxLights * 14];
@@ -232,7 +349,27 @@ __global__ void __launch_bounds__(kThreads) deferred_shade_kernel(Args a) {
   const float g_v = n_dot_v / maxf(n_dot_v * (1.f - k_geo) + k_geo, F(1e-6));
 
   // ---- clustered point lights (hlsl:158-186) ----------------------------
-  // the sphere test first; the body only where a lit lane of the warp hits
+  // the loop-invariant fields in the loop's type, once
+  PixelT<L> q;
+  q.px = L::cast(posx);
+  q.py = L::cast(posy);
+  q.pz = L::cast(posz);
+  q.vdx = L::cast(vdx);
+  q.vdy = L::cast(vdy);
+  q.vdz = L::cast(vdz);
+  q.nx = L::cast(nx);
+  q.ny = L::cast(ny);
+  q.nz = L::cast(nz);
+  q.ndv = L::cast(n_dot_v);
+  q.a2 = L::cast(a2);
+  q.kgeo = L::cast(k_geo);
+  q.gv = L::cast(g_v);
+  for (int c = 0; c < 3; ++c) {
+    q.f0[c] = L::cast(f0[c]);
+    q.kd[c] = L::cast(kd_alb[c]);
+  }
+  // the sphere test first (float32); the body only where a lit lane of the
+  // warp hits
   float acc[3] = {0.f, 0.f, 0.f};
   float counter = 0.f;
   for (int s = 0; s < n_active; ++s) {
@@ -242,30 +379,10 @@ __global__ void __launch_bounds__(kThreads) deferred_shade_kernel(Args a) {
     const float dz = lp[12] - clampf(lp[12], znear_c, zfar_c);
     const bool hit = (dx * dx + dy * dy + dz * dz) < lp[13] * lp[13] && counter < kMaxPerCluster;
     if (__any_sync(kFull, hit && mask)) {
-      float ldx = lp[0] - posx, ldy = lp[1] - posy, ldz = lp[2] - posz;
-      const float dist = sqrtf(ldx * ldx + ldy * ldy + ldz * ldz);
-      const float inv_d = 1.f / maxf(dist, F(1e-20));
-      ldx = ldx * inv_d;
-      ldy = ldy * inv_d;
-      ldz = ldz * inv_d;
-      const float n_dot_l = maxf(nx * ldx + ny * ldy + nz * ldz, 0.f);
-      const float hx = ldx + vdx, hy = ldy + vdy, hz = ldz + vdz;
-      const float inv_h = 1.f / maxf(sqrtf(hx * hx + hy * hy + hz * hz), F(1e-6));
-      const float n_dot_h = maxf((nx * hx + ny * hy + nz * hz) * inv_h, 0.f);
-      const float t_ = n_dot_h * n_dot_h * (a2 - 1.f) + 1.f;
-      const float d_ggx = a2 / maxf(F(3.14159265359) * t_ * t_, F(1e-6));
-      const float g_l = n_dot_l / maxf(n_dot_l * (1.f - k_geo) + k_geo, F(1e-6));
-      const float spec_s = d_ggx * (g_v * g_l) / maxf(4.f * n_dot_l * n_dot_v, F(1e-4));
-      const float one_m = maxf(1.f - n_dot_l, F(1e-6));
-      const float om2 = one_m * one_m;
-      const float pow5 = om2 * om2 * one_m;
-      const float att = 1.f / maxf(lp[7] + lp[8] * dist + lp[9] * (dist * dist), F(1e-6));
-      const float lum = lp[6] * att * n_dot_l;
+      float contrib[3];
+      light_body<L>(lp, q, contrib);
       if (hit) {
-        for (int c = 0; c < 3; ++c) {
-          const float fres = f0[c] + (1.f - f0[c]) * pow5;
-          acc[c] = acc[c] + ((1.f - fres) * kd_alb[c] + fres * spec_s) * (lp[3 + c] * lum);
-        }
+        for (int c = 0; c < 3; ++c) acc[c] = acc[c] + contrib[c];
       }
     }
     if (hit) counter = counter + 1.f;
@@ -280,18 +397,30 @@ __global__ void __launch_bounds__(kThreads) deferred_shade_kernel(Args a) {
   a.out[((size_t)t * 4 + 3) * plane + px] = counter;
 }
 
+template <class L>
+void launch(const Args& a, bool has_env, dim3 grid, cudaStream_t st) {
+  if (has_env) {
+    deferred_shade_kernel<5, L><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    deferred_shade_kernel<4, L><<<grid, kThreads, 0, st>>>(a);
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error (0 = launched). planes: rec, fx,
 // fy, gb; strides: their (tile, group, row, lane) element strides, 4 each.
+// light_dtype: the light loop's instance, 0 None (float32, division), 1
+// "float32", 2 "bfloat16", 3 "float16"; any other value is an error.
 extern "C" int deferred_shade_launch(const float* cst, const float* lights, int light_pool,
                                      const int* off, const int* cnts, const int* staged,
                                      int budget, const void* const* planes,
                                      const long long* strides, int tiles, int n_groups,
                                      int blocks, int has_env, int tile_h, int tile_w,
-                                     int tiles_x, float* out, void* stream) {
+                                     int tiles_x, int light_dtype, float* out, void* stream) {
   if (light_pool < 1 || light_pool > kMaxLights || n_groups != 4 + (has_env != 0) ||
-      tile_w % 128 || blocks * 128 != tile_h * tile_w || tiles < 1 || tiles > 65535) {
+      tile_w % 128 || blocks * 128 != tile_h * tile_w || tiles < 1 || tiles > 65535 ||
+      light_dtype < 0 || light_dtype > 3) {
     return (int)cudaErrorInvalidValue;
   }
   tap_planes::Plane pl[4];
@@ -300,10 +429,11 @@ extern "C" int deferred_shade_launch(const float* cst, const float* lights, int 
                light_pool, budget, blocks, tile_h, tile_w, tiles_x};
   const dim3 grid(blocks, tiles);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (has_env) {
-    deferred_shade_kernel<5><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    deferred_shade_kernel<4><<<grid, kThreads, 0, st>>>(a);
+  switch (light_dtype) {
+    case 0: launch<F32Div>(a, has_env, grid, st); break;
+    case 1: launch<F32Rcp>(a, has_env, grid, st); break;
+    case 2: launch<Bf16>(a, has_env, grid, st); break;
+    default: launch<F16>(a, has_env, grid, st); break;
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,15 @@ between the two: a CUDA input either launches the kernel or raises. Both
 mask each light's contribution with a select (the TPU kernel multiplies by
 a 0/1 gate, which lets a NaN of a degenerate light row through); on finite
 values the two agree exactly.
+
+`light_dtype` (the pipeline's `fused_light_dtype`) selects the TPU kernel's
+light-loop instance (shade_pallas.py:218-312): None, float32 with division;
+or "float32", "bfloat16", "float16", where the loop-invariant per-pixel
+fields and each light row's words 0-9 are cast once to that type, every
+product and sum of a light's body is rounded to it, sqrt and the reciprocal
+go through float32 (a division is a * T(1 / float32(b))), every Python
+constant is rounded to it first (JAX's weak typing), the cluster-sphere test
+stays in float32 and each channel's contribution is accumulated in float32.
 """
 
 from __future__ import annotations
@@ -46,21 +55,32 @@ GB_CH = 14    # kernel gb channels [albedo(3), emission, normal(3), roughness,
 CONST_LEN = 64
 MAX_LIGHTS = 64
 _KERNEL = "deferred_shade"
+# the light loop's instances: None (float32, division) and the TPU kernel's
+# light_dtype values, with the code deferred_shade_launch selects them by
+LIGHT_DTYPES = {None: (torch.float32, 0), "float32": (torch.float32, 1),
+                "bfloat16": (torch.bfloat16, 2), "float16": (torch.float16, 3)}
+
+
+def check_light_dtype(light_dtype) -> None:
+    if light_dtype not in LIGHT_DTYPES:
+        raise ValueError(f"light_dtype must be one of {list(LIGHT_DTYPES)}, got "
+                         f"{light_dtype!r}")
 
 
 def deferred_kernel(const, lights, off, cnts, staged, rec, fx, fy, gb, *, has_env: bool,
-                    tile_h: int, tile_w: int, tiles_x: int):
+                    tile_h: int, tile_w: int, tiles_x: int, light_dtype: str | None = None):
     """Kernel D on one frame's tiles. const (64,) f32 [tan_half, ratio,
     near, far, cam(3), yoff, R(9) row-major inv_view[:3,:3], fw, fh,
     log(far/near), far/near, n_active, pad(2), sh_pack(28), pad]; lights
     (L <= 64, 14) active-light rows; off/cnts (tiles, G) int32; staged
     (tiles, B*8, 128) int32 env pages; rec/fx/fy (tiles, G, blocks, 128); gb
-    (tiles, 14, blocks, 128) f32. -> (tiles, 4, blocks, 128) f32 [rgb,
-    cluster-hit counter]."""
+    (tiles, 14, blocks, 128) f32; light_dtype one of LIGHT_DTYPES. ->
+    (tiles, 4, blocks, 128) f32 [rgb, cluster-hit counter]."""
+    check_light_dtype(light_dtype)
     if rec.device.type == "cpu":
         return deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
                                          has_env=has_env, tile_h=tile_h, tile_w=tile_w,
-                                         tiles_x=tiles_x)
+                                         tiles_x=tiles_x, light_dtype=light_dtype)
     if rec.device.type != "cuda":
         raise ValueError(f"deferred_kernel: unsupported device {rec.device}")
     tiles, n_groups, blocks, lanes = rec.shape
@@ -104,14 +124,22 @@ def deferred_kernel(const, lights, off, cnts, staged, rec, fx, fy, gb, *, has_en
             const.data_ptr(), lights.data_ptr(), lights.shape[0], off.data_ptr(),
             cnts.data_ptr(), staged.data_ptr(), staged.shape[1] // envcache.REC_I32, ptrs,
             strides, tiles, n_groups, blocks, int(has_env), tile_h, tile_w, tiles_x,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            LIGHT_DTYPES[light_dtype][1], out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"deferred_shade kernel launch failed: CUDA error {err}")
         deferred_kernel.launches += 1
+        if light_dtype is not None:
+            counter = f"{light_dtype}_launches"
+            setattr(deferred_kernel, counter, getattr(deferred_kernel, counter) + 1)
     return out
 
 
 deferred_kernel.launches = 0  # kernel launches in this process (reset by callers)
+# of them, those of each light_dtype instance
+deferred_kernel.float32_launches = 0
+deferred_kernel.bfloat16_launches = 0
+deferred_kernel.float16_launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -122,17 +150,22 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, p, p, p, i, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
-                       i, i, i, i, i, i, i, p, p]
+                       i, i, i, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 # ------------------------------------------------------- plain version ----
 def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb, *,
-                              has_env: bool, tile_h: int, tile_w: int, tiles_x: int):
+                              has_env: bool, tile_h: int, tile_w: int, tiles_x: int,
+                              light_dtype: str | None = None):
     """Plain PyTorch version of kernel D: the same per-pixel formulas in the
     same order over whole (tiles, blocks, 128) planes; the light loop's trip
-    count is read to the host."""
+    count is read to the host. In a 16-bit light_dtype each sum and product
+    of a light's body is one torch op on tensors of that type: float32
+    arithmetic rounded once, the correctly rounded result, as the kernel's
+    `_rn` intrinsics give."""
+    check_light_dtype(light_dtype)
     n_tiles, n_groups, blocks, _ = rec.shape
     dev = rec.device
     res = [resolve_env_group(off, cnts, staged, rec, fx, fy, g) for g in range(n_groups)]
@@ -196,7 +229,10 @@ def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
     posy = camy + (const[11] * cx_ + const[12] * cy_ + const[13] * near) * scale
     posz = camz + (const[14] * cx_ + const[15] * cy_ + const[16] * near) * scale
     vdx, vdy, vdz = camx - posx, camy - posy, camz - posz
-    inv_vl = torch.rsqrt(torch.clamp(vdx * vdx + vdy * vdy + vdz * vdz, min=1e-40))
+    # 1 / sqrt, both correctly rounded, as the CUDA kernel computes it (the
+    # TPU kernel's rsqrt is within an ulp of it; torch.rsqrt on the card is
+    # the approximate rsqrtf)
+    inv_vl = 1.0 / torch.sqrt(torch.clamp(vdx * vdx + vdy * vdy + vdz * vdz, min=1e-40))
     vdx, vdy, vdz = vdx * inv_vl, vdy * inv_vl, vdz * inv_vl
     n_dot_v = torch.clamp(nx * vdx + ny * vdy + nz * vdz, min=0.0)
 
@@ -224,38 +260,74 @@ def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
     k_geo = (rough + 1.0) * (rough + 1.0) * (1.0 / 8.0)
     g_v = n_dot_v / torch.clamp(n_dot_v * (1.0 - k_geo) + k_geo, min=_EPS)
 
+    # the light loop's type (shade_pallas.py:218-245; the module docstring)
+    if light_dtype is None:
+        def ldc(x):
+            return x
+
+        def k(v):
+            return v
+
+        sqrt_ = torch.sqrt
+
+        def div(a, b):
+            return a / b
+    else:
+        ld = LIGHT_DTYPES[light_dtype][0]
+
+        def ldc(x):
+            return x.to(ld)
+
+        def k(v):
+            return torch.tensor(v, dtype=ld, device=dev)
+
+        def sqrt_(x):
+            return torch.sqrt(x.float()).to(ld)
+
+        def div(a, b):
+            return a * (1.0 / b.float()).to(ld)
+    l_px, l_py, l_pz = ldc(posx), ldc(posy), ldc(posz)
+    l_vdx, l_vdy, l_vdz = ldc(vdx), ldc(vdy), ldc(vdz)
+    l_nx, l_ny, l_nz = ldc(nx), ldc(ny), ldc(nz)
+    l_ndv, l_a2, l_kgeo, l_gv = ldc(n_dot_v), ldc(a2), ldc(k_geo), ldc(g_v)
+    l_f0 = [ldc(f) for f in f0]
+    l_kd = [ldc(x) for x in kd_alb]
+    one, zero, eps = k(1.0), k(0.0), k(_EPS)
+
     # clustered point lights (hlsl:158-186): serial, so the cap-32 counter
     # admits lights in row order exactly
     acc = [torch.zeros_like(z_view) for _ in range(3)]
     counter = torch.zeros_like(z_view)
     for s in range(n_active):
         lp = lights[s]
+        # the cluster-sphere test stays float32 under every light_dtype
         dx = lp[10] - torch.minimum(torch.maximum(lp[10], cminx), cmaxx)
         dy = lp[11] - torch.minimum(torch.maximum(lp[11], cminy), cmaxy)
         dz = lp[12] - torch.minimum(torch.maximum(lp[12], znear_c), zfar_c)
         hit = ((dx * dx + dy * dy + dz * dz) < lp[13] * lp[13]) & (
             counter < float(MAX_LIGHTS_PER_CLUSTER))
-        ldx, ldy, ldz = lp[0] - posx, lp[1] - posy, lp[2] - posz
-        dist = torch.sqrt(ldx * ldx + ldy * ldy + ldz * ldz)
-        inv_d = 1.0 / torch.clamp(dist, min=1e-20)
+        lw = [ldc(lp[i]) for i in range(10)]
+        ldx, ldy, ldz = lw[0] - l_px, lw[1] - l_py, lw[2] - l_pz
+        dist = sqrt_(ldx * ldx + ldy * ldy + ldz * ldz)
+        inv_d = div(one, torch.clamp(dist, min=k(1e-20)))
         ldx, ldy, ldz = ldx * inv_d, ldy * inv_d, ldz * inv_d
-        n_dot_l = torch.clamp(nx * ldx + ny * ldy + nz * ldz, min=0.0)
-        hx, hy, hz = ldx + vdx, ldy + vdy, ldz + vdz
-        inv_h = 1.0 / torch.clamp(torch.sqrt(hx * hx + hy * hy + hz * hz), min=_EPS)
-        n_dot_h = torch.clamp((nx * hx + ny * hy + nz * hz) * inv_h, min=0.0)
-        t_ = n_dot_h * n_dot_h * (a2 - 1.0) + 1.0
-        d_ggx = a2 / torch.clamp(_PI * t_ * t_, min=_EPS)
-        g_l = n_dot_l / torch.clamp(n_dot_l * (1.0 - k_geo) + k_geo, min=_EPS)
-        spec_s = d_ggx * (g_v * g_l) / torch.clamp(4.0 * n_dot_l * n_dot_v, min=1e-4)
-        one_m = torch.clamp(1.0 - n_dot_l, min=_EPS)
+        n_dot_l = torch.clamp(l_nx * ldx + l_ny * ldy + l_nz * ldz, min=zero)
+        hx, hy, hz = ldx + l_vdx, ldy + l_vdy, ldz + l_vdz
+        inv_h = div(one, torch.clamp(sqrt_(hx * hx + hy * hy + hz * hz), min=eps))
+        n_dot_h = torch.clamp((l_nx * hx + l_ny * hy + l_nz * hz) * inv_h, min=zero)
+        t_ = n_dot_h * n_dot_h * (l_a2 - one) + one
+        d_ggx = div(l_a2, torch.clamp(k(_PI) * t_ * t_, min=eps))
+        g_l = div(n_dot_l, torch.clamp(n_dot_l * (one - l_kgeo) + l_kgeo, min=eps))
+        spec_s = div(d_ggx * (l_gv * g_l), torch.clamp(k(4.0) * n_dot_l * l_ndv, min=k(1e-4)))
+        one_m = torch.clamp(one - n_dot_l, min=eps)
         om2 = one_m * one_m
         pow5 = om2 * om2 * one_m
-        att = 1.0 / torch.clamp(lp[7] + lp[8] * dist + lp[9] * (dist * dist), min=_EPS)
-        lum = lp[6] * att * n_dot_l
+        att = div(one, torch.clamp(lw[7] + lw[8] * dist + lw[9] * (dist * dist), min=eps))
+        lum = lw[6] * att * n_dot_l
         for c in range(3):
-            fres = f0[c] + (1.0 - f0[c]) * pow5
-            contrib = ((1.0 - fres) * kd_alb[c] + fres * spec_s) * (lp[3 + c] * lum)
-            acc[c] = acc[c] + torch.where(hit, contrib, 0.0)
+            fres = l_f0[c] + (one - l_f0[c]) * pow5
+            contrib = ((one - fres) * l_kd[c] + fres * spec_s) * (lw[3 + c] * lum)
+            acc[c] = acc[c] + torch.where(hit, contrib.float(), 0.0)
         counter = counter + hit.float()
 
     # final = env_diffuse + env_specular + point + emission | sky
@@ -269,10 +341,12 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
                          inv_view, camera_pos, env_ids: tuple, fov: float, ratio: float,
                          near: float, far: float, width: int, height: int, tile_h: int,
                          tile_w: int, y_offset=0, full_height: int | None = None,
-                         full_width: int | None = None, env_budget: int | None = None):
+                         full_width: int | None = None, env_budget: int | None = None,
+                         light_dtype: str | None = None):
     """Fused deferred shading on tile blocks: gb_tiles (tiles, 9, blocks,
     128) quantized G-buffer, z_tiles/id_tiles (tiles, p, 1) raster blocks
-    (inf / -1 on background) -> ((H, W, 3) HDR RT, env_approx_count () int32)."""
+    (inf / -1 on background) -> ((H, W, 3) HDR RT, env_approx_count () int32).
+    `light_dtype`: the light loop's instance (LIGHT_DTYPES)."""
     fh = full_height if full_height is not None else height
     fw = full_width if full_width is not None else width
     n_tiles, _, blocks, _ = gb_tiles.shape
@@ -341,6 +415,7 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
         torch.zeros(12, **f32),
     ])
     out = deferred_kernel(const, active_lights, off_arr, cnts, staged, rec_t, fx_t, fy_t,
-                          gbk, has_env=has_env, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x)
+                          gbk, has_env=has_env, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x,
+                          light_dtype=light_dtype)
     img = _untile(out, height, width, tile_h, tile_w)          # (4, H, W)
     return img[:3].permute(1, 2, 0).contiguous(), env_approx

@@ -213,7 +213,9 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
         active = stages.active_lights(buffers, light_valid, view, pipe.max_active_lights)
         light_counts = None
         if use_fused_deferred:
-            # kernel D: the pixel coordinates ride y_offset / full_height
+            # kernel D: the pixel coordinates ride y_offset / full_height. Its
+            # light loop stays float32 whatever pipe.fused_light_dtype says:
+            # the JAX band frame does not pass its light_dtype either
             rt, env_approx = stages.deferred_shade_fused(
                 gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos, cfg, rw,
                 band_rh, tile_h, tile_w, env_ids, y_offset=y0, full_height=h, full_width=w,

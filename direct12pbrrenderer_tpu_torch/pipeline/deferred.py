@@ -39,9 +39,11 @@ Without `use_pallas` the raster is the plain fold of
 the scene at its pose and sizes `tex_caps` (caps, compact staging budget,
 per-half block caps), `env_budget` and `tex_cascade` from it; the census's
 raster is `stages.rasterize(use_pallas=...)`, on the card the depth-only
-kernel H. The one knob whose path is not ported raises NotImplementedError
-naming its ROADMAP item: `fused_light_dtype` (module queue 8, not to be
-ported). On a CUDA device nothing quietly takes a plain path. The scene and
+kernel H. `fused_light_dtype` ("float32", "bfloat16" or "float16") selects
+kernel D's reduced-precision light loop on the fused deferred pass, as the
+JAX package's knob selects its Pallas kernel's; the band frame
+(`parallel/frame_sharded.py`) keeps the float32 loop, as the JAX band frame
+does. On a CUDA device nothing quietly takes a plain path. The scene and
 the camera are read by attribute only, so the JAX package's objects render
 as well as the port's own.
 """
@@ -64,7 +66,7 @@ from ..config import (
 from ..graph import frame_graph as fg
 from ..ops import bloom as bloom_ops
 from ..ops import (clustered, common, envcache, gbuffer, ibl, postprocess, raster_cuda,
-                   texcache)
+                   shade_fused, texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 from ..tools import tap_census
@@ -72,10 +74,6 @@ from . import stages
 from .scene_pack import PackedScene, pack_scene
 
 _F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
 @dataclass
@@ -129,9 +127,12 @@ class DeferredRenderPipeline:
         unfused pass, with the env cache (kernel F) under use_tex_kernel and
         the tiled lights (kernel G) under `light_tile`, which is set
         automatically above 64 active lights with use_pallas.
-        `pallas_interpret` is accepted for signature parity with the JAX
-        pipeline and has no effect (a CPU device takes each kernel's plain
-        version)."""
+        `fused_light_dtype`: None, "float32", "bfloat16" or "float16", the
+        type of kernel D's light loop on the fused deferred pass (the JAX
+        pipeline's knob; any other value raises ValueError); it has no
+        effect on the unfused pass. `pallas_interpret` is accepted for
+        signature parity with the JAX pipeline and has no effect (a CPU
+        device takes each kernel's plain version)."""
         self.device = device = torch.device(device)
         self.config = config or RenderConfig()
         cfg = self.config
@@ -153,8 +154,8 @@ class DeferredRenderPipeline:
         self.light_cap = light_cap if light_cap is not None else max(
             128, -(-min(max_active_lights, 1024) // 128) * 128)
         self.texture_filter = texture_filter
-        if fused_light_dtype is not None:
-            raise not_ported("fused_light_dtype", "module queue 8")
+        shade_fused.check_light_dtype(fused_light_dtype)
+        self.fused_light_dtype = fused_light_dtype
         # "auto": the first render runs the tap census on the actual scene at
         # the caller's first pose and sizes tex_caps, env_budget and the
         # cascade from it (_ensure_auto_caps)
@@ -378,7 +379,8 @@ class DeferredRenderPipeline:
                 rt, env_approx = stages.deferred_shade_fused(
                     gb_tiles, z_tiles, id_tiles, env, active, env["InvView"],
                     env["CameraPos"], cfg, rw, rh, self.tile_h, self.tile_w, self.env_ids,
-                    full_height=h, full_width=w, env_budget=self.env_budget)
+                    full_height=h, full_width=w, env_budget=self.env_budget,
+                    light_dtype=self.fused_light_dtype)
                 if (rw, rh) != (w, h):
                     rt = rt[:h, :w].contiguous()
                 return {"DeferredShadingRT": rt, "LightTruncCount": zero,

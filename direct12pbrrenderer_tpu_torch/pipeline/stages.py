@@ -102,15 +102,17 @@ def active_lights(buffers, light_valid, view, max_active: int):
 def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos,
                          config, width: int, band_h: int, tile_h: int, tile_w: int,
                          env_ids: tuple, y_offset=0, full_height: int | None = None,
-                         full_width: int | None = None, env_budget: int | None = None):
+                         full_width: int | None = None, env_budget: int | None = None,
+                         light_dtype: str | None = None):
     """Fused deferred shading straight from the G-buffer tile blocks (env
-    resolve + SH + split-sum + clustered lights + sky in kernel D). Returns
-    ((band_h, width, 3) HDR RT, env_approx_count)."""
+    resolve + SH + split-sum + clustered lights + sky in kernel D, its light
+    loop in `light_dtype`). Returns ((band_h, width, 3) HDR RT,
+    env_approx_count)."""
     return shade_fused.deferred_shade_fused(
         gb_tiles, z_tiles, id_tiles, buffers["SkyBoxSH"], buffers["EnvCache"], active,
         inv_view, camera_pos, env_ids, config.fov, config.ratio, config.near, config.far,
         width, band_h, tile_h, tile_w, y_offset=y_offset, full_height=full_height,
-        full_width=full_width, env_budget=env_budget)
+        full_width=full_width, env_budget=env_budget, light_dtype=light_dtype)
 
 
 def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, config,

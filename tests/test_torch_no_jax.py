@@ -6,8 +6,8 @@ default path on an accelerator, the 1024-light path and the planar
 texture-cache path) are rendered in a fresh interpreter from the port's own
 scene and camera, which then reports whether jax or the JAX package was ever
 imported; the bench's smoke run, the App's command line on a console-built
-tree, and the asset loader, the census tools and the native library are
-imported the same way.
+tree, the asset loader, the census tools and the native library, and the
+measurement checklist's command line are imported the same way.
 """
 
 import json
@@ -72,6 +72,12 @@ cam.move([0, 0, 4])
 cam.rotate(0, np.pi, 0)
 img = pipe.render(cam).numpy()
 assert img.shape == (48, 128, 3) and (img.max(-1) > 16).mean() > 0.05
+# the same with kernel D's bfloat16 light loop
+pipe = DeferredRenderPipeline(scene, cfg, tile_h=24, tile_w=128, bin_cap=256,
+                              prefilter_size=8, brdf_lut_size=16, use_pallas=True,
+                              use_tex_kernel=True, fused_light_dtype="bfloat16", device="cpu")
+img = pipe.render(cam).numpy()
+assert img.shape == (48, 128, 3) and (img.max(-1) > 16).mean() > 0.05
 # the 1024-light path: fused G-buffer, env cache (kernels B, F), tiled lights (G)
 scene = build_stress_scene(cells_x=8, cells_y=4, n_lights=72)
 cfg = RenderConfig(width=128, height=48, max_instances=2, max_lights=128)
@@ -134,7 +140,7 @@ def test_package_sources_name_no_jax():
     # the App, its console and viewer, and the tools are among the files read
     names = {p.relative_to(PACKAGE).as_posix() for p in sources if PACKAGE in p.parents}
     assert {"app/__init__.py", "app/__main__.py", "app/app.py", "app/console.py",
-            "app/viewer.py", "tools/profile.py", "tools/tap_census.py",
+            "app/viewer.py", "tools/profile.py", "tools/tap_census.py", "tools/checklist.py",
             "parallel/__init__.py", "parallel/frame_sharded.py"} <= names
     # every kernel wrapper launches or raises: no fallback to the plain version
     for name in ("raster_cuda", "cover_cuda", "resolve_shade_cuda", "shade_fused",
@@ -149,7 +155,7 @@ def test_package_sources_name_no_jax():
                  "resource/serialization.py", "resource/reflection_def.py",
                  "resource/hdr.py", "resource/storage.py", "scene/scene.py",
                  "native/__init__.py", "utils/tlsf.py", "utils/octree.py",
-                 "parallel/frame_sharded.py"):
+                 "parallel/frame_sharded.py", "tools/checklist.py"):
         assert "except" not in (PACKAGE / path).read_text(), path
     # the thread pool's one handler hands a task's exception to its future
     threading_src = (PACKAGE / "utils" / "threading.py").read_text()
@@ -244,3 +250,19 @@ def test_app_command_line_runs_without_importing_jax(tmp_path):
     assert {"direct12pbrrenderer_tpu_torch.app.app",
             "direct12pbrrenderer_tpu_torch.utils.threading"} <= set(modules)
     assert [m for m in modules if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []
+
+
+def test_checklist_command_line_imports_without_jax(tmp_path):
+    # the checklist as a user runs it, from a fresh interpreter, on a path
+    # that holds no asset tree: it imports the App and the pipeline, then
+    # stops with its message
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                           "direct12pbrrenderer_tpu_torch.tools.checklist", "--asset-root",
+                           str(tmp_path), "--device", "cpu"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 2 and "--asset-root must name an asset tree" in proc.stderr
+    imported = [line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert "direct12pbrrenderer_tpu_torch.app.app" in imported
+    assert "direct12pbrrenderer_tpu_torch.pipeline.deferred" in imported
+    assert [m for m in imported if m.split(".")[0] in ("jax", "direct12pbrrenderer_tpu")] == []

@@ -234,9 +234,9 @@ def test_light_tile_frame_matches_jax():
     assert tp.last_stats.visible_lights > 32 and tp.last_stats.light_tile_overflow == 0
 
 
-# Each case names the ROADMAP item its knobs raise with, or, for a path that
-# is ported now, what the pipeline must take: (light_tile, use_fused_deferred,
-# env cache present, kernel E calls, kernel I row-scan calls) in one frame
+# Each case names what the pipeline must take for knobs whose path was once
+# not ported: (light_tile, use_fused_deferred, env cache present, kernel E
+# calls, kernel I row-scan calls) in one frame
 UNPORTED = [
     # the planar texture-cache path without use_pallas (kernels B, E, F)
     (dict(use_tex_kernel=True), (None, False, True, 1, 0)),
@@ -244,7 +244,9 @@ UNPORTED = [
     (dict(max_active_lights=128, use_pallas=True), ((12, 64), False, False, 0, 0)),
     # anisotropic filtering on the direct-atlas sampler
     (dict(texture_filter="anisotropic"), (None, False, False, 0, 0)),
-    (dict(fused_light_dtype="bfloat16"), "module queue 8"),
+    # kernel D's bfloat16 light loop on the fused deferred pass
+    (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, fused_light_dtype="bfloat16"),
+     (None, True, True, 0, 0)),
     # tex_caps="auto": the tap census sizes the caches at the first render
     (dict(use_tex_kernel=True, use_pallas=True, **FUSED_KNOBS, tex_caps="auto"),
      (None, True, True, 0, 0)),
@@ -264,17 +266,13 @@ UNPORTED = [
 @pytest.mark.parametrize("knobs,item", UNPORTED,
                          ids=[f"knobs{i}" for i in range(len(UNPORTED))])
 def test_unported_knobs_raise(knobs, item):
-    """Every knob whose path needs a module that is not ported raises, naming
-    its ROADMAP item (on the CPU as on the card). The knobs of the kernels
-    ported since take their path: the planar texture cache (kernel E), caps
-    above 128 (kernel I), anisotropic filtering, the unfused deferred pass
-    with the tiled lights and/or the env cache, and tex_caps="auto" (the tap
-    census) each render a frame through their kernels."""
+    """The knobs whose path was once not ported, and raised naming its
+    ROADMAP item, take their path now: the planar texture cache (kernel E),
+    caps above 128 (kernel I), anisotropic filtering, the unfused deferred
+    pass with the tiled lights and/or the env cache, tex_caps="auto" (the
+    tap census) and kernel D's bfloat16 light loop each render a frame
+    through their kernels."""
     scene, cam, cfg = _fused_scene(False)
-    if isinstance(item, str):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-            DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
-        return
     light_tile, fused, env_cache, n_resolve, n_scan = item
     p = DeferredRenderPipeline(scene, cfg, device="cpu", **{**KNOBS, **knobs})
     assert (p.light_tile, p.use_fused_deferred, "EnvCache" in p.buffers) == item[:3]

@@ -10,7 +10,11 @@ bar, rmse <= 1e-3 on uint8/255. The kernel reads its planes in place
 (contiguous, group-innermost, gb as a channel slice: bit-equal outputs, no
 copy in a wrapper call, a raise on a layout it does not take) and skips only
 work whose result is not read: all-background warps, a light set that no
-lane hits, 0 and 64 active lights stay within the bar. Needs the card:
+lane hits, 0 and 64 active lights stay within the bar. Every light-loop
+instance (None, and the light_dtype ones "float32", "bfloat16",
+"float16") is bit-equal to the plain version on the recorded inputs and at
+64 lights, and an instance code the launch does not know is an error the
+wrapper raises. Needs the card:
 marked `cuda`, skipped elsewhere (`python -m pytest --noconftest
 tests/test_torch_*_cuda.py` on a GPU machine without JAX).
 """
@@ -217,3 +221,38 @@ def test_wrapper_raises_on_a_layout_it_does_not_take(device, frame_inputs):
     lanes_expanded = kargs[8][..., :1].expand(kargs[8].shape)
     with pytest.raises(ValueError, match="gb"):
         shade_fused.deferred_kernel(*kargs[:8], lanes_expanded, **kw)
+
+
+@pytest.mark.parametrize("light_dtype", [None, "float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", ["recorded", "lights_64"])
+def test_light_dtype_instances_bit_equal_to_plain(device, frame_inputs, light_dtype, case):
+    """Kernel D's light loops (float32 with division, and the float32,
+    bfloat16 and float16 instances) against the plain version's on the same
+    inputs: every output bit equal (each op of the body rounded once to its
+    type in both, sqrt and the reciprocal correctly rounded in float32).
+    Each launch of an instance counts on its own counter as well as on the
+    kernel's."""
+    kargs, kw = frame_inputs
+    args = _variant(kargs, case)
+    kw = dict(kw, light_dtype=light_dtype)
+    counter = f"{light_dtype}_launches" if light_dtype else "launches"
+    n0, k0 = shade_fused.deferred_kernel.launches, getattr(shade_fused.deferred_kernel, counter)
+    got = shade_fused.deferred_kernel(*args, **kw)
+    assert (shade_fused.deferred_kernel.launches - n0,
+            getattr(shade_fused.deferred_kernel, counter) - k0) == (1, 1)
+    want = shade_fused.deferred_kernel_reference(*args, **kw)
+    f32 = shade_fused.deferred_kernel_reference(*args, **dict(kw, light_dtype=None))
+    differ = got.view(torch.int32) != want.view(torch.int32)
+    assert not differ.any(), (int(differ.sum()), float((got - want).abs().max()))
+    assert torch.equal(got[:, 3], f32[:, 3])           # the hit test stays float32
+    if light_dtype not in (None, "float32"):
+        assert not torch.equal(got[:, :3], f32[:, :3])
+
+
+def test_unknown_light_dtype_code_is_an_error(device, frame_inputs, monkeypatch):
+    """deferred_shade_launch refuses a light-loop code it has no instance
+    for, and the wrapper raises its error."""
+    kargs, kw = frame_inputs
+    monkeypatch.setitem(shade_fused.LIGHT_DTYPES, "bogus", (torch.float32, 7))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        shade_fused.deferred_kernel(*kargs, **dict(kw, light_dtype="bogus"))
