@@ -10,7 +10,12 @@ on the card, then renders at 1920x1080 with a procedural sky:
   and `use_tex_kernel` resolve to True on the card): kernel A (raster +
   interpolation), kernel B (page covers of the texture and env caches),
   kernel C (texture resolve + pixel shade), kernel D (fused deferred
-  shading) — the main path;
+  shading) — the main path, first run eagerly inside `deferred.eager()`
+  ([frame], [passes], [profile]), then as a user's `render` runs it on the
+  card, one captured CUDA graph a frame ([frame-graph]: the capture's
+  seconds and memory pool, captured frames bit-equal to eager ones, timed
+  and traced, no host sync under the sync debug mode, `render_sequence`
+  bit-equal to a loop of `render` calls and timed against it);
 * the same scene through the `use_tex_kernel=False` path: kernel A, the
   direct-atlas sampler and the dense deferred shading;
 * the same scene through the planar texture-cache path at a 24x160 raster
@@ -97,6 +102,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -123,6 +129,9 @@ TILE_H, TILE_W, BIN_CAP = 24, 128, 8192
 TEX_CAPS = (92, 44, None, (32, 16))
 BRDF_LUT = 64
 FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
+# [frame-graph]: captured frames timed, held to eager ones, under the sync
+# debug mode, and the render_sequence length
+GRAPH_FRAMES, EQUAL_FRAMES, SYNC_FRAMES, SEQ_FRAMES = 16, 4, 8, 32
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
 PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic paths
 BF16_FRAMES = 8           # the default path with fused_light_dtype="bfloat16"
@@ -558,7 +567,12 @@ def read_launches() -> dict[str, int]:
 def recording(module, name: str):
     """Record (args, kwargs) of every call of `module.name` while the block
     runs; the calls still go through. Launches made meanwhile are counted on
-    the recorder, not on the wrapper."""
+    the recorder, not on the wrapper. Frames rendered meanwhile run eagerly
+    (`deferred.eager()`: a captured frame's replay calls no wrapper; a tree
+    older than the captured frame, which kernel_ab.py may import, has none)."""
+    from direct12pbrrenderer_tpu_torch.pipeline import deferred
+
+    eager = getattr(deferred, "eager", contextlib.nullcontext)
     orig = getattr(module, name)
     calls = []
 
@@ -571,7 +585,8 @@ def recording(module, name: str):
             setattr(rec, counter, 0)
     setattr(module, name, rec)
     try:
-        yield calls
+        with eager():
+            yield calls
     finally:
         setattr(module, name, orig)
 
@@ -580,7 +595,8 @@ def recording(module, name: str):
 def counting(module, name: str, launches: dict):
     """While the block runs, each call of `module.name` runs with every launch
     count set to 0 just before it; the counts read just after go to
-    `launches[name]`."""
+    `launches[name]` (a captured frame's replay adds its kernels' launches
+    too)."""
     orig = getattr(module, name)
 
     def run(*args, **kwargs):
@@ -688,8 +704,8 @@ def bench_phase(runs=(["--smoke"], [])) -> None:
         held, launches, out, real_stdout = [], {}, io.StringIO(), sys.stdout
         measure = bench._measure_cell
 
-        def measure_and_hold(pipe, cam, frames):
-            cell = measure(pipe, cam, frames)
+        def measure_and_hold(pipe, cam, frames, **kw):
+            cell = measure(pipe, cam, frames, **kw)
             with contextlib.redirect_stdout(real_stdout):   # a failing hold says why
                 held.append(hold_bench_cell(cells[len(held)], pipe, cam))
             return cell
@@ -714,6 +730,8 @@ def bench_phase(runs=(["--smoke"], [])) -> None:
         for cell, counts in cell_launches.items():
             say("bench", f"{cell}: kernel launches {counts}")
         faults = bench_faults(result, cell_launches)
+        faults += [f"cell {cell} has no sequence fps" for cell in cell_launches
+                   if cell != "smoke" and f"{cell}_sequence_dispatch_fps" not in result]
         if faults:
             fail("bench", "; ".join(faults))
         say("bench", f"{' '.join(argv) or 'full run'}: every gate passes on the kernels' "
@@ -917,8 +935,10 @@ def frame_inputs(pipe, cam):
 
 
 def timed_passes(pipe, cam, frames: int) -> dict[str, float]:
-    """Mean device ms per graph pass (CUDA events around each pass)."""
+    """Mean device ms per graph pass (CUDA events around each pass) of
+    eager frames (`deferred.eager()`)."""
     from direct12pbrrenderer_tpu_torch.graph import frame_graph as fg
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
 
     graph = pipe.graph
     events: dict[str, list] = {}
@@ -936,9 +956,10 @@ def timed_passes(pipe, cam, frames: int) -> dict[str, float]:
     pipe.graph = fg.CompiledGraph([wrap(p) for p in graph.order], graph.lifetimes,
                                   graph.donatable, graph.descriptions)
     try:
-        for _ in range(frames):
-            pipe.render(cam, 1.0 / 60.0, collect_stats=False)
-        torch.cuda.synchronize()
+        with eager():
+            for _ in range(frames):
+                pipe.render(cam, 1.0 / 60.0, collect_stats=False)
+            torch.cuda.synchronize()
     finally:
         pipe.graph = graph
     return {k: sum(s.elapsed_time(e) for s, e in v) / len(v) for k, v in events.items()}
@@ -1123,6 +1144,112 @@ def run_frames(phase, pipe, path, want: dict[str, int], absent=()):
         if launches[name]:
             fail(phase, f"kernel {name} launched {launches[name]} times, want none")
     return times, launches
+
+
+def frame_graph_phase(smi: str, pipe, cam, eager_times, binning_ms: float) -> dict[str, int]:
+    """[frame-graph]: the default frame as one captured CUDA graph (the
+    JAX pipeline's `jax.jit(_frame)`). The pipeline must capture it
+    (`captured`); the first `render` captures it (its seconds, the graph
+    pool's bytes); frames rendered eagerly (`eager()`) and captured are
+    bit-equal over the yaw path with equal FrameStats, no fallback tap and
+    the same exposure carry; GRAPH_FRAMES captured frames are timed with
+    the launch counts set to 0 just before and read just after (each
+    replay adds A 1, B 4, C 1, D 1: the main path's counts); with the sync
+    debug mode at "error", SYNC_FRAMES `render(collect_stats=False)` calls
+    and a SEQ_FRAMES-frame `render_sequence` raise nothing; that sequence
+    is bit-equal to as many `render` calls with the same carry, and both
+    are timed; and torch.profiler traces 3 captured frames. Returns the
+    launches of the timed frames."""
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
+
+    phase = "frame-graph"
+    if not pipe.captured:
+        fail(phase, "the default path is not captured on the card: it would run eagerly")
+    path = camera_path(cam, GRAPH_FRAMES)
+    pipe.captured_frame = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.render(path[0], collect_stats=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cf = pipe.captured_frame
+    if cf is None:
+        fail(phase, "the first render did not capture the frame")
+    for c in path[:EQUAL_FRAMES]:
+        carry = pipe.avg_luminance.clone()
+        with eager():
+            want = pipe.render(c)
+        want_stats, want_avg = pipe.last_stats, pipe.avg_luminance
+        pipe.avg_luminance = carry
+        got = pipe.render(c)
+        if (not torch.equal(got, want) or pipe.last_stats != want_stats
+                or not torch.equal(pipe.avg_luminance, want_avg)):
+            fail(phase, f"a captured frame differs from the eager one: "
+                 f"{int((got != want).any(-1).sum())} pixels, stats {pipe.last_stats} vs "
+                 f"{want_stats}, carry {float(pipe.avg_luminance)} vs {float(want_avg)}")
+        lost = {k: v for k, v in dataclasses.asdict(pipe.last_stats).items()
+                if k in ("bin_overflow", "tex_approx_taps", "env_approx_taps",
+                         "lights_truncated", "light_tile_overflow") and v}
+        if lost:
+            fail(phase, f"the captured frame counts fallbacks {lost}")
+    if pipe.captured_frame is not cf:
+        fail(phase, "the yaw path captured the frame again")
+    want_launches = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1,
+                     "deferred_shade": 1}
+    times, launches = run_frames(phase, pipe, path, {
+        k: n * GRAPH_FRAMES for k, n in want_launches.items()})
+    if any(launches[k] != n * GRAPH_FRAMES for k, n in want_launches.items()):
+        fail(phase, f"{GRAPH_FRAMES} captured frames launched {launches}, want "
+             f"{want_launches} a frame")
+    seq_path = camera_path(path[-1], SEQ_FRAMES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in path[:SYNC_FRAMES]:
+            pipe.render(c, collect_stats=False)
+        pipe.render_sequence(seq_path)
+    except RuntimeError as e:
+        fail(phase, f"a host sync in a captured frame: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    carry = pipe.avg_luminance.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = pipe.render_sequence(seq_path)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_avg = pipe.avg_luminance
+    pipe.avg_luminance = carry
+    t0 = time.perf_counter()
+    loop = [pipe.render(c, collect_stats=False) for c in seq_path]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    if not torch.equal(seq, torch.stack(loop)) or not torch.equal(seq_avg, pipe.avg_luminance):
+        fail(phase, f"render_sequence differs from {SEQ_FRAMES} render calls: "
+             f"{int((seq != torch.stack(loop)).any(-1).sum())} pixels, carry "
+             f"{float(seq_avg)} vs {float(pipe.avg_luminance)}")
+    del seq, loop
+    if pipe.captured_frame is not cf:
+        fail(phase, "the path captured the frame again")
+    wall, busy, n_act, top = profiled_frames(pipe, path[-1], 3)
+    say(phase, f"default path as one captured CUDA graph a frame on {smi}: the first render "
+        f"{first_s:.3f} s (its eager warm-up frames and the capture), the capture itself "
+        f"{cf.capture_s:.3f} s, graph pool {cf.pool_bytes} bytes; {EQUAL_FRAMES} frames "
+        f"bit-equal to eager ones "
+        f"(equal FrameStats, carry, no fallback); {GRAPH_FRAMES} captured frames: mean "
+        f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "
+        f"frame) against the eager [frame]'s mean {np.mean(eager_times):.2f} ms, p50 "
+        f"{np.median(eager_times):.2f} ms; launches {launches}; sync debug mode \"error\" "
+        f"around {SYNC_FRAMES} render(collect_stats=False) calls and a {SEQ_FRAMES}-frame "
+        f"render_sequence: no host sync; render_sequence {SEQ_FRAMES / seq_s:.2f} fps "
+        f"({seq_s * 1e3 / SEQ_FRAMES:.2f} ms a frame), bit-equal to {SEQ_FRAMES} render calls "
+        f"with the same carry, which take {SEQ_FRAMES / loop_s:.2f} fps (one sync after the "
+        f"last); binning {binning_ms:.3f} ms (device, CUDA events; the fine pass over every "
+        f"cap1 column, no host read); torch.profiler, 3 captured frames: wall {wall:.2f} "
+        f"ms/frame, device busy {busy:.2f} ms/frame ({n_act:.0f} device activities), idle "
+        f"share {1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}"
+                                                         for ms, name in top))
+    return launches
 
 
 def check_frame(phase, pipe, cam) -> str:
@@ -1897,13 +2024,16 @@ def plain_kernels():
     plain versions on the card: each wrapper's launch is swapped for the
     plain PyTorch function that `hold_call` holds it to. The frame keeps
     every knob's semantics (the raster's two-pass cut lists, the caches'
-    page caps and their fallbacks); only the kernels' arithmetic changes."""
+    page caps and their fallbacks); only the kernels' arithmetic changes.
+    Frames rendered meanwhile run eagerly (a replay calls no wrapper)."""
     from unittest import mock
 
     from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, raster_cuda, resolve_shade_cuda,
                                                    shade_fused)
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
 
     with contextlib.ExitStack() as stack:
+        stack.enter_context(eager())
         for module, name, plain in (
                 (raster_cuda, "_launch", raster_cuda.rasterize_interp_reference),
                 (cover_cuda, "fused_cover", cover_cuda.fused_cover_reference),
@@ -2097,14 +2227,16 @@ def viewer_child(tree: str) -> None:
     caches), comes on one of the viewer's HTTP handler threads: the App at
     the [app] cell's configuration, `viewer.serve(app, port)` on a free
     ephemeral port on a daemon thread, GET /, then POST /step with w, a
-    right-drag of 100 px, and no input. Prints one JSON line; exits non-zero
-    on a failed check."""
+    right-drag of 100 px, and no input; the first step captures the App's
+    frame there (`pipe.captured`). Prints one JSON line; exits non-zero on a
+    failed check."""
     import threading
     import urllib.request
 
     from direct12pbrrenderer_tpu_torch.app import viewer
     from direct12pbrrenderer_tpu_torch.app.app import App
     from direct12pbrrenderer_tpu_torch.kernels import build
+    from direct12pbrrenderer_tpu_torch.pipeline import deferred
 
     phase = "viewer"
     app = App(app_config(tree))
@@ -2158,7 +2290,10 @@ def viewer_child(tree: str) -> None:
         and threading.main_thread() not in threads,
         "kernels first loaded there": sorted(build._LOADED) == sorted(
             source_of(k) for k, n in APP_KERNELS.items() if n),
-        "launches": launches == {k: APP_KERNELS.get(k, 0) * 3 for k in KERNELS},
+        # the first frame captures the App's frame: its eager warm-up frames launch too
+        "captured there": app.pipeline.captured_frame is not None,
+        "launches": launches == {k: APP_KERNELS.get(k, 0) * (3 + deferred.CAPTURE_WARMUP)
+                                 for k in KERNELS},
     }
     print(json.dumps({"checks": checks, "moved": moved, "caption": caption,
                       "jpeg_bytes": [len(jpeg_w), len(jpeg_r), len(jpeg_n)],
@@ -2188,14 +2323,15 @@ def profile_app_phase(smi, app) -> None:
 
     t0 = time.perf_counter()
     t = profile.profile_pipeline(app.pipeline, app.camera, iters=5)
-    if any(v < 0 for v in t.values()) or list(t)[-1] != "full_frame":
+    frames = ["full_frame", "full_frame_eager"]   # captured, and inside eager()
+    if any(v < 0 for v in t.values()) or list(t)[-2:] != frames:
         fail("profile-app", f"stage timings {t}")
-    total = sum(v for k, v in t.items() if k != "full_frame")
+    total = sum(v for k, v in t.items() if k not in frames)
     say("profile-app", f"tools/profile.profile_pipeline on the App's pipeline, median device ms "
         f"per stage (CUDA events) on {smi}: " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()
-                                                          if k != "full_frame")
-        + f"; sum of stages {total:.2f}, full_frame {t['full_frame']:.2f}; "
-        f"{time.perf_counter() - t0:.1f} s")
+                                                          if k not in frames)
+        + f"; sum of stages {total:.2f}, full_frame {t['full_frame']:.2f} (captured), "
+        f"full_frame_eager {t['full_frame_eager']:.2f}; {time.perf_counter() - t0:.1f} s")
 
 
 def census_main_phase(smi, tree) -> None:
@@ -2626,6 +2762,7 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     del ptex, ref
 
     # ---- the cap-156 frame: B four times, one of them wide (kernel I) ---------
+    cap.render(cam, collect_stats=False)   # the frame's capture and its warm-up frames
     _, launches = run_frames("frame-cap156", cap, [cam], {
         "raster_interp": 1, "fused_cover": 4, WIDE: 1, "resolve_shade": 1,
         "deferred_shade": 1}, absent=("atlas_resolve", "env_resolve"))
@@ -2708,7 +2845,7 @@ def main(argv=None) -> None:
         resolve_shade_cuda,
         shade_fused,
     )
-    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, eager
 
     build_kernels()
 
@@ -2945,27 +3082,32 @@ def main(argv=None) -> None:
         f"kernel C {ms_c:.2f}")
     del tiled, tri_id, depth, planes
 
-    # ---- the main path: the default frame through kernels A, B, C, D --------
+    # ---- the default frame through kernels A, B, C, D, run eagerly ----------
     path = camera_path(cam, WARMUP + FRAMES)
-    for c in path[:WARMUP]:
-        pipe.render(c)
-    times, launches = run_frames("frame", pipe, path[WARMUP:], {
-        "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
-        "deferred_shade": FRAMES})
-    frame_line = check_frame("frame", pipe, path[-1])
-    say("frame", f"default path, {FRAMES} frames {W}x{H}: mean {np.mean(times):.2f} ms, p50 "
-        f"{np.median(times):.2f} ms (host clock, synchronized per frame); kernel launches "
-        f"{launches}; {frame_line}")
+    with eager():
+        for c in path[:WARMUP]:
+            pipe.render(c)
+        times, launches = run_frames("frame", pipe, path[WARMUP:], {
+            "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
+            "deferred_shade": FRAMES})
+        frame_line = check_frame("frame", pipe, path[-1])
+    say("frame", f"default path run eagerly (`eager()`), {FRAMES} frames {W}x{H}: mean "
+        f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "
+        f"frame); kernel launches {launches}; {frame_line}")
     per_pass = timed_passes(pipe, path[-1], 3)
-    say("passes", "default path, mean device ms per pass (CUDA events): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in per_pass.items()))
-    wall, busy, n_act, top = profiled_frames(pipe, path[-1], 3)
+    say("passes", "default path run eagerly, mean device ms per pass (CUDA events): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per_pass.items()))
+    with eager():
+        wall, busy, n_act, top = profiled_frames(pipe, path[-1], 3)
     if busy <= 0:
         fail("profile", "torch.profiler recorded no device time")
-    say("profile", f"default path, torch.profiler, 3 frames: wall {wall:.2f} ms/frame, device "
-        f"busy {busy:.2f} ms/frame ({n_act:.0f} device activities), idle share "
-        f"{1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}"
-                                                    for ms, name in top))
+    say("profile", f"default path run eagerly, torch.profiler, 3 frames: wall {wall:.2f} "
+        f"ms/frame, device busy {busy:.2f} ms/frame ({n_act:.0f} device activities), idle "
+        f"share {1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}"
+                                                         for ms, name in top))
+
+    # ---- the main path: the default frame as one captured CUDA graph --------
+    launches.update(frame_graph_phase(smi, pipe, cam, times, stage_ms["binning"]))
 
     # ---- the use_tex_kernel=False path through kernel A ---------------------
     ppath = camera_path(cam, 1 + PLANAR_FRAMES)

@@ -34,8 +34,12 @@ reads "not measured" with the path it looked for; nothing stands in for it.
 
 fps: two warm frames of a yaw path (0.002 rad a frame), then `--frames`
 frames on the host clock, with one `torch.cuda.synchronize()` after the last
-inside the timed window (`headline_method` "loop"; the port's
-`render_sequence` is the same loop, so there is no sequence fps).
+inside the timed window (`per_call_loop_fps`); then, but for `--smoke`, the
+same path through one `render_sequence` call after a warm one
+(`sequence_dispatch_fps`: on the card, where the frame is captured, one
+camera upload and a replay a frame with no host round trip between them).
+A cell's `fps` is the faster of the two and `headline_method` says which,
+as in `bench.py`.
 
 `rmse_vs_xla` keeps `bench.py`'s name so that the two lines line up. Here it
 is the frame rmse (uint8/255, in float64) against a pipeline with
@@ -84,8 +88,9 @@ HEADLINE_KEYS = {"rmse_vs_xla": "rmse", "rmse_gate": "rmse_gate",
                  "tex_approx_taps": "tex_approx_taps", "env_approx_taps": "env_approx_taps",
                  "bin_overflow": "bin_overflow", "tuned_fps": "tuned_fps",
                  "tuned_rmse_vs_xla": "tuned_rmse", "fidelity_fallback": "fidelity_fallback"}
-CELL_KEYS = ("fps", "rmse", "rmse_gate", "tuned_fps", "tuned_rmse", "fidelity_fallback",
-             "bin_overflow", "tex_approx_taps", "env_approx_taps")
+CELL_KEYS = ("fps", "per_call_loop_fps", "sequence_dispatch_fps", "headline_method", "rmse",
+             "rmse_gate", "tuned_fps", "tuned_rmse", "fidelity_fallback", "bin_overflow",
+             "tex_approx_taps", "env_approx_taps")
 
 
 def main(argv=None) -> dict:
@@ -114,7 +119,7 @@ def main(argv=None) -> dict:
     if args.smoke:
         frames = args.frames or SMOKE_FRAMES
         pipe, cam, cfg = tiny_pipeline(device)
-        result = _headline(_measure_cell(pipe, cam, frames), "",
+        result = _headline(_measure_cell(pipe, cam, frames, sequence=False), "",
                            f"synthetic sphere scene @ {cfg.width}x{cfg.height}")
         result["vs_baseline_scene"] = "synthetic_sphere"
         result["reference_scene_vs_baseline"] = None
@@ -161,9 +166,11 @@ def _headline(cell: dict, prefix: str, scene_name: str) -> dict:
         "value": fps,
         "unit": "fps",
         "vs_baseline": fps / BASELINE_FPS,
-        "per_call_loop_fps": fps,
-        "headline_method": "loop",
+        "per_call_loop_fps": cell.get(prefix + "per_call_loop_fps", fps),
+        "headline_method": cell.get(prefix + "headline_method", "loop"),
     }
+    if prefix + "sequence_dispatch_fps" in cell:
+        result["sequence_dispatch_fps"] = cell[prefix + "sequence_dispatch_fps"]
     result.update({k: cell[prefix + c] for k, c in HEADLINE_KEYS.items() if prefix + c in cell})
     return result
 
@@ -185,19 +192,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _measure_fps(pipe, cam, frames: int) -> float:
-    """Per-call loop fps over the yaw path: every frame re-culls, re-bins and
-    re-plans its caches. Frames are enqueued back to back; the one sync
-    after the last is inside the timed window."""
+def _measure_fps(pipe, cam, frames: int, sequence: bool) -> dict:
+    """The per-call loop fps over the yaw path (every frame re-culls,
+    re-bins and re-plans its caches; the frames are enqueued back to back
+    and the one sync after the last is inside the timed window) and, with
+    `sequence`, the same path's fps through `render_sequence` (after a warm
+    call); `fps` is the faster, `headline_method` says which."""
     cams = _yaw_path(cam, frames)
-    for c in cams[:2]:   # kernel builds, staging buffers, the first uploads
+    for c in cams[:2]:   # kernel builds, the frame's capture, the first uploads
         pipe.render(c, 1.0 / 60.0, collect_stats=False)
     _sync(pipe.device)
     t0 = time.perf_counter()
     for c in cams:
         pipe.render(c, 1.0 / 60.0, collect_stats=False)
     _sync(pipe.device)
-    return frames / (time.perf_counter() - t0)
+    out = {"per_call_loop_fps": frames / (time.perf_counter() - t0)}
+    if sequence:
+        pipe.render_sequence(cams[:2], 1.0 / 60.0)
+        _sync(pipe.device)
+        t0 = time.perf_counter()
+        pipe.render_sequence(cams, 1.0 / 60.0)
+        _sync(pipe.device)
+        out["sequence_dispatch_fps"] = frames / (time.perf_counter() - t0)
+    seq = out.get("sequence_dispatch_fps", 0.0)
+    method = "sequence" if seq > out["per_call_loop_fps"] else "loop"
+    return {"fps": max(seq, out["per_call_loop_fps"]), "headline_method": method, **out}
 
 
 def _frame_stats(pipe, cam) -> dict:
@@ -249,10 +268,11 @@ def _gate_safe_pipeline(pipe) -> DeferredRenderPipeline:
         tex_caps=None, env_budget=None, device=pipe.device)
 
 
-def _measure_cell(pipe, cam, frames: int) -> dict:
-    """fps, FrameStats counters and the fidelity gate of one cell, bound: a
-    failing gate re-measures everything on the gate-safe configuration."""
-    out = {"fps": _measure_fps(pipe, cam, frames), **_frame_stats(pipe, cam)}
+def _measure_cell(pipe, cam, frames: int, sequence: bool = True) -> dict:
+    """fps (`_measure_fps`), FrameStats counters and the fidelity gate of one
+    cell, bound: a failing gate re-measures everything on the gate-safe
+    configuration."""
+    out = {**_measure_fps(pipe, cam, frames, sequence), **_frame_stats(pipe, cam)}
     out["rmse"], out["rmse_gate"] = _fidelity_gate(pipe, cam)
     if out["rmse_gate"] == "FAIL":
         print("bench: re-measuring on the gate-safe configuration", file=sys.stderr)
@@ -260,7 +280,7 @@ def _measure_cell(pipe, cam, frames: int) -> dict:
         for k in STAT_KEYS:   # the tuned run's counters do not describe the new one
             del out[k]
         pipe = _gate_safe_pipeline(pipe)
-        out["fps"] = _measure_fps(pipe, cam, frames)
+        out.update(_measure_fps(pipe, cam, frames, sequence))
         out.update(_frame_stats(pipe, cam))
         out["rmse"], out["rmse_gate"] = _fidelity_gate(pipe, cam)
         out["fidelity_fallback"] = "xla-samplers"

@@ -4,7 +4,9 @@ Threshold prefilter + separable-Gaussian mip pyramid + merge in the
 reference's pass order (BloomPass::Execute, DeferredPipeline.cpp:400-570).
 Every down/up/merge step after the nonlinear prefilter is `blur_v ∘ blur_h ∘
 resize`, linear along each axis, so it folds into one precomputed matrix per
-axis and runs as `torch.matmul`. The products are float32 (callers keep
+axis and runs as `torch.matmul`. The matrices are uploaded once per
+(shape, device) and reused (`_mat`), so a frame makes no host-to-device
+copy. The products are float32 (callers keep
 `torch.backends.cuda.matmul.allow_tf32` off, its default).
 """
 
@@ -66,19 +68,34 @@ def _blur_resize_mat(out_n: int, in_n: int) -> np.ndarray:
             ).astype(np.float32)
 
 
-def _t(m, like):
-    return torch.as_tensor(m, dtype=torch.float32, device=like.device)
+_MATRICES = {"resize": _resize_matrix,
+             "blur": lambda n: _blur_mat(n).astype(np.float32),
+             "blur_resize": _blur_resize_mat}
+
+
+@functools.lru_cache(maxsize=None)
+def _mat(device: torch.device, kind: str, *args, rows=None, cols=None) -> torch.Tensor:
+    """The float32 matrix `_MATRICES[kind](*args)` (its rows and columns
+    [lo, hi) where given) on `device`, uploaded once and then reused: a
+    frame reads it from device memory, as XLA bakes such a matrix into its
+    program, and makes no host-to-device copy."""
+    m = _MATRICES[kind](*args)
+    if rows is not None:
+        m = m[rows[0]:rows[1]]
+    if cols is not None:
+        m = m[:, cols[0]:cols[1]]
+    return torch.as_tensor(np.ascontiguousarray(m), dtype=torch.float32, device=device)
 
 
 def _mm_rows(m, img):
-    """einsum('oi,iwc->owc')."""
+    """einsum('oi,iwc->owc') with the device matrix m."""
     h, w, c = img.shape
-    return torch.matmul(_t(m, img), img.reshape(h, w * c)).reshape(-1, w, c)
+    return torch.matmul(m, img.reshape(h, w * c)).reshape(-1, w, c)
 
 
 def _mm_cols(m, img):
-    """einsum('oi,hic->hoc')."""
-    return torch.matmul(_t(m, img), img)
+    """einsum('oi,hic->hoc') with the device matrix m."""
+    return torch.matmul(m, img)
 
 
 def resize_bilinear(img, out_h: int, out_w: int, half_phase: bool = True):
@@ -86,9 +103,9 @@ def resize_bilinear(img, out_h: int, out_w: int, half_phase: bool = True):
     in_h, in_w = img.shape[0], img.shape[1]
     out = img
     if out_h != in_h:
-        out = _mm_rows(_resize_matrix(out_h, in_h, half_phase), out)
+        out = _mm_rows(_mat(img.device, "resize", out_h, in_h, half_phase), out)
     if out_w != in_w:
-        out = _mm_cols(_resize_matrix(out_w, in_w, half_phase), out)
+        out = _mm_cols(_mat(img.device, "resize", out_w, in_w, half_phase), out)
     return out
 
 
@@ -127,23 +144,25 @@ def bloom(hdr):
     def mip_size(m):
         return max(1, h >> m), max(1, w >> m)
 
+    dev = hdr.device
+
+    def br(out_n, in_n):
+        return _mat(dev, "blur_resize", out_n, in_n)
+
     a = {1: prefilter(hdr, *mip_size(1))}
     for i in range(BLOOM_STEPS):
         m = i + 1
         hh, ww = mip_size(m)
         lo_h, lo_w = mip_size(m + 1)
-        a[m + 1] = _mm_cols(_blur_resize_mat(lo_w, ww),
-                            _mm_rows(_blur_resize_mat(lo_h, hh), a[m]))
+        a[m + 1] = _mm_cols(br(lo_w, ww), _mm_rows(br(lo_h, hh), a[m]))
     for i in range(BLOOM_STEPS - 1, -1, -1):
         m = i + 1
         hh, ww = mip_size(m)
         lh, lw = mip_size(m + 1)
-        bv = _blur_mat(hh).astype(np.float32)
-        bh = _blur_mat(ww).astype(np.float32)
+        bv, bh = _mat(dev, "blur", hh), _mat(dev, "blur", ww)
         a[m] = (_mm_cols(bh, _mm_rows(bv, a[m]))
-                + _mm_cols(_blur_resize_mat(ww, lw), _mm_rows(_blur_resize_mat(hh, lh), a[m + 1])))
-    full = _mm_cols(_blur_resize_mat(w, mip_size(1)[1]),
-                    _mm_rows(_blur_resize_mat(h, mip_size(1)[0]), a[1]))
+                + _mm_cols(br(ww, lw), _mm_rows(br(hh, lh), a[m + 1])))
+    full = _mm_cols(br(w, mip_size(1)[1]), _mm_rows(br(h, mip_size(1)[0]), a[1]))
     return hdr + full
 
 
@@ -179,26 +198,26 @@ def bloom_band(band, height: int, mesh):
         lo, hi = rows_of(n_rows)
         return part if (lo, hi) == (0, n_rows) else mesh.gather(part, n_rows, lo)
 
+    dev = band.device
+
+    def br(out_n, in_n, rows=None):
+        return _mat(dev, "blur_resize", out_n, in_n, rows=rows)
+
     h1, w1 = mip_size(1)
-    rows = _resize_matrix(h1, height, False)[:, y0:y0 + band_h]   # the band's columns
-    base = mesh.all_reduce(_mm_cols(_resize_matrix(w1, w, False), _mm_rows(rows, band)))
+    rows = _mat(dev, "resize", h1, height, False, cols=(y0, y0 + band_h))  # the band's columns
+    base = mesh.all_reduce(_mm_cols(_mat(dev, "resize", w1, w, False), _mm_rows(rows, band)))
     full = {1: whole(_cross_filter(base, *rows_of(h1)), h1)}
     for m in range(1, BLOOM_STEPS + 1):
         hh, ww = mip_size(m)
         lo_h, lo_w = mip_size(m + 1)
-        r0, r1 = rows_of(lo_h)
-        part = _mm_cols(_blur_resize_mat(lo_w, ww),
-                        _mm_rows(_blur_resize_mat(lo_h, hh)[r0:r1], full[m]))
+        part = _mm_cols(br(lo_w, ww), _mm_rows(br(lo_h, hh, rows_of(lo_h)), full[m]))
         full[m + 1] = whole(part, lo_h)
     for m in range(BLOOM_STEPS, 0, -1):
         hh, ww = mip_size(m)
         lh, lw = mip_size(m + 1)
-        r0, r1 = rows_of(hh)
-        bv = _blur_mat(hh).astype(np.float32)[r0:r1]
-        bh = _blur_mat(ww).astype(np.float32)
+        r0r1 = rows_of(hh)
+        bv, bh = _mat(dev, "blur", hh, rows=r0r1), _mat(dev, "blur", ww)
         part = (_mm_cols(bh, _mm_rows(bv, full[m]))
-                + _mm_cols(_blur_resize_mat(ww, lw),
-                           _mm_rows(_blur_resize_mat(hh, lh)[r0:r1], full[m + 1])))
+                + _mm_cols(br(ww, lw), _mm_rows(br(hh, lh, r0r1), full[m + 1])))
         full[m] = whole(part, hh)
-    return band + _mm_cols(_blur_resize_mat(w, w1),
-                           _mm_rows(_blur_resize_mat(height, h1)[y0:y0 + band_h], full[1]))
+    return band + _mm_cols(br(w, w1), _mm_rows(br(height, h1, (y0, y0 + band_h)), full[1]))

@@ -202,6 +202,14 @@ def _tap_addresses_clamp(base_w, base_h, page_base, mip, u, v):
     return page, intra, fx, fy
 
 
+@functools.lru_cache(maxsize=None)
+def _fb_index(tids: tuple, device: torch.device) -> torch.Tensor:
+    """A group's fallback texture ids padded to CAP_FB with its first, as an
+    index tensor on `device`, uploaded once and then reused (a frame makes
+    no host-to-device copy for it)."""
+    return torch.tensor(tids + (tids[0],) * (CAP_FB - len(tids)), device=device)
+
+
 def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids: tuple,
                    share: tuple, caps: tuple, block_cap: int, stage_budget: int | None):
     """The env cache's per-frame plan on tiled tap stacks (tiles, G, blocks,
@@ -235,8 +243,7 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
         for j, tid in enumerate(tids):
             fb_slot[:, i] = torch.where(tex_t[:, i] == tid, j, fb_slot[:, i])
     fb_rec_t = fb_slot * 128 + fintra
-    fb_rows = [atlas.fb_page[torch.tensor(tids + (tids[0],) * (CAP_FB - len(tids)),
-                                          device=dev)][None, :].expand(n_tiles, CAP_FB)
+    fb_rows = [atlas.fb_page[_fb_index(tids, dev)][None, :].expand(n_tiles, CAP_FB)
                for tids in fb_tids]
 
     page, intra, fx, fy = _tap_addresses_clamp(

@@ -21,9 +21,11 @@ from . import common
 
 
 def luminance_histogram(hdr_rgb) -> torch.Tensor:
-    """(H, W, 3) -> (256,) int64 counts."""
-    return torch.bincount(luminance_bins(hdr_rgb).reshape(-1).long(),
-                          minlength=NUM_HISTOGRAM_BINS)
+    """(H, W, 3) -> (256,) int64 counts, by a scatter-add (`torch.bincount`
+    on a CUDA device reads the largest bin back to the host)."""
+    bins = luminance_bins(hdr_rgb).reshape(-1).long()
+    return torch.zeros(NUM_HISTOGRAM_BINS, dtype=torch.int64, device=bins.device).scatter_add_(
+        0, bins, torch.ones_like(bins))
 
 
 def luminance_bins(hdr_rgb) -> torch.Tensor:

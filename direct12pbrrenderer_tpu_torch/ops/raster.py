@@ -160,9 +160,15 @@ def bin_triangles_hier(setup: TriangleSetup, tiles_y: int, tiles_x: int, tile_h:
     overlap sets to <= cap1 candidates, then each tile compacts over its
     supertile's candidates. Same output contract as bin_triangles.
 
-    The JAX package picks the fine-pass width with a `lax.cond` on the
-    realized density; here that is a host branch, and `.item()` on the
-    largest supertile count is the host sync it costs."""
+    The JAX package's fine pass picks its width with a `lax.cond` on the
+    realized density (the first cap1 // 4 candidate columns when every
+    supertile holds that few). Both widths give the same bins: the columns
+    past a supertile's count hold no valid candidate. Here the fine pass
+    always takes all cap1 columns, so no host read decides it, and stays
+    cheap at that width: a tile's overlap row is its supertile row's and
+    supertile column's tests ANDed (no per-tile gather of candidate AABBs),
+    and the candidates, ascending in each row, compact by their running
+    count (a scatter, no top-k)."""
     num_tiles = tiles_y * tiles_x
     t = setup.aabb.shape[0]
     dev = setup.aabb.device
@@ -179,42 +185,32 @@ def bin_triangles_hier(setup: TriangleSetup, tiles_y: int, tiles_x: int, tile_h:
     cnt1 = ov1.sum(dim=1).to(torch.int32)
     score1 = torch.where(ov1, t - torch.arange(t, dtype=torch.int32, device=dev)[None, :], 0)
     top1 = torch.topk(score1.to(torch.int32), cap1, dim=1).values
-    cand = torch.where(top1 > 0, t - top1, 0).to(torch.int64)
+    cand = torch.where(top1 > 0, t - top1, 0)                    # (S, cap1) ascending ids
     cand_valid = top1 > 0
-    aabb_c = setup.aabb[cand]                                    # (S, cap1, 4)
+    aabb_c = setup.aabb[cand.long()]                             # (S, cap1, 4)
 
-    tx0 = (torch.arange(tiles_x, device=dev) * tile_w).float()
-    ty0 = (torch.arange(tiles_y, device=dev) * tile_h).float() + y_offset
-    s_of_tile = (
-        (torch.arange(tiles_y, device=dev) // super_h)[:, None] * sx
-        + (torch.arange(tiles_x, device=dev) // super_w)[None, :]
-    ).reshape(num_tiles)
-    tile_x0 = tx0.repeat(tiles_y)[:, None]
-    tile_y0 = ty0.repeat_interleave(tiles_x)[:, None]
-    over1 = (cnt1 > cap1)[s_of_tile]
-
-    def fine(n_cand: int) -> Bins:
-        aabb_t = aabb_c[:, :n_cand][s_of_tile]
-        valid_t = cand_valid[:, :n_cand][s_of_tile]
-        ov2 = (
-            (aabb_t[..., 0] < tile_x0 + tile_w)
-            & (aabb_t[..., 2] > tile_x0)
-            & (aabb_t[..., 1] < tile_y0 + tile_h)
-            & (aabb_t[..., 3] > tile_y0)
-            & valid_t
-        )
-        counts = ov2.sum(dim=1).to(torch.int32)
-        # supertile overflow surfaces as count > cap
-        counts = torch.where(over1, torch.clamp(counts, min=cap + 1), counts)
-        cand_t = cand[:, :n_cand][s_of_tile]
-        return Bins(_compact_by_id(ov2, cand_t, t, cap), counts)
-
-    cap_small = max(cap, cap1 // 4)
-    if cap_small >= cap1:
-        return fine(cap1)
-    if int(cnt1.max().item()) <= cap_small:
-        return fine(cap_small)
-    return fine(cap1)
+    # each supertile's candidates against its super_w tile columns and its
+    # super_h tile rows (tile edges as bin_triangles computes them)
+    ty_s = torch.arange(sy * super_h, device=dev).reshape(sy, super_h)
+    tx_s = torch.arange(sx * super_w, device=dev).reshape(sx, super_w)
+    x0 = (tx_s * tile_w).float()[None, :, :, None]               # (1, sx, super_w, 1)
+    y0 = (ty_s * tile_h).float()[:, None, :, None] + y_offset    # (sy, 1, super_h, 1)
+    a = aabb_c.reshape(sy, sx, 1, cap1, 4)
+    ov_x = ((a[..., 0] < x0 + tile_w) & (a[..., 2] > x0)).reshape(sy * sx, super_w, cap1)
+    ov_y = ((a[..., 1] < y0 + tile_h) & (a[..., 3] > y0)).reshape(sy * sx, super_h, cap1)
+    ty = torch.arange(tiles_y, device=dev)[:, None].expand(tiles_y, tiles_x).reshape(num_tiles)
+    tx = torch.arange(tiles_x, device=dev)[None, :].expand(tiles_y, tiles_x).reshape(num_tiles)
+    s_of_tile = (ty // super_h) * sx + tx // super_w
+    ov2 = ov_y[s_of_tile, ty % super_h] & ov_x[s_of_tile, tx % super_w] & cand_valid[s_of_tile]
+    counts = ov2.sum(dim=1).to(torch.int32)
+    # supertile overflow surfaces as count > cap
+    counts = torch.where((cnt1 > cap1)[s_of_tile], torch.clamp(counts, min=cap + 1), counts)
+    # list position = running count; entries past cap land in a dropped column
+    pos = torch.cumsum(ov2, dim=1, dtype=torch.int32) - 1
+    keep = ov2 & (pos < cap)
+    ids = torch.full((num_tiles, cap + 1), -1, dtype=torch.int32, device=dev)
+    ids.scatter_(1, torch.where(keep, pos, cap).long(), torch.where(keep, cand[s_of_tile], -1))
+    return Bins(ids[:, :cap].contiguous(), counts)
 
 
 def _untile(tiles, tiles_y, tiles_x, tile_h, tile_w):

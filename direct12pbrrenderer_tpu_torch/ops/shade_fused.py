@@ -31,6 +31,7 @@ stays in float32 and each channel's contribution is accumulated in float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -337,6 +338,19 @@ def deferred_kernel_reference(const, lights, off, cnts, staged, rec, fx, fy, gb,
 
 
 # ------------------------------------------------------------- the pass ----
+@functools.lru_cache(maxsize=64)
+def _host_consts(device: torch.device, fov: float, ratio: float, near: float, far: float,
+                 y_offset, fw: int, fh: int):
+    """The host-known rows of kernel D's `const`: [tan(fov / 2), ratio, near,
+    far], [y_offset] and [fw, fh, log(far / near), far / near], each a
+    float32 tensor on `device`, uploaded once per value and then reused, so a
+    frame makes no host-to-device copy for them."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+            torch.tensor([y_offset], **f32),
+            torch.tensor([fw, fh, math.log(far / near), far / near], **f32))
+
+
 def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active_lights,
                          inv_view, camera_pos, env_ids: tuple, fov: float, ratio: float,
                          near: float, far: float, width: int, height: int, tile_h: int,
@@ -402,17 +416,17 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
                      z_view[:, None], mask_t.float()[:, None], fracm.permute(0, 3, 1, 2),
                      cov0[:, None], cov4[:, None]], 1)
     n_active = (active_lights[:, 13] > 0.0).sum().float()
-    f32 = dict(dtype=torch.float32, device=dev)
+    lens, yoff, proj = _host_consts(dev, fov, ratio, near, far, y_offset, fw, fh)
     const = torch.cat([
-        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+        lens,
         camera_pos.float().reshape(3),
-        torch.tensor([y_offset], **f32),
+        yoff,
         inv_view[:3, :3].reshape(9).float(),
-        torch.tensor([fw, fh, math.log(far / near), far / near], **f32),
+        proj,
         n_active.reshape(1),
-        torch.zeros(2, **f32),
+        torch.zeros(2, dtype=torch.float32, device=dev),
         sh_pack.reshape(28).float(),
-        torch.zeros(12, **f32),
+        torch.zeros(12, dtype=torch.float32, device=dev),
     ])
     out = deferred_kernel(const, active_lights, off_arr, cnts, staged, rec_t, fx_t, fy_t,
                           gbk, has_env=has_env, tile_h=tile_h, tile_w=tile_w, tiles_x=tiles_x,

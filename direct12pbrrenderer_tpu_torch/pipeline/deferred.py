@@ -5,8 +5,19 @@ GBuffer, DeferredShading, Skybox, Bloom, AutoExposure, ToneMapping, Present)
 declared against the render graph (`graph/frame_graph.py`, the port's copy
 of the JAX package's), which orders them from their read/write sets. The
 two precompute passes run once in the constructor and latch as device
-tensors; every frame then runs the graph eagerly on `device`, with the
+tensors; every frame then runs the graph on `device`, with the
 average-luminance EMA carried across frames.
+
+On a CUDA device the default path (the fused G-buffer and the fused
+deferred pass, `captured`) runs as one captured CUDA graph a frame, the
+counterpart of the JAX pipeline's `jax.jit(_frame)`: the first `render`
+captures `_frame` over static inputs (`CapturedFrame`), every later one copies
+the packs that changed into them and replays it, with no host sync when it
+collects no stats; `render_sequence` replays it once a frame from camera
+packs uploaded together (the JAX pipeline's `lax.scan`). A change to a knob
+the passes read captures it anew. Every other path, any path on the CPU,
+and every frame inside an `eager()` block (the counterpart of
+`jax.disable_jit()`) run the graph's passes eagerly.
 
 Ported configurations (every path of the JAX pipeline but the knobs below):
 * the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
@@ -50,9 +61,13 @@ as well as the port's own.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gc
 import logging
-from dataclasses import dataclass
+import threading
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -65,8 +80,9 @@ from ..config import (
 )
 from ..graph import frame_graph as fg
 from ..ops import bloom as bloom_ops
-from ..ops import (clustered, common, envcache, gbuffer, ibl, postprocess, raster_cuda,
-                   shade_fused, texcache)
+from ..ops import (atlas_resolve_cuda, clustered, common, cover_cuda, env_resolve_cuda,
+                   envcache, gbuffer, ibl, lights_cuda, postprocess, raster_cuda,
+                   resolve_shade_cuda, shade_fused, texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 from ..tools import tap_census
@@ -74,6 +90,118 @@ from . import stages
 from .scene_pack import PackedScene, pack_scene
 
 _F32 = str(torch.float32)  # the graph compares str(dtype) with its declarations
+CAPTURE_WARMUP = 2   # eager frames on the capture stream before a capture
+# what the passes read from the pipeline when they run: a captured frame is
+# keyed on them (with the config, the pack lengths and the device buffers)
+_GRAPH_KNOBS = ("tex_caps", "env_budget", "tex_cascade", "fused_light_dtype", "texture_filter",
+                "max_active_lights", "raster_caps", "bin_cap", "tile_h", "tile_w",
+                "render_w", "render_h", "use_pallas", "use_tex_kernel", "use_fused_gbuffer",
+                "use_fused_deferred", "light_tile", "light_cap", "env_ids", "env_tile")
+_KERNEL_MODULES = (raster_cuda, cover_cuda, resolve_shade_cuda, shade_fused, atlas_resolve_cuda,
+                   env_resolve_cuda, lights_cuda)
+_EAGER = threading.local()   # `depth`: the thread's open `eager()` blocks
+
+
+@contextlib.contextmanager
+def eager():
+    """While the block runs, every pipeline renders this thread's frames
+    eagerly: the port's counterpart of `jax.disable_jit()` (thread-local,
+    as JAX's is). A captured frame replays a CUDA graph and runs none of
+    `_frame`'s Python, so a caller that intercepts kernel calls or times
+    passes in Python runs inside this block."""
+    _EAGER.depth = getattr(_EAGER, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _EAGER.depth -= 1
+
+
+def _replays() -> bool:
+    return not getattr(_EAGER, "depth", 0)
+
+
+def _launch_counters() -> dict[tuple, int]:
+    """{(module, wrapper, counter): count} of every kernel wrapper's launch
+    counters (its `*launches` attributes)."""
+    out = {}
+    for mod in _KERNEL_MODULES:
+        for name, fn in vars(mod).items():
+            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
+                out.update({(mod, name, attr): n for attr, n in vars(fn).items()
+                            if attr.endswith("launches") and isinstance(n, int)})
+    return out
+
+
+def _add_launches(counts: dict[tuple, int]) -> None:
+    for (mod, name, attr), n in counts.items():
+        fn = getattr(mod, name)
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+def _tensors(x):
+    """Every tensor in a (nested) dict, tuple or buffer object."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif hasattr(x, "__dict__"):
+        yield from _tensors(vars(x))
+
+
+def _stats_vector(out) -> torch.Tensor:
+    """`_frame`'s counters as one int32 vector: the bin counts, the visible
+    instances and lights, the texture and env fallback taps and the light
+    tile overflow (`DeferredRenderPipeline._stats_of` reads it)."""
+    _, _, bin_counts, tex_approx, light_trunc, env_approx, vis_counts = out
+    return torch.cat([x.reshape(-1).to(torch.int32) for x in
+                      (bin_counts, vis_counts, tex_approx, env_approx, light_trunc)])
+
+
+def _upload_into(dst: torch.Tensor, arr: np.ndarray) -> None:
+    """Copy `arr` into the device tensor `dst` from pinned host memory,
+    without a host sync (the pinned block is not reused before the copy
+    has run)."""
+    dst.copy_(torch.from_numpy(arr).pin_memory(), non_blocking=True)
+
+
+@dataclass
+class CapturedFrame:
+    """One captured `_frame` (the counterpart of the JAX pipeline's
+    `jax.jit(_frame)`): a CUDA graph over static inputs, the scene pack,
+    the camera pack and the previous average luminance, whose outputs
+    (`_frame`'s, and their `_stats_vector`) live in the graph's memory pool
+    and are overwritten by every replay."""
+    key: tuple
+    graph: torch.cuda.CUDAGraph
+    scene: torch.Tensor
+    camera: torch.Tensor
+    prev_avg: torch.Tensor
+    outputs: tuple
+    stats: torch.Tensor
+    launches: dict = field(repr=False)   # kernel launches a replay makes
+    capture_s: float = 0.0               # host seconds of the capture
+    pool_bytes: int = 0                  # device memory the capture reserved
+    scene_np: np.ndarray | None = field(default=None, repr=False)
+    camera_np: np.ndarray | None = field(default=None, repr=False)
+
+    def load(self, scene_f32: np.ndarray, cam_f32: np.ndarray) -> None:
+        """Copy the packs that changed into the static inputs."""
+        if not np.array_equal(self.scene_np, scene_f32):
+            _upload_into(self.scene, scene_f32)
+            self.scene_np = scene_f32
+        if not np.array_equal(self.camera_np, cam_f32):
+            _upload_into(self.camera, cam_f32)
+            self.camera_np = cam_f32
+
+    def replay(self) -> None:
+        """Replay the graph on the current stream; each wrapper's launch
+        counter gains the launches the capture recorded."""
+        self.graph.replay()
+        _add_launches(self.launches)
 
 
 @dataclass
@@ -268,6 +396,8 @@ class DeferredRenderPipeline:
         self.last_stats: FrameStats | None = None
         self._scene_np = self._scene_dev = None
         self._cam_np = self._cam_dev = None
+        self.captured_frame: CapturedFrame | None = None   # the captured frame (`captured`)
+        self._capture_stream = None
 
     def load_state(self, state: dict) -> None:
         """Replace the device buffers and the exposure carry with `state`
@@ -418,7 +548,7 @@ class DeferredRenderPipeline:
                     env["DeferredShadingRT"], float(w * h), env["PrevAverageLuminance"],
                     env["DeltaTime"])
             else:
-                avg = torch.tensor(0.18, dtype=torch.float32, device=self.device)
+                avg = torch.full((), 0.18, dtype=torch.float32, device=self.device)
             return {"LuminanceHistogram": hist, "AverageLuminance": avg}
 
         def tone_mapping_pass(env):
@@ -561,30 +691,141 @@ class DeferredRenderPipeline:
             "auto tex caps: cap=(%d,%d) block_cap=%s stage_budget=%d env_budget=%s",
             caps[0], caps[1], block_caps, budget, self.env_budget)
 
+    @property
+    def captured(self) -> bool:
+        """Whether `render` and `render_sequence` replay a captured frame
+        (`CapturedFrame`) outside an `eager()` block: on a CUDA device with the
+        fused G-buffer and the fused deferred pass (kernels A-D), every other
+        knob free. A static rule of the knobs; every other path renders
+        eagerly, as every path does on the CPU."""
+        return (self.device.type == "cuda" and self.use_fused_gbuffer
+                and self.use_fused_deferred)
+
+    def _graph_key(self) -> tuple:
+        """What a captured frame depends on besides its static inputs: the
+        knobs the passes read when they run, the config, the graph, the pack
+        lengths and the device buffers' addresses."""
+        p = self.packed
+        return (tuple(repr(getattr(self, k)) for k in _GRAPH_KNOBS), repr(self.config),
+                id(self.graph), p.model_mats.shape, p.instance_bounds.shape,
+                p.light_bounds.shape, p.instance_count, p.light_count,
+                tuple(t.data_ptr() for t in _tensors(self.buffers)))
+
+    def _captured_frame(self, scene_f32: np.ndarray, cam_f32: np.ndarray) -> CapturedFrame:
+        """The captured frame for the pipeline's current knobs with the packs
+        loaded; captured anew whenever its key changed."""
+        key = self._graph_key()
+        if self.captured_frame is not None and self.captured_frame.key == key:
+            self.captured_frame.load(scene_f32, cam_f32)
+        else:
+            self.captured_frame = None   # the old graph's pool goes first
+            self.captured_frame = self._capture(key, scene_f32, cam_f32)
+        return self.captured_frame
+
+    def _capture(self, key: tuple, scene_f32: np.ndarray, cam_f32: np.ndarray) -> CapturedFrame:
+        """Capture `_frame` over static inputs holding these packs and the
+        exposure carry, after CAPTURE_WARMUP eager frames on the capture
+        stream (they build the kernels, fill the persistent grids' caches,
+        the raster's merge scratch of that stream, cuBLAS's workspace and
+        the device constants). A failed capture raises."""
+        dev = self.device
+        scene = torch.as_tensor(scene_f32, device=dev)
+        camera = torch.as_tensor(cam_f32, device=dev)
+        prev_avg = self.avg_luminance.clone()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(CAPTURE_WARMUP):
+                self._frame(scene, camera, prev_avg)
+        torch.cuda.synchronize(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        counts = _launch_counters()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                outputs = self._frame(scene, camera, prev_avg)
+                stats = _stats_vector(outputs)
+        finally:
+            # a capture launches nothing: the wrappers' counts go back
+            after = _launch_counters()
+            for (mod, name, attr), n in counts.items():
+                setattr(getattr(mod, name), attr, n)
+        torch.cuda.synchronize(dev)
+        return CapturedFrame(
+            key, graph, scene, camera, prev_avg, outputs, stats,
+            launches={k: n - counts.get(k, 0) for k, n in after.items()
+                      if n != counts.get(k, 0)},
+            capture_s=time.perf_counter() - t0,
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            scene_np=scene_f32, camera_np=cam_f32)
+
     def render_sequence(self, cameras, delta_time: float = 1.0 / 60.0):
-        """Render a camera path: N `render` calls with the exposure EMA carried
-        frame to frame. Returns the stacked (N, H, W, 3) uint8 frames."""
+        """Render a camera path with the exposure EMA carried frame to frame,
+        as N `render` calls would. Returns the stacked (N, H, W, 3) uint8
+        frames. Where the frame is captured (`captured`), the N camera packs
+        go to the device in one copy and each frame is a device copy of its
+        pack into the static input, a replay and a copy of the frame, with
+        the EMA chained on the device: no host sync from the first replay to
+        the return (the counterpart of the JAX pipeline's `lax.scan`).
+        Otherwise it is a loop of `render` calls."""
         if cameras:
             self._ensure_auto_caps(cameras[0])
-        frames = [self.render(c, delta_time, collect_stats=False) for c in cameras]
-        return torch.stack(frames)
+        if not (cameras and self.captured and _replays()):
+            return torch.stack([self.render(c, delta_time, collect_stats=False)
+                                for c in cameras])
+        packs = np.stack([self._pack_camera(c, delta_time) for c in cameras])
+        cf = self._captured_frame(self._pack_scene(), packs[0])
+        cams = torch.from_numpy(packs).pin_memory().to(self.device, non_blocking=True)
+        rgb8, avg = cf.outputs[:2]
+        frames = torch.empty((len(cameras), *rgb8.shape), dtype=rgb8.dtype, device=self.device)
+        cf.prev_avg.copy_(self.avg_luminance)
+        for i in range(len(cameras)):
+            cf.camera.copy_(cams[i])
+            cf.replay()
+            frames[i].copy_(rgb8)
+            cf.prev_avg.copy_(avg)
+        cf.camera_np = packs[-1]
+        self.avg_luminance = avg.clone()
+        return frames
 
     def render(self, camera: Camera, delta_time: float = 1.0 / 60.0,
                collect_stats: bool = True):
         """One frame -> (H, W, 3) uint8 tensor on the pipeline's device.
 
-        collect_stats=False skips the host readback of the bin and
-        visibility counters (the frame then has no host sync of its own
-        beyond the data-dependent loop bounds of its stages)."""
+        Where the frame is captured (`captured`, outside `eager()`): the
+        packs that changed are copied into the graph's static inputs from
+        pinned memory, the graph replays, and the frame and the exposure
+        carry come back as clones; the first call (and the first after a
+        knob it reads changed) captures it. collect_stats=False makes that a
+        frame with no host sync; collect_stats=True reads the counters back
+        in one device-to-host copy."""
         self._ensure_auto_caps(camera)
-        self._upload(camera, delta_time)
-        (rgb8, avg, bin_counts, tex_approx, light_trunc, env_approx,
-         vis_counts) = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)
+        if self.captured and _replays():
+            cf = self._captured_frame(self._pack_scene(), self._pack_camera(camera, delta_time))
+            cf.prev_avg.copy_(self.avg_luminance)
+            cf.replay()
+            rgb8, avg = (x.clone() for x in cf.outputs[:2])
+            stats = cf.stats
+        else:
+            self._upload(camera, delta_time)
+            out = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)
+            rgb8, avg = out[:2]
+            stats = _stats_vector(out) if collect_stats else None
         self.avg_luminance = avg
         if collect_stats:
-            self.last_stats = self._stats(bin_counts.cpu().numpy(), vis_counts.cpu().numpy(),
-                                          int(tex_approx), int(env_approx), int(light_trunc))
+            self.last_stats = self._stats_of(stats.cpu().numpy())
         return rgb8
+
+    def _stats_of(self, vec: np.ndarray) -> FrameStats:
+        """FrameStats from a frame's `_stats_vector`."""
+        n = vec.size - 5
+        tex_approx, env_approx, light_trunc = (int(x) for x in vec[n + 2:])
+        return self._stats(vec[:n], vec[n:n + 2], tex_approx, env_approx, light_trunc)
 
     def _stats(self, counts_np, vis_np, tex_approx, env_approx, light_trunc) -> FrameStats:
         overflow = int(np.maximum(counts_np - self.bin_cap, 0).max())

@@ -15,9 +15,10 @@ with every result:
                         with the recommended budget, then env_budget full /
                         recommended / 48, fps and the env fallback taps
   6. rpc              — the frame split at `render`'s seam: the device frame
-                        alone (`_frame` on resident scene and camera packs),
-                        with the camera pack uploaded each frame, and the
-                        whole `render()` (the host-side packing too)
+                        alone (on a captured pipeline a replay of its CUDA
+                        graph, else `_frame`, on resident scene and camera
+                        packs), with the camera pack uploaded each frame, and
+                        the whole `render()` (the host-side packing too)
 
 The baseline and `rpc` time the App's own pipeline; every other check
 takes fresh pipelines with the JAX tool's knobs (tile 24x128, bin_cap 2048).
@@ -59,28 +60,48 @@ def fps_of(pipe, camera, frames: int = 6) -> float:
 
 
 def rpc_split(pipe, camera, frames: int) -> dict[str, float]:
-    """ms per frame of the device frame alone (`_frame` on the scene and
-    camera packs resident on the device), of the same with the camera pack
-    uploaded each frame, and of `render()` (packing, upload, frame)."""
+    """ms per frame of the device frame alone (on a captured pipeline,
+    `pipe.captured`, a replay of its frame graph; else `_frame`; on the
+    scene and camera packs resident on the device), of the same with the
+    camera pack uploaded each frame, and of `render()` (packing, upload,
+    frame)."""
     dev = pipe.device
-    scene_dev = torch.as_tensor(pipe._pack_scene(), device=dev)
+    scene_f32 = pipe._pack_scene()
     cam_f32 = pipe._pack_camera(camera, 1.0 / 60.0)
-    cam_dev = torch.as_tensor(cam_f32, device=dev)
-    avg = pipe.avg_luminance
-    pipe._frame(scene_dev, cam_dev, avg)[0].cpu()   # warm
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        out = pipe._frame(scene_dev, cam_dev, avg)
-    out[0].cpu()
-    exec_only = (time.perf_counter() - t0) / frames
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        out = pipe._frame(scene_dev, torch.as_tensor(cam_f32, device=dev), avg)
-    out[0].cpu()
-    with_upload = (time.perf_counter() - t0) / frames
+    if pipe.captured:
+        cf = pipe._captured_frame(scene_f32, cam_f32)
+
+        def exec_only():
+            cf.replay()
+            return cf.outputs[0]
+
+        def with_upload():
+            cf.camera_np = None   # the pack counts as changed: copied in again
+            cf.load(scene_f32, cam_f32)
+            return exec_only()
+    else:
+        scene_dev = torch.as_tensor(scene_f32, device=dev)
+        cam_dev = torch.as_tensor(cam_f32, device=dev)
+        avg = pipe.avg_luminance
+
+        def exec_only():
+            return pipe._frame(scene_dev, cam_dev, avg)[0]
+
+        def with_upload():
+            return pipe._frame(scene_dev, torch.as_tensor(cam_f32, device=dev), avg)[0]
+
+    def per_frame(fn):
+        fn().cpu()   # warm
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            out = fn()
+        out.cpu()
+        return (time.perf_counter() - t0) / frames
+
+    exec_ms, upload_ms = per_frame(exec_only), per_frame(with_upload)
     full = 1.0 / fps_of(pipe, camera, frames)
-    return {"exec_only_ms": round(exec_only * 1e3, 3),
-            "with_upload_ms": round(with_upload * 1e3, 3),
+    return {"exec_only_ms": round(exec_ms * 1e3, 3),
+            "with_upload_ms": round(upload_ms * 1e3, 3),
             "full_render_ms": round(full * 1e3, 3)}
 
 

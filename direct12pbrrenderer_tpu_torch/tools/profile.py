@@ -63,9 +63,11 @@ def profile_pipeline(pipe, camera, iters: int = 5):
 
     Returns an ordered {stage: ms} dict: geometry, binning, raster,
     gbuffer_shade, light_cull, deferred_shade, bloom (when the config
-    enables it), exposure_tonemap and full_frame. Stage outputs are computed
-    once (device-resident) and reused as the next stage's inputs, so each
-    timing isolates that stage's cost exactly like a GPU pass marker would.
+    enables it), exposure_tonemap and full_frame (and full_frame_eager, the
+    same frame inside `eager()`, where the pipeline is captured). Stage
+    outputs are computed once (device-resident) and reused as the next
+    stage's inputs, so each timing isolates that stage's cost exactly like
+    a GPU pass marker would.
     """
     from ..ops import bloom as bloom_ops
     from ..ops import gbuffer as gbuffer_ops
@@ -170,11 +172,20 @@ def profile_pipeline(pipe, camera, iters: int = 5):
 
     run("exposure_tonemap", post)
 
-    # whole-frame reconciliation: the frame the pipeline actually runs
+    # whole-frame reconciliation: the frame the pipeline actually runs (a
+    # replay of its CUDA graph where it is captured, and then also the same
+    # frame run eagerly, stage by stage as above)
     n_frames = max(iters, 2)
-    timings["full_frame"] = time_stage(
-        lambda: [pipe.render(camera, collect_stats=False) for _ in range(n_frames)],
-        dev, 1) / n_frames
+
+    def frames():
+        return [pipe.render(camera, collect_stats=False) for _ in range(n_frames)]
+
+    timings["full_frame"] = time_stage(frames, dev, 1) / n_frames
+    if pipe.captured:
+        from ..pipeline.deferred import eager
+
+        with eager():
+            timings["full_frame_eager"] = time_stage(frames, dev, 1) / n_frames
     return timings
 
 
@@ -245,7 +256,7 @@ def main(argv=None):
         pipe.graph = pipe._build_graph()
 
     t = profile_pipeline(pipe, camera, iters=args.iters)
-    total = sum(v for k, v in t.items() if k != "full_frame")
+    total = sum(v for k, v in t.items() if not k.startswith("full_frame"))
     print(f"\nPer-stage timings @ {args.width}x{args.height} on {device} "
           f"(tile {args.tile[0]}x{args.tile[1]}, bin_cap {args.bin_cap}, "
           f"{args.texture_filter}):\n")

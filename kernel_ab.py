@@ -18,6 +18,9 @@ kernel D (`shade_fused.deferred_kernel`), and for each kernel:
   `copy_ms` is their difference: the wrapper's layout copies);
 * hashes its inputs and its output (sha256 of the values).
 
+It times the binning stage of that frame's pose (`chip_smoke.frame_inputs`,
+CUDA events; `binning.ms`) and hashes its bins (`binning.output`).
+
 For kernel I it renders the same frame with chip_smoke.py's cap-156 knobs
 (`CAP156`), records the one page cover at a cap above 128
 (`texcache._cover_and_match`, the route's entry in every tree), holds its
@@ -155,6 +158,9 @@ def run_one(tree: str) -> dict:
     from direct12pbrrenderer_tpu_torch.ops import resolve_shade_cuda, shade_fused
 
     scene, cfg, _, knobs, pipe, cam = cs.textured_cell(torch.device("cuda", 0))
+    _, bins, _, stage_ms = cs.frame_inputs(pipe, cam)
+    binning = {"output": _sha([bins.ids, bins.counts]), "ms": stage_ms["binning"]}
+    del bins
     with cs.recording(resolve_shade_cuda, "resolve_shade") as c_calls, \
             cs.recording(shade_fused, "deferred_kernel") as d_calls:
         pipe.render(cam, collect_stats=False)
@@ -180,6 +186,7 @@ def run_one(tree: str) -> dict:
                                 if isinstance(a, torch.Tensor) and not a.is_contiguous()}}
     del pipe
     out["I"] = cover_i(cs, scene, cfg, knobs, cam)
+    out["binning"] = binning
     return out
 
 
@@ -199,12 +206,13 @@ def main() -> None:
             sys.exit(f"[ab] FAIL {tree}: exit code {proc.returncode}")
         lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(lines[-1]), flush=True)
-    for key in ("C", "D", "I"):
-        for what in ("inputs", "output"):
+    for key in ("C", "D", "I", "binning"):
+        for what in ("inputs", "output")[key == "binning":]:
             seen = {line[key][what] for line in lines}
             if len(seen) != 1:
                 sys.exit(f"[ab] FAIL kernel {key}: {what} differ across trees: {seen}")
-        print(f"[ab] kernel {key}: the same inputs and bit-equal outputs in {len(lines)} runs; "
+        print(f"[ab] {'kernel ' * (key != 'binning')}{key}: the same inputs and bit-equal "
+              f"outputs in {len(lines)} runs; "
               "ms through the wrapper " + ", ".join(f"{l['tree']} {l[key]['ms']:.4f}"
                                                     for l in lines), flush=True)
 

@@ -55,7 +55,8 @@ from test_torch_console import console_tree
 torch.set_num_threads(2)
 SMOKE_KEYS = {"metric", "value", "unit", "vs_baseline", "per_call_loop_fps", "headline_method",
               "reference_scene_vs_baseline", "vs_baseline_scene", "device", "reference_scene"}
-CELL_KEYS = ("fps", "rmse", "rmse_gate", "bin_overflow", "tex_approx_taps", "env_approx_taps")
+CELL_KEYS = ("fps", "per_call_loop_fps", "sequence_dispatch_fps", "headline_method", "rmse",
+             "rmse_gate", "bin_overflow", "tex_approx_taps", "env_approx_taps")
 SMALL = argparse.Namespace(width=256, height=192, device="cpu")
 
 
@@ -274,6 +275,9 @@ def test_stress_cells_run(card_defaults):
     assert set(out) == {"sponza_class_triangles", *(f"sponza_class_{k}" for k in CELL_KEYS)}
     assert out["sponza_class_triangles"] == 16 * 8 * 2 and out["sponza_class_fps"] > 0
     assert out["sponza_class_rmse_gate"] == "pass"
+    fps = (out["sponza_class_per_call_loop_fps"], out["sponza_class_sequence_dispatch_fps"])
+    assert min(fps) > 0 and out["sponza_class_fps"] == max(fps)
+    assert out["sponza_class_headline_method"] == ("sequence" if fps[1] > fps[0] else "loop")
     benched = card_defaults[0]
     assert benched.use_fused_gbuffer and benched.use_fused_deferred
 
