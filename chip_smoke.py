@@ -15,7 +15,15 @@ on the card, then renders at 1920x1080 with a procedural sky:
   card, one captured CUDA graph a frame ([frame-graph]: the capture's
   seconds and memory pool, captured frames bit-equal to eager ones, timed
   and traced, no host sync under the sync debug mode, `render_sequence`
-  bit-equal to a loop of `render` calls and timed against it);
+  bit-equal to a loop of `render` calls and timed against it). Every other
+  path below renders as one captured CUDA graph a frame too ([frame-*]
+  time replays; [passes-*] run eagerly); [frame-graph-paths] captures each
+  anew (seconds, pool bytes), holds PATH_FRAMES captured frames to eager
+  ones bit for bit with each replay's launches equal to its eager frame's,
+  times both, checks for host syncs under the sync debug mode and traces
+  the replays: `use_tex_kernel=False`, all-plain, planar-tex and
+  anisotropic on this scene, the 1024-light path and its all-plain
+  reference on the 1024-light scene;
 * the same scene through the `use_tex_kernel=False` path: kernel A, the
   direct-atlas sampler and the dense deferred shading;
 * the same scene through the planar texture-cache path at a 24x160 raster
@@ -103,6 +111,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -132,6 +141,18 @@ FRAMES, WARMUP = 16, 2    # the default path and the 1024-light path
 # [frame-graph]: captured frames timed, held to eager ones, under the sync
 # debug mode, and the render_sequence length
 GRAPH_FRAMES, EQUAL_FRAMES, SYNC_FRAMES, SEQ_FRAMES = 16, 4, 8, 32
+# [frame-graph-paths]: frames held captured against eager on each path, the
+# render_sequence length under the sync debug mode, and the launches a frame
+# of each path's kernels makes (the all-plain path launches none)
+PATH_FRAMES, PATH_SEQ = 3, 8
+PATH_KERNELS = {
+    "lights1k": {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
+                 "point_lights": 1},
+    "planar-tex": {"raster_interp": 1, "fused_cover": 4, "atlas_resolve": 1, "env_resolve": 1},
+    "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1},
+    "use_tex_kernel=False": {"raster_interp": 1},
+    "all-plain": {},
+}
 PLANAR_FRAMES = 4         # the use_tex_kernel=False path
 PTEX_FRAMES, ANISO_FRAMES = 8, 2   # the planar texture-cache and anisotropic paths
 BF16_FRAMES = 8           # the default path with fused_light_dtype="bfloat16"
@@ -1264,13 +1285,114 @@ def check_frame(phase, pipe, cam) -> str:
 
 def fidelity(pipe, ref, cam) -> tuple[float, int]:
     """Frame rmse (uint8/255) of `pipe` against `ref` on the same pose and
-    exposure carry."""
+    exposure carry. The reference frame renders eagerly (`eager()`): one
+    frame, which a capture's warm-up frames would triple; [frame-graph-paths]
+    holds the captured all-plain frame to the eager one."""
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
+
     prev = pipe.avg_luminance.clone()
     ref.avg_luminance = prev.clone()
     a = pipe.render(cam).cpu().numpy().astype(np.float64)
     pipe.avg_luminance = prev
-    b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
+    with eager():
+        b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
     return float(np.sqrt(np.mean((a / 255.0 - b / 255.0) ** 2))), int((a != b).any(-1).sum())
+
+
+def free_pipeline(pipe) -> None:
+    """Drop `pipe`'s captured frame, and with it its graph pool, then give
+    the freed memory back to the card (the caller drops the pipeline)."""
+    pipe.captured_frame = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frame_graph_path(label: str, cell: str, smi: str, pipe, cam) -> None:
+    """[frame-graph-paths]: the path `label` (PATH_KERNELS) of `pipe`, on the
+    1080p `cell` ("textured" or "lights1k"), as one
+    captured CUDA graph a frame. The pipeline must capture it (`captured`);
+    the first `render` captures it anew (its seconds, the graph pool's
+    bytes); PATH_FRAMES frames over the yaw path rendered eagerly
+    (`eager()`) and captured are bit-equal with equal FrameStats and
+    exposure carry, and each replay launches what the eager frame launches,
+    PATH_KERNELS[label] and no other kernel (the counts read just before
+    and just after each frame); both are timed (host clock, synchronized per
+    frame, FrameStats read); with the sync debug mode at
+    "error" two `render(collect_stats=False)` calls and a PATH_SEQ-frame
+    `render_sequence` raise nothing; and torch.profiler traces 3 captured
+    frames (device busy, idle share)."""
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
+
+    phase, want = "frame-graph-paths", PATH_KERNELS[label]
+    if not pipe.captured:
+        fail(phase, f"{label}: the path is not captured on the card")
+    path = camera_path(cam, PATH_FRAMES)
+    free_pipeline(pipe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.render(path[0], collect_stats=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cf = pipe.captured_frame
+    if cf is None:
+        fail(phase, f"{label}: the first render did not capture the frame")
+
+    def timed(c):
+        torch.cuda.synchronize()
+        n0, t0 = read_launches(), time.perf_counter()
+        img = pipe.render(c)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return img, ms, {k: n - n0[k] for k, n in read_launches().items() if n != n0[k]}
+
+    eager_ms, replay_ms = [], []
+    for c in path:
+        carry = pipe.avg_luminance.clone()
+        with eager():
+            want_img, ms, eager_launches = timed(c)
+        want_stats, want_avg = pipe.last_stats, pipe.avg_luminance
+        eager_ms.append(ms)
+        pipe.avg_luminance = carry
+        got, ms, replay_launches = timed(c)
+        replay_ms.append(ms)
+        if (not torch.equal(got, want_img) or pipe.last_stats != want_stats
+                or not torch.equal(pipe.avg_luminance, want_avg)):
+            fail(phase, f"{label}: a captured frame differs from the eager one: "
+                 f"{int((got != want_img).any(-1).sum())} pixels, stats {pipe.last_stats} vs "
+                 f"{want_stats}, carry {float(pipe.avg_luminance)} vs {float(want_avg)}")
+        if not replay_launches == eager_launches == want:
+            fail(phase, f"{label}: a replay launched {replay_launches}, the eager frame "
+                 f"{eager_launches}, want {want}")
+    if pipe.captured_frame is not cf:
+        fail(phase, f"{label}: the yaw path captured the frame again")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in path[:2]:
+            pipe.render(c, collect_stats=False)
+        seq = pipe.render_sequence(camera_path(path[-1], PATH_SEQ))
+    except RuntimeError as e:
+        fail(phase, f"{label}: a host sync in a captured frame: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if tuple(seq.shape) != (PATH_SEQ, H, W, 3):
+        fail(phase, f"{label}: render_sequence gave {tuple(seq.shape)}")
+    del seq
+    wall, busy, n_act, top = profiled_frames(pipe, path[-1], 3)
+    say(phase, f"{label} path of the {cell} cell as one captured CUDA graph a frame on {smi}: "
+        f"the first render "
+        f"{first_s:.3f} s (its eager warm-up frames and the capture), the capture itself "
+        f"{cf.capture_s:.3f} s, graph pool {cf.pool_bytes} bytes; {PATH_FRAMES} frames "
+        f"bit-equal to eager ones (equal FrameStats and carry), each replay's launches equal "
+        f"to its eager frame's: {want or 'none'}; "
+        f"captured mean {np.mean(replay_ms):.2f} ms, p50 {np.median(replay_ms):.2f} ms against "
+        f"eager mean {np.mean(eager_ms):.2f} ms, p50 {np.median(eager_ms):.2f} ms (host clock, "
+        f"synchronized per frame, FrameStats read); sync debug mode \"error\" around 2 "
+        f"render(collect_stats=False) calls and a {PATH_SEQ}-frame render_sequence: no host "
+        f"sync; torch.profiler, 3 captured frames: wall {wall:.2f} ms/frame, device busy "
+        f"{busy:.2f} ms/frame ({n_act:.0f} device activities), idle share "
+        f"{1 - busy / wall:.3f}; top: " + "; ".join(f"{ms:.2f} ms {name[:60]}"
+                                                  for ms, name in top))
 
 
 def frame_bf16(dev, smi, scene, cfg, knobs, pipe, ref, cam) -> None:
@@ -1430,11 +1552,13 @@ def checklist_phase(smi, tree) -> None:
         f"{rpc['full_render_ms'] - rpc['with_upload_ms']:.3f} ms")
 
 
-def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
+def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
     """The 1024-light cell: the JAX bench's lights1k scene with the default
     cell's sky and cache knobs, through the 1024-light path (kernels A, B, C,
     F, G; not D). Checks F and G against their plain versions on one frame's
-    recorded inputs, times 16 frames, the passes, and the frame's fidelity.
+    recorded inputs, times 16 captured frames, the passes (eager), the
+    frame's fidelity, and [frame-graph-paths] on the 1024-light path and on
+    its all-plain reference (the dense sweep over all 1024 light rows).
     Adds F's and G's (max abs error, ms, plain ms) to `measured` and their
     bounds to `bounds`; returns the frames' launch counts."""
     from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, envcache, lights_cuda
@@ -1584,6 +1708,12 @@ def lights1k(dev, cam, knobs, base_knobs, measured, bounds) -> dict[str, int]:
         f"{st.visible_lights} visible lights; with the JAX default knobs (not gated): rmse "
         f"{rmse_j:.6f}, tex_approx_taps {st_j.tex_approx_taps}, env_approx_taps "
         f"{st_j.env_approx_taps}, light_tile_overflow {st_j.light_tile_overflow}")
+    del pipe_j
+    frame_graph_path("lights1k", "lights1k", smi, pipe, path[-1])
+    free_pipeline(pipe)
+    del pipe
+    frame_graph_path("all-plain", "lights1k", smi, ref, path[-1])
+    free_pipeline(ref)
     return launches
 
 
@@ -2056,7 +2186,7 @@ def app_fidelity(app, pipe, dev) -> str:
     env cache's BRDF LUT tap group has a fixed page cap of 32, whose overflow
     falls back (env_approx_taps). A miss of that bar with no loss counted
     fails. Returns the line to print."""
-    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, eager
 
     cfg, cam = app.cfg, app.camera
     carry = pipe.avg_luminance.clone()
@@ -2083,7 +2213,8 @@ def app_fidelity(app, pipe, dev) -> str:
                                  bin_cap=cfg.bin_cap, atlas_max_dim=cfg.atlas_max_dim,
                                  prefilter_size=cfg.prefilter_size)
     ref.avg_luminance = carry.clone()
-    b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
+    with eager():   # one reference frame: no capture
+        b = ref.render(cam, collect_stats=False).cpu().numpy().astype(np.float64)
     del ref
     rmse_plain = float(np.sqrt(np.mean((frames[0] / 255.0 - b / 255.0) ** 2)))
     ndiff_plain = int((frames[0] != b).any(-1).sum())
@@ -2596,15 +2727,16 @@ def raster_depth_stage(phase, setup, bins, rows64, width, height, census, smi, m
     return n_h
 
 
-def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
+def planar_tex_cells(dev, smi, scene, cfg, cam, knobs, pipe, cover_calls, measured,
                      bounds) -> dict[str, int]:
     """The planar texture-cache, cap-156 and anisotropic configurations of
     the textured stress cell. Checks kernel A at the 24x160 tile, E and I
     against their plain versions (and I's plain version against B at caps
     up to 128 on the default frame's recorded covers), times each path's
-    frames, and holds each frame against its all-plain pipeline. Adds E's
-    and I's numbers to `measured` and `bounds`; returns their launches on
-    their paths."""
+    captured frames, holds each frame against its all-plain pipeline, and
+    runs [frame-graph-paths] on the planar-tex and anisotropic paths. Adds
+    E's and I's numbers to `measured` and `bounds`; returns their launches
+    on their paths."""
     from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda, cover_two,
                                                    raster_cuda, texcache)
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
@@ -2759,7 +2891,10 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
         f"brdf_lut_size {BRDF_LUT}) rmse vs use_pallas=False, use_tex_kernel=False at tile "
         f"{PTEX_TILE[0]}x{PTEX_TILE[1]} on the card {rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels "
         f"differ; {counters}")
-    del ptex, ref
+    del ref
+    frame_graph_path("planar-tex", "textured", smi, ptex, path[-1])
+    free_pipeline(ptex)
+    del ptex
 
     # ---- the cap-156 frame: B four times, one of them wide (kernel I) ---------
     cap.render(cam, collect_stats=False)   # the frame's capture and its warm-up frames
@@ -2803,7 +2938,10 @@ def planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls, measured,
     say("fidelity-aniso", f"anisotropic frame rmse vs use_pallas=False, use_tex_kernel=False "
         f"(anisotropic) on the card {rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ; "
         f"env_approx_taps {aniso.last_stats.env_approx_taps}")
-    del aniso, ref
+    del ref
+    frame_graph_path("anisotropic", "textured", smi, aniso, apath[-1])
+    free_pipeline(aniso)
+    del aniso
     torch.cuda.empty_cache()
     return out
 
@@ -3156,6 +3294,10 @@ def main(argv=None) -> None:
     say("fidelity-planar", f"use_tex_kernel=False frame rmse vs use_pallas=False on the card "
         f"{rmse:.6f} <= {RMSE_BAR}; {ndiff} pixels differ")
     frame_bf16(dev, smi, scene, cfg, knobs, pipe, ref, path[-1])
+    frame_graph_path("use_tex_kernel=False", "textured", smi, planar, ppath[-1])
+    free_pipeline(planar)
+    frame_graph_path("all-plain", "textured", smi, ref, path[-1])
+    free_pipeline(ref)
     del planar, ref
     torch.cuda.empty_cache()
     measured.update({"fused_cover": (0.0, ms_b, plain_ms_b, sum(cover_alone_ms)),
@@ -3163,12 +3305,12 @@ def main(argv=None) -> None:
                      "deferred_shade": (err_d, ms_d, plain_ms_d, alone_d, cold_d)})
 
     # ---- the planar texture-cache, cap-156 and anisotropic paths ------------
-    launches_ptex = planar_tex_cells(dev, scene, cfg, cam, knobs, pipe, cover_calls,
+    launches_ptex = planar_tex_cells(dev, smi, scene, cfg, cam, knobs, pipe, cover_calls,
                                      measured, bounds)
     del pipe, scene, cover_calls, setup, bins, rows64, args
     torch.cuda.empty_cache()
 
-    launches_l1k = lights1k(dev, cam, knobs, base_knobs, measured, bounds)
+    launches_l1k = lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds)
     launches.update({k: launches_l1k[k] for k in ("env_resolve", "point_lights")})
     torch.cuda.empty_cache()
     launches.update(deferred_dtypes(dev, smi, cam, knobs, measured, bounds))

@@ -36,8 +36,9 @@ fps: two warm frames of a yaw path (0.002 rad a frame), then `--frames`
 frames on the host clock, with one `torch.cuda.synchronize()` after the last
 inside the timed window (`per_call_loop_fps`); then, but for `--smoke`, the
 same path through one `render_sequence` call after a warm one
-(`sequence_dispatch_fps`: on the card, where the frame is captured, one
-camera upload and a replay a frame with no host round trip between them).
+(`sequence_dispatch_fps`: on the card, where every cell's frame is
+captured, one camera upload and a replay a frame with no host round trip
+between them).
 A cell's `fps` is the faster of the two and `headline_method` says which,
 as in `bench.py`.
 
@@ -46,7 +47,8 @@ is the frame rmse (uint8/255, in float64) against a pipeline with
 `use_pallas=False, use_tex_kernel=False` on the same device, built with the
 benched pipeline's content knobs (atlas_max_dim, brdf_lut_size,
 prefilter_size, tile, bin_cap, max_active_lights, texture_filter and config)
-and started from its exposure carry. The gate binds on every cell: a cell
+and started from its exposure carry (its one frame renders eagerly, inside
+`eager()`). The gate binds on every cell: a cell
 whose rmse exceeds 1e-3 moves its fps and rmse to its `tuned` keys and is
 measured again on the gate-safe configuration (`tex_caps=None,
 use_tex_kernel=False, env_budget=None`, the raster kernel kept at its default
@@ -70,7 +72,7 @@ import torch
 
 from .app.app import DEFAULT_ASSET_ROOT, App, AppConfig
 from .config import RenderConfig
-from .pipeline.deferred import DeferredRenderPipeline
+from .pipeline.deferred import DeferredRenderPipeline, eager
 from .resource.loader import ResourceLoader
 from .scene.camera import Camera
 from .tools.stress_scene import build_stress_scene
@@ -240,7 +242,8 @@ def _rmse_vs_plain(pipe, cam) -> float:
     ref.avg_luminance = prev.clone()
     a = pipe.render(cam, 1.0 / 60.0, collect_stats=False).cpu().numpy()
     pipe.avg_luminance = prev.clone()
-    b = ref.render(cam, 1.0 / 60.0, collect_stats=False).cpu().numpy()
+    with eager():   # one reference frame: a capture would add its warm-up frames
+        b = ref.render(cam, 1.0 / 60.0, collect_stats=False).cpu().numpy()
     return float(np.sqrt(np.mean(
         (a.astype(np.float64) / 255.0 - b.astype(np.float64) / 255.0) ** 2)))
 

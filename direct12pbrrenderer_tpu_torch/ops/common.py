@@ -268,6 +268,7 @@ class CubeMipAtlas:
         self.sizes_arr = sizes_arr    # (n_mips,) int32
         self.flat = flat              # (N, 4, C) float32
         self.sizes = tuple(int(s) for s in sizes_arr.tolist())
+        self.offsets_host = tuple(int(o) for o in offsets.tolist())   # `offsets` on the host
         self.n_mips = len(self.sizes)
 
     @classmethod
@@ -291,17 +292,22 @@ class CubeMipAtlas:
 
 
 def _cube_atlas_bilinear(atlas: CubeMipAtlas, dirs, mip):
-    """Bilinear fetch at integer mip (int or int tensor): one quad gather."""
+    """Bilinear fetch at integer mip (int or int tensor): one quad gather.
+    An int mip takes its size and offset from the host tuples (no device
+    gather and no upload); a tensor mip gathers them on the device."""
     face, u, v = cubemap_coords(dirs)
-    mip = torch.as_tensor(mip, dtype=torch.int64, device=dirs.device)
-    size = atlas.sizes_arr[mip].to(torch.int64)
-    off = atlas.offsets[mip].to(torch.int64)
-    sizef = size.to(dirs.dtype)
+    if isinstance(mip, int):
+        size, off = atlas.sizes[mip], atlas.offsets_host[mip]
+        sizef, hi = float(size), float(size - 1)
+    else:
+        mip = torch.as_tensor(mip, dtype=torch.int64, device=dirs.device)
+        size = atlas.sizes_arr[mip].to(torch.int64)
+        off = atlas.offsets[mip].to(torch.int64)
+        sizef, hi = size.to(dirs.dtype), (size - 1).to(dirs.dtype)
     x = u * sizef - 0.5
     y = v * sizef - 0.5
-    hi = (size - 1).to(dirs.dtype)
-    x0 = torch.minimum(torch.clamp(torch.floor(x), min=0.0), hi).to(torch.int64)
-    y0 = torch.minimum(torch.clamp(torch.floor(y), min=0.0), hi).to(torch.int64)
+    x0 = torch.clamp(torch.clamp(torch.floor(x), min=0.0), max=hi).to(torch.int64)
+    y0 = torch.clamp(torch.clamp(torch.floor(y), min=0.0), max=hi).to(torch.int64)
     fx = torch.clamp(x - x0, 0.0, 1.0)[..., None]
     fy = torch.clamp(y - y0, 0.0, 1.0)[..., None]
 

@@ -28,6 +28,7 @@ version of those lists (the tests and `chip_smoke.py`'s census use it).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from types import SimpleNamespace
 
@@ -417,19 +418,28 @@ def tile_gbuffer(albedo, normal, roughness, metallic, z_view, mask, tile_h: int,
             .reshape(tiles_y * tiles_x, tile_h * tile_w, GB_CH).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
+def _constant_rows(fov: float, ratio: float, near: float, far: float, full_width: int,
+                   full_height: int, y_offset: int, device: torch.device):
+    """`light_constants`' rows that do not change from frame to frame: f64
+    host constants rounded to f32, uploaded once per key and then reused (a
+    frame makes no host-to-device copy for them)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+            torch.tensor([y_offset], **f32),
+            torch.cat([torch.tensor([full_width, full_height, math.log(far / near),
+                                     far / near], **f32), torch.zeros(11, **f32)]))
+
+
 def light_constants(inv_view, camera_pos, fov: float, ratio: float, near: float, far: float,
                     full_width: int, full_height: int, y_offset=0):
     """Kernel G's (32,) const vector; f64 host constants rounded to f32, as
-    the JAX package builds them."""
-    f32 = dict(dtype=torch.float32, device=inv_view.device)
-    return torch.cat([
-        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
-        camera_pos.float().reshape(3),
-        torch.tensor([y_offset], **f32),
-        inv_view[:3, :3].reshape(9).float(),
-        torch.tensor([full_width, full_height, math.log(far / near), far / near], **f32),
-        torch.zeros(11, **f32),
-    ])
+    the JAX package builds them, around this frame's camera position and
+    rotation."""
+    head, yoff, tail = _constant_rows(fov, ratio, near, far, full_width, full_height,
+                                      y_offset, inv_view.device)
+    return torch.cat([head, camera_pos.float().reshape(3), yoff,
+                      inv_view[:3, :3].reshape(9).float(), tail])
 
 
 def untile(out, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int):

@@ -235,15 +235,18 @@ def edge_scores(px, py, e):
 
 
 def rasterize(setup: TriangleSetup, bins: Bins, width: int, height: int, tile_h: int,
-              tile_w: int, chunk: int = 64, y_offset=0):
+              tile_w: int, chunk: int = 64, y_offset=0, longest: int | None = None):
     """-> (tri_id (H, W) int32 [-1 = background], z (H, W) f32 [1.0 bg]).
 
     Folds the bin lists in chunks with all tiles batched per step; a masked
     first-argmin within a chunk and a strict `<` across chunks make the
     earliest list entry among equal minimal depths win (depth func LESS,
     first drawn wins ties). Chunks past the fullest list hold only padding
-    and cannot change the result, so the loop stops there: `.item()` on the
-    largest count is this function's one host sync."""
+    (-1) and cannot change the result, so the trip count may stop at the
+    chunk that holds list position `longest`, a host bound on the lists'
+    length (the kernels' plain versions pass theirs); without it the trip
+    count is static, every chunk of the lists' capacity (as JAX's fold),
+    with no host read."""
     tiles_y, tiles_x = height // tile_h, width // tile_w
     num_tiles = tiles_y * tiles_x
     cap = bins.ids.shape[1]
@@ -251,8 +254,8 @@ def rasterize(setup: TriangleSetup, bins: Bins, width: int, height: int, tile_h:
     px, py = _tile_pixel_centers(num_tiles, tiles_x, tile_h, tile_w, y_offset, dev)
     px, py = px[:, :, None], py[:, :, None]
 
-    used = min(int(bins.counts.max().item()) if num_tiles else 0, cap)
-    n_chunks = -(-used // chunk)
+    bound = cap if longest is None else min(longest, cap)
+    n_chunks = -(-bound // chunk) if num_tiles else 0
     zbuf = torch.full((num_tiles, tile_h * tile_w), float("inf"), device=dev)
     idbuf = torch.full((num_tiles, tile_h * tile_w), -1, dtype=torch.int32, device=dev)
     for c in range(n_chunks):

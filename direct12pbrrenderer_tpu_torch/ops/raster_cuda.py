@@ -323,7 +323,8 @@ def rasterize_depth_reference(setup: raster.TriangleSetup, bins: raster.Bins, wi
     limits = tile_limits(bins.counts, cap, cap_small, hot_k)
     pos = torch.arange(cap, device=bins.ids.device)[None, :]
     cut = raster.Bins(torch.where(pos < limits[:, None], bins.ids, -1), limits)
-    return raster.rasterize(setup, cut, width, height, tile_h, tile_w, y_offset=y_offset)
+    return raster.rasterize(setup, cut, width, height, tile_h, tile_w, y_offset=y_offset,
+                            longest=int(limits.max()) if num_tiles else 0)
 
 
 def rasterize_interp_reference(setup: raster.TriangleSetup, bins: raster.Bins,

@@ -15,6 +15,7 @@ skybox on uncovered pixels. Both of the JAX package's switches are kept:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,12 +31,19 @@ def view_space_depth(ndc_depth, near, far):
     return near * far / (far - ndc_depth * (far - near))
 
 
+@functools.lru_cache(maxsize=None)
+def _tan_half_fov(fov: float, device: torch.device) -> torch.Tensor:
+    """tan(fov / 2) in float32 on `device`, computed there once per key and
+    then reused (a frame makes no host-to-device copy for it)."""
+    return torch.tan(torch.tensor(fov / 2.0, dtype=torch.float32, device=device))
+
+
 def camera_rays(width, height, inv_view, fov, ratio, near, y_offset=0,
                 full_height=None, full_width=None):
     """Per-pixel world-space camera->near-plane vectors (H, W, 3): the
     reference's corner-interpolated camera_vec, evaluated per pixel."""
     dev = inv_view.device
-    near_h = 2.0 * near * torch.tan(torch.tensor(fov / 2.0, dtype=torch.float32, device=dev))
+    near_h = 2.0 * near * _tan_half_fov(fov, dev)
     near_w = near_h * ratio
     fh = full_height if full_height is not None else height
     fw = full_width if full_width is not None else width
@@ -123,15 +131,17 @@ def deferred_shade(
     light_tile: tuple | None = None,  # (tile_h, tile_w): tile-clustered lights
     light_cap: int = 256,             # listed lights per light tile
     return_light_counts: bool = False,
+    light_count: int | None = None,   # the scene's lights: bounds the dense sweep
 ):
     """-> (H, W, 3) HDR radiance, and with `return_env_approx` the env
     fallback-tap count (() int32; 0 without the env cache), then with
     `return_light_counts` the per-light-tile culled-light counts ((tiles,)
     int32; None without `light_tile`; counts > light_cap is truncation). The dense
     point-light sweep walks the active rows in order with a per-pixel
-    `< MAX_LIGHTS_PER_CLUSTER` hit counter; its trip count is the number of
-    live rows this frame, read to the host with `.item()`. The tiled lights
-    give the same cluster membership, order and cap."""
+    `< MAX_LIGHTS_PER_CLUSTER` hit counter; its trip count is static, the
+    active rows or, given `light_count`, at most that many, and the rows
+    past the JAX sweep's device-valued trip count never hit. The tiled
+    lights give the same cluster membership, order and cap."""
     albedo = gb_albedo_emission[..., :3]
     emission = gb_albedo_emission[..., 3]
     normal = common.decode_octahedron(gb_normal_oct)
@@ -239,15 +249,23 @@ def deferred_shade(
                         torch.maximum(torch.maximum(ya, yb), torch.maximum(yc, yd)),
                         zfar_c], -1)
 
-    # padded rows (cull_r = 0) contribute nothing: walk only the live ones
-    n_active = int((active_lights[:, 13] > 0.0).sum().item())
+    # JAX walks rows [0, n_active), n_active the rows with cull_r > 0, a
+    # device value; here the trip count is static (no host read) and the
+    # rows at or past n_active get a zero cull radius on the device, so they
+    # never hit and the select below leaves acc and counter bit-unchanged
+    n_rows = active_lights.shape[0]
+    if light_count is not None:
+        n_rows = min(n_rows, light_count)
+    n_active = (active_lights[:, 13] > 0.0).sum()
+    cull = torch.where(torch.arange(n_rows, device=dev) < n_active,
+                       active_lights[:n_rows, 13], 0.0)
     acc = torch.zeros(depth.shape + (3,), dtype=torch.float32, device=dev)
     counter = torch.zeros(depth.shape, dtype=torch.int32, device=dev)
-    for s in range(n_active):
+    for s in range(n_rows):
         lp = active_lights[s]
         pos_w, color, intensity = lp[0:3], lp[3:6], lp[6]
         kc, kl, kq = lp[7], lp[8], lp[9]
-        pos_view, cull_r = lp[10:13], lp[13]
+        pos_view, cull_r = lp[10:13], cull[s]
 
         closest = torch.minimum(torch.maximum(pos_view, cmin), cmax)
         d2 = ((pos_view - closest) ** 2).sum(-1)

@@ -229,7 +229,7 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
                 env_tile=band_tile if env_ids is not None else None,
                 env_budget=pipe.env_budget, return_env_approx=True,
                 light_tile=pipe.light_tile, light_cap=pipe.light_cap,
-                return_light_counts=True)
+                return_light_counts=True, light_count=pipe.packed.light_count)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         tex_approx = gb.tex_approx if gb.tex_approx is not None else zero
         trunc = (zero if light_counts is None

@@ -8,16 +8,16 @@ two precompute passes run once in the constructor and latch as device
 tensors; every frame then runs the graph on `device`, with the
 average-luminance EMA carried across frames.
 
-On a CUDA device the default path (the fused G-buffer and the fused
-deferred pass, `captured`) runs as one captured CUDA graph a frame, the
-counterpart of the JAX pipeline's `jax.jit(_frame)`: the first `render`
-captures `_frame` over static inputs (`CapturedFrame`), every later one copies
-the packs that changed into them and replays it, with no host sync when it
-collects no stats; `render_sequence` replays it once a frame from camera
-packs uploaded together (the JAX pipeline's `lax.scan`). A change to a knob
-the passes read captures it anew. Every other path, any path on the CPU,
-and every frame inside an `eager()` block (the counterpart of
-`jax.disable_jit()`) run the graph's passes eagerly.
+On a CUDA device every path, whatever its knobs (`captured`), runs as one
+captured CUDA graph a frame, the counterpart of the JAX pipeline's
+`jax.jit(_frame)`: the first `render` captures `_frame` over static inputs
+(`CapturedFrame`), every later one copies the packs that changed into them
+and replays it, with no host sync when it collects no stats;
+`render_sequence` replays it once a frame from camera packs uploaded
+together (the JAX pipeline's `lax.scan`). A change to a knob the passes
+read captures it anew. Any path on the CPU, and every frame inside an
+`eager()` block (the counterpart of `jax.disable_jit()`), run the graph's
+passes eagerly; so does the band frame (`parallel/frame_sharded.py`).
 
 Ported configurations (every path of the JAX pipeline but the knobs below):
 * the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
@@ -522,7 +522,7 @@ class DeferredRenderPipeline:
                 full_height=h, full_width=w, env_ids=self.env_ids, env_tile=self.env_tile,
                 env_budget=self.env_budget, return_env_approx=True,
                 light_tile=self.light_tile, light_cap=self.light_cap,
-                return_light_counts=True)
+                return_light_counts=True, light_count=self.packed.light_count)
             if (rw, rh) != (w, h):
                 rt = rt[:h, :w].contiguous()  # crop the pad-to-tile canvas
             # per-tile culled-light counts beyond the cap: truncation
@@ -694,12 +694,9 @@ class DeferredRenderPipeline:
     @property
     def captured(self) -> bool:
         """Whether `render` and `render_sequence` replay a captured frame
-        (`CapturedFrame`) outside an `eager()` block: on a CUDA device with the
-        fused G-buffer and the fused deferred pass (kernels A-D), every other
-        knob free. A static rule of the knobs; every other path renders
-        eagerly, as every path does on the CPU."""
-        return (self.device.type == "cuda" and self.use_fused_gbuffer
-                and self.use_fused_deferred)
+        (`CapturedFrame`) outside an `eager()` block: on a CUDA device,
+        whatever the knobs; on the CPU every path renders eagerly."""
+        return self.device.type == "cuda"
 
     def _graph_key(self) -> tuple:
         """What a captured frame depends on besides its static inputs: the

@@ -120,10 +120,12 @@ def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, c
                    full_width: int | None = None, env_ids: tuple | None = None,
                    env_tile: tuple | None = None, env_budget: int | None = None,
                    return_env_approx: bool = False, light_tile: tuple | None = None,
-                   light_cap: int = 256, return_light_counts: bool = False):
+                   light_cap: int = 256, return_light_counts: bool = False,
+                   light_count: int | None = None):
     """The unfused deferred pass on (H, W) G-buffer planes: env taps through
     the float page cache when `env_ids` is given (kernels B and F), point
-    lights per light tile when `light_tile` is given (kernel G)."""
+    lights per light tile when `light_tile` is given (kernel G), else the
+    dense sweep over at most `light_count` active rows."""
     return shading.deferred_shade(
         gb.albedo_emission, gb.normal_oct, gb.rough_metal_ao, gb.depth, gb.mask,
         buffers["SkyBoxSH"], buffers["PrecomputeBRDF"], buffers["PrefilterEnvMap"],
@@ -133,5 +135,5 @@ def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, c
         env_cache=buffers.get("EnvCache") if env_ids is not None else None,
         env_ids=env_ids, env_tile=env_tile, env_budget=env_budget,
         return_env_approx=return_env_approx, light_tile=light_tile, light_cap=light_cap,
-        return_light_counts=return_light_counts,
+        return_light_counts=return_light_counts, light_count=light_count,
     )

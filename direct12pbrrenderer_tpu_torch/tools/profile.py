@@ -157,7 +157,7 @@ def profile_pipeline(pipe, camera, iters: int = 5):
             full_width=w, env_ids=pipe.env_ids,
             env_tile=pipe.env_tile if pipe.env_ids is not None else None,
             env_budget=pipe.env_budget, light_tile=pipe.light_tile,
-            light_cap=pipe.light_cap))
+            light_cap=pipe.light_cap, light_count=pipe.packed.light_count))
         if isinstance(rt, tuple):
             rt = rt[0]
     rt = rt[:h, :w].contiguous()

@@ -36,10 +36,21 @@ busy ms and activities per frame).
 It prints one JSON line per TREE, then fails unless every TREE saw the same
 inputs and gave bit-equal outputs. Give the trees in turns (parent, change,
 change, parent) to compare times within one call. Needs a CUDA GPU.
+
+    python3 kernel_ab.py --plain TREE [TREE ...]
+
+times only the all-plain reference frame (`use_pallas=False,
+use_tex_kernel=False`, the plain raster fold and the dense light sweep) of
+the textured cell and of the 1024-light cell (`chip_smoke.lights1k_cell`'s
+scene and knobs) at chip_smoke.py's pose, rendered eagerly (`eager()`):
+one warm-up frame, then PLAIN_FRAMES frames on the host clock, synchronized
+per frame (`ms`), and the last frame's hash (`output`), which must be the
+same in every TREE.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -145,16 +156,7 @@ def cover_i(cs, scene, cfg, knobs, cam) -> dict:
 def run_one(tree: str) -> dict:
     import torch
 
-    import chip_smoke as cs
-
-    root = os.path.abspath(tree)
-    sys.path.insert(0, root)
-    import direct12pbrrenderer_tpu_torch as port
-
-    if not os.path.abspath(port.__file__).startswith(root + os.sep):
-        cs.fail("ab", f"imported the port from {port.__file__}, not from {root}")
-    if not torch.cuda.is_available():
-        cs.fail("ab", "needs a CUDA GPU")
+    cs = _import_port(tree)
     from direct12pbrrenderer_tpu_torch.ops import resolve_shade_cuda, shade_fused
 
     scene, cfg, _, knobs, pipe, cam = cs.textured_cell(torch.device("cuda", 0))
@@ -165,9 +167,7 @@ def run_one(tree: str) -> dict:
             cs.recording(shade_fused, "deferred_kernel") as d_calls:
         pipe.render(cam, collect_stats=False)
         torch.cuda.synchronize()
-    out = {"tree": tree, "smi": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()}
+    out = {"tree": tree, "smi": _smi()}
     for key, calls, mod, fn, ref, kname, check in (
             ("C", c_calls, resolve_shade_cuda, "resolve_shade", "resolve_shade_reference",
              "resolve_shade", cs.check_shade),
@@ -190,22 +190,95 @@ def run_one(tree: str) -> dict:
     return out
 
 
+PLAIN_FRAMES = 3
+
+
+def _import_port(tree: str):
+    """chip_smoke (this checkout's) and the port of `tree`, on a card."""
+    import torch
+
+    import chip_smoke as cs
+
+    root = os.path.abspath(tree)
+    sys.path.insert(0, root)
+    import direct12pbrrenderer_tpu_torch as port
+
+    if not os.path.abspath(port.__file__).startswith(root + os.sep):
+        cs.fail("ab", f"imported the port from {port.__file__}, not from {root}")
+    if not torch.cuda.is_available():
+        cs.fail("ab", "needs a CUDA GPU")
+    return cs
+
+
+def run_plain(tree: str) -> dict:
+    """The all-plain frame of the textured and the 1024-light cell, eager."""
+    import time
+
+    import torch
+
+    cs = _import_port(tree)
+    from direct12pbrrenderer_tpu_torch.pipeline import deferred
+
+    eager = getattr(deferred, "eager", contextlib.nullcontext)
+    dev = torch.device("cuda", 0)
+    scene, cfg, _, knobs, pipe, cam = cs.textured_cell(dev)
+    del pipe
+    cells = {"textured": (scene, cfg, knobs)}
+    scene, cfg, l1k_knobs, pipe = cs.lights1k_cell(dev, knobs)
+    del pipe
+    cells["lights1k"] = (scene, cfg, l1k_knobs)
+    out = {"tree": tree, "smi": _smi()}
+    for cell, (scene, cfg, kn) in cells.items():
+        ref = deferred.DeferredRenderPipeline(scene, cfg, use_pallas=False,
+                                              use_tex_kernel=False, device=dev, **kn)
+        ms = []
+        with eager():
+            for i in range(1 + PLAIN_FRAMES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = ref.render(cam, collect_stats=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out[cell] = {"ms": ms[1:], "output": _sha([img])}
+        del ref, img
+        torch.cuda.empty_cache()
+    return out
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def main() -> None:
-    if sys.argv[1:2] == ["--one"]:
-        print(json.dumps(run_one(sys.argv[2])), flush=True)
+    if sys.argv[1:2] in (["--one"], ["--one-plain"]):
+        run = run_one if sys.argv[1] == "--one" else run_plain
+        print(json.dumps(run(sys.argv[2])), flush=True)
         return
-    trees = sys.argv[1:]
+    plain = sys.argv[1:2] == ["--plain"]
+    trees = sys.argv[1 + plain:]
     if not trees:
         sys.exit(__doc__)
     lines = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--one-plain" if plain else "--one", tree],
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
             sys.exit(f"[ab] FAIL {tree}: exit code {proc.returncode}")
         lines.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(lines[-1]), flush=True)
+    if plain:
+        for cell in ("textured", "lights1k"):
+            seen = {line[cell]["output"] for line in lines}
+            if len(seen) != 1:
+                sys.exit(f"[ab] FAIL all-plain {cell} frame differs across trees: {seen}")
+            print(f"[ab] all-plain {cell} frame: bit-equal in {len(lines)} runs; mean ms "
+                  + ", ".join(f"{l['tree']} {sum(l[cell]['ms']) / PLAIN_FRAMES:.2f}"
+                              for l in lines), flush=True)
+        return
     for key in ("C", "D", "I", "binning"):
         for what in ("inputs", "output")[key == "binning":]:
             seen = {line[key][what] for line in lines}

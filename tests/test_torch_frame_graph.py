@@ -18,16 +18,32 @@ JAX pipeline's `jax.jit(_frame)` and `render_sequence` (its `lax.scan`).
   `tolist`, `__bool__`, `__int__`, `__float__`, `__index__`, `cpu`,
   `numpy`, and the aten ops they and boolean indexing dispatch) and on any
   tensor made from host data (`torch.tensor`) while `_frame` runs at the
-  default path's knobs, or the hierarchical binning, outside the kernels'
-  plain versions (which keep their host loop bounds: the card runs the
-  kernels instead). On a card these are the syncs and pageable copies a
-  CUDA graph capture refuses; `tests/test_torch_frame_graph_cuda.py` holds
-  the captured frame there.
+  default path's knobs and on every other single-card path (PATHS: the
+  1024-light path, planar-tex, anisotropic, `use_tex_kernel=False`,
+  all-plain; on the sky scene at 256x96), or the hierarchical binning,
+  outside the kernels' plain versions (which keep their host loop bounds:
+  the card runs the kernels instead). On a card these are the syncs and
+  pageable copies a CUDA graph capture refuses;
+  `tests/test_torch_frame_graph_cuda.py` holds the captured frames there.
+* The glue that a frame once read back or uploaded, each bit for bit
+  against what it computed before: the dense light sweep at its static
+  bound against the same sweep over the live rows only (also with a
+  visible light of zero radius among them, where the JAX sweep's trip
+  count leaves the last live row out) and against the JAX `deferred_shade`
+  (tests/test_torch_gbuffer_shading.py's bar); the cube-atlas fetch at an
+  int mip against a 0-d tensor mip; kernel G's constants from the device
+  cache against ones built afresh, over two fovs and two band offsets; the
+  plain raster fold over every chunk of the lists' capacity against a fold
+  of only the used chunks and one stopped at the fullest list (as the
+  kernels' plain versions stop it).
+* `render_sequence` on the 1024-light and planar-tex paths against the JAX
+  package's (its `lax.scan`), at the default path's bars.
 """
 
 import contextlib
-import copy
 import dataclasses
+import functools
+import math
 import sys
 
 import jax.numpy as jnp
@@ -36,25 +52,47 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from chip_smoke import random_triangles
 from direct12pbrrenderer_tpu.ops import bloom as jbloom
+from direct12pbrrenderer_tpu.ops import clustered as jcl
+from direct12pbrrenderer_tpu.ops import common as jc
+from direct12pbrrenderer_tpu.ops import ibl as jibl
 from direct12pbrrenderer_tpu.ops import raster as jraster
+from direct12pbrrenderer_tpu.ops import shading as jsh
 from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as JaxPipeline
-from direct12pbrrenderer_tpu_torch.ops import (bloom, cover_cuda, raster, raster_cuda,
-                                              resolve_shade_cuda, shade_fused)
+from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, bloom, common, cover_cuda,
+                                              env_resolve_cuda, lights_cuda, raster,
+                                              raster_cuda, resolve_shade_cuda, shade_fused,
+                                              shading)
 from direct12pbrrenderer_tpu_torch.pipeline import stages
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.state import state_from_jax
 from direct12pbrrenderer_tpu_torch.tools.tiny_scene import tiny_pipeline
+from test_torch_gbuffer_shading import _camera, _lights
 from test_torch_pipeline import FUSED_KNOBS, RMSE_BAR, _fused_scene, _poses, _rmse, jax_state
 
 torch.set_num_threads(2)
 
-# the kernels' plain versions: the CPU's stand-ins for kernels A-D, whose
+# the kernels' plain versions: the CPU's stand-ins for kernels A-G, whose
 # loop bounds (and kernel B's cap row) are host values
 PLAIN_VERSIONS = {f.__code__ for f in (
     raster_cuda.rasterize_interp_reference, raster_cuda.rasterize_depth_reference,
     cover_cuda.fused_cover_reference, resolve_shade_cuda.resolve_shade_reference,
-    shade_fused.deferred_kernel_reference)}
+    shade_fused.deferred_kernel_reference, atlas_resolve_cuda.atlas_resolve_reference,
+    env_resolve_cuda.env_resolve_reference, lights_cuda.point_lights_kernel_reference)}
+# every single-card path besides the default one: its knobs over
+# FUSED_KNOBS (tile 24x128, bin_cap 512) on the sky scene at 256x96
+PATHS = {
+    # more than 64 active lights: light_tile, kernels A, B, C, F, G
+    "lights1k": dict(use_pallas=True, use_tex_kernel=True, max_active_lights=128),
+    # a raster tile not 128 wide: kernel A's planes, the planar cache (B, E), F
+    "planar-tex": dict(use_pallas=True, use_tex_kernel=True, tile_w=160),
+    "anisotropic": dict(use_pallas=True, use_tex_kernel=True, texture_filter="anisotropic"),
+    # kernel A, the direct-atlas sampler, the dense light sweep
+    "use_tex_kernel=False": dict(use_pallas=True, use_tex_kernel=False),
+    # the plain fold, the row gather, the direct-atlas sampler, the dense sweep
+    "all-plain": dict(use_pallas=False, use_tex_kernel=False),
+}
 HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__", "__index__", "cpu",
               "numpy")
 # aten ops that read a tensor on the host (a sync on a card: for bincount,
@@ -131,6 +169,154 @@ def test_default_frame_makes_no_host_read(light_dtype):
         got = pipe._frame(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@functools.cache
+def _sky_scene():
+    return _fused_scene(True)
+
+
+def _path_pipeline(path: str):
+    scene, cam, cfg = _sky_scene()
+    pipe = DeferredRenderPipeline(scene, cfg, device="cpu", **dict(FUSED_KNOBS, **PATHS[path]))
+    flags = (pipe.light_tile is not None, pipe.use_fused_gbuffer, pipe.use_fused_deferred,
+             pipe.use_tex_kernel, pipe.use_pallas)
+    assert flags == {"lights1k": (True, True, False, True, True),
+                     "planar-tex": (False, False, False, True, True),
+                     "anisotropic": (False, False, False, True, True),
+                     "use_tex_kernel=False": (False, False, False, False, True),
+                     "all-plain": (False, False, False, False, False)}[path]
+    return pipe, cam
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_frame_makes_no_host_read(path):
+    pipe, cam = _path_pipeline(path)
+    assert not pipe.captured
+    pipe.render(cam)   # fills the device constants' caches, as a capture's warm-up does
+    pipe._upload(cam, 1.0 / 60.0)
+    args = (pipe._scene_dev, pipe._cam_dev, pipe.avg_luminance)
+    want = pipe._frame(*args)
+    with no_host_reads():
+        got = pipe._frame(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[0].max(-1).values > 16).float().mean() > 0.05   # a non-trivial frame
+
+
+def _shade_inputs(dark_row: bool):
+    """tests/test_torch_gbuffer_shading.py's deferred-pass inputs, numpy: 12
+    scene lights (about 70% visible) compacted into 16 active rows; with
+    `dark_row` the second visible light has zero intensity, so zero cull
+    radius, among the live rows."""
+    rng = np.random.default_rng(4)
+    h, w = 32, 48
+    q = lambda x: (np.round(x * 255) / 255).astype(np.float32)  # noqa: E731
+    planes = [q(rng.uniform(0, 1, (h, w, c))) for c in (4, 2, 3)]
+    depth = rng.uniform(0.95, 0.9999, (h, w)).astype(np.float32)
+    mask = rng.uniform(size=(h, w)) < 0.8
+    sh = rng.normal(0, 0.3, (7, 4)).astype(np.float32)
+    lut = np.asarray(jibl.brdf_lut(size=16))
+    pf = [rng.uniform(0, 3, (6, 16 >> m, 16 >> m, 3)).astype(np.float32) for m in range(5)]
+    sky = rng.uniform(0, 3, (6, 8, 8, 3)).astype(np.float32)
+    cam = _camera()
+    view = cam.view_matrix().astype(np.float32)
+    pos, col, inten, att, valid = _lights(12, 5)
+    if dark_row:
+        inten = inten.copy()
+        inten[np.flatnonzero(valid)[1]] = 0.0
+    lights = np.asarray(jcl.build_active_lights(*(jnp.asarray(a) for a in (
+        pos, col, inten, att, valid)), jnp.asarray(view), 16))
+    return (planes, depth, mask, sh, lut, pf, sky, lights,
+            cam.world_matrix().astype(np.float32), np.asarray(cam.position, np.float32),
+            (1.0, w / h, 0.1, 100.0, w, h))
+
+
+@pytest.mark.parametrize("dark_row", [False, True])
+def test_dense_sweep_at_a_static_bound(dark_row):
+    planes, depth, mask, sh, lut, pf, sky, lights, inv_view, pos, scal = _shade_inputs(dark_row)
+    def t(x):
+        return torch.as_tensor(np.array(x))
+
+    pre = (*(t(a) for a in (*planes, depth, mask, sh)), (common.make_quad_tex2d(t(lut)), 16),
+           common.CubeMipAtlas.from_mips(pf, "cpu"), common.CubeMipAtlas.from_mips([sky], "cpu"))
+    n_active = int((lights[:, 13] > 0).sum())
+    assert 0 < n_active < 12   # some scene lights culled: the bound is above the live rows
+    if dark_row:   # the JAX trip count leaves the last live row out
+        assert lights[n_active, 13] > 0 and (lights[:n_active, 13] == 0).sum() == 1
+    rows, cam = t(lights), (t(inv_view), t(pos))
+
+    def sweep(ids):   # the sweep over these rows alone, each with cull_r > 0
+        return shading.deferred_shade(*pre, rows[ids], *cam, *scal)
+
+    # the rows the JAX sweep walks, [0, n_active), but for a dark row, which
+    # never hits
+    walked = [i for i in range(n_active) if lights[i, 13] > 0]
+    live = sweep(walked)   # (fills the device fov cache)
+    with no_host_reads():
+        got = shading.deferred_shade(*pre, rows, *cam, *scal, light_count=12)
+    assert torch.equal(got, live) and not torch.equal(got, sweep([]))
+    if dark_row:
+        assert not torch.equal(got, sweep(walked + [n_active]))
+    want = np.asarray(jsh.deferred_shade(
+        *(jnp.asarray(a) for a in (*planes, depth, mask, sh)),
+        (jc.make_quad_tex2d(jnp.asarray(lut)), 16),
+        jc.CubeMipAtlas([jnp.asarray(m) for m in pf]), jc.CubeMipAtlas([jnp.asarray(sky)]),
+        jnp.asarray(lights), jnp.asarray(inv_view), jnp.asarray(pos), *scal))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    assert np.isclose(got.numpy(), want, rtol=1e-5, atol=1e-6).mean() > 0.99
+
+
+def test_cube_atlas_fetch_at_an_int_mip():
+    rng = np.random.default_rng(5)
+    mips = [rng.uniform(0, 3, (6, 16 >> m, 16 >> m, 3)).astype(np.float32) for m in range(3)]
+    atlas = common.CubeMipAtlas.from_mips(mips, "cpu")
+    dirs = torch.as_tensor(rng.normal(size=(40, 24, 3)).astype(np.float32))
+    for mip in range(3):
+        with no_host_reads():
+            got = common._cube_atlas_bilinear(atlas, dirs, mip)
+        assert torch.equal(got, common._cube_atlas_bilinear(atlas, dirs, torch.tensor(mip)))
+
+
+def _fresh_light_constants(inv_view, camera_pos, fov, ratio, near, far, fw, fh, y_offset):
+    """Kernel G's const vector built afresh on every call, as before the
+    device cache."""
+    f32 = dict(dtype=torch.float32)
+    return torch.cat([
+        torch.tensor([math.tan(fov / 2.0), ratio, near, far], **f32),
+        camera_pos.float().reshape(3), torch.tensor([y_offset], **f32),
+        inv_view[:3, :3].reshape(9).float(),
+        torch.tensor([fw, fh, math.log(far / near), far / near], **f32), torch.zeros(11, **f32)])
+
+
+@pytest.mark.parametrize("fov", [1.0, math.pi / 3])
+@pytest.mark.parametrize("y_offset", [0, 540])
+def test_light_constants_from_the_device_cache(fov, y_offset):
+    cam = _camera()
+    inv_view = torch.as_tensor(cam.world_matrix().astype(np.float32))
+    pos = torch.as_tensor(np.asarray(cam.position, np.float32))
+    args = (fov, 1920 / 1080, 0.1, 100.0, 1920, 1080, y_offset)
+    first = lights_cuda.light_constants(inv_view, pos, *args)
+    with no_host_reads():
+        got = lights_cuda.light_constants(inv_view, pos, *args)
+    want = _fresh_light_constants(inv_view, pos, *args)
+    assert torch.equal(got, want) and torch.equal(first, want)
+
+
+def test_plain_fold_at_the_static_bound():
+    w, h, th, tw, cap = 256, 192, 24, 128, 512
+    clip, tris, _ = random_triangles(2500, 3, "cpu")
+    setup = raster.setup_triangles(clip, tris, torch.ones(tris.shape[0], dtype=torch.bool), w, h)
+    bins = raster.bin_triangles(setup, h // th, w // tw, th, tw, cap)
+    used = -(-int(bins.counts.max()) // 64) * 64
+    assert 64 < used < cap   # chunks past the fullest list, and more than one used
+    with no_host_reads():
+        got = raster.rasterize(setup, bins, w, h, th, tw)
+    want = raster.rasterize(setup, raster.Bins(bins.ids[:, :used].contiguous(), bins.counts),
+                            w, h, th, tw)
+    stopped = raster.rasterize(setup, bins, w, h, th, tw, longest=int(bins.counts.max()))
+    assert all(torch.equal(g, x) and torch.equal(g, y) for g, x, y in zip(got, want, stopped))
+    assert (got[0] >= 0).float().mean() > 0.2
 
 
 def _pool(t: int, width: int, height: int, seed: int, size: float, valid_frac: float):
@@ -226,6 +412,31 @@ def test_render_sequence_matches_jax_scan():
     tp = DeferredRenderPipeline(scene, cfg, use_pallas=True, use_tex_kernel=True,
                                 device="cpu", **FUSED_KNOBS)
     assert tp.use_fused_gbuffer and tp.use_fused_deferred
+    tp.load_state(state_from_jax(state, "cpu"))
+    got = tp.render_sequence(poses[:3]).numpy()
+    assert got.shape == want.shape == (3, cfg.height, cfg.width, 3) and got.dtype == np.uint8
+    for g, w in zip(got, want):
+        assert (w.max(-1) > 16).mean() > 0.05   # a non-trivial frame
+        assert _rmse(g, w) <= RMSE_BAR
+    np.testing.assert_allclose(float(tp.avg_luminance), want_avg, rtol=1e-5)
+    tp.render(poses[3])
+    assert dataclasses.asdict(tp.last_stats) == dataclasses.asdict(jp.last_stats)
+    np.testing.assert_allclose(float(tp.avg_luminance), float(jp.avg_luminance), rtol=1e-5)
+
+
+@pytest.mark.parametrize("path", ["lights1k", "planar-tex"])
+def test_render_sequence_matches_jax_scan_on_path(path):
+    scene, cam, cfg = _sky_scene()
+    poses = _poses(cam, 4)
+    knobs = dict(FUSED_KNOBS, **PATHS[path])
+    jp = JaxPipeline(scene, cfg, pallas_interpret=True, **knobs)
+    state = jax_state(jp)
+    want = np.asarray(jp.render_sequence(poses[:3]))
+    want_avg = float(jp.avg_luminance)
+    jp.render(poses[3])
+    tp, _ = _path_pipeline(path)
+    assert (jp.light_tile, jp.use_fused_gbuffer, jp.use_tex_kernel) == (
+        tp.light_tile, tp.use_fused_gbuffer, tp.use_tex_kernel)
     tp.load_state(state_from_jax(state, "cpu"))
     got = tp.render_sequence(poses[:3]).numpy()
     assert got.shape == want.shape == (3, cfg.height, cfg.width, 3) and got.dtype == np.uint8

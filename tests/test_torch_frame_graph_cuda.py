@@ -1,18 +1,21 @@
-"""The default frame as one captured CUDA graph, on the card: 1024x192
-(8 x 8 tiles of 24x128) of a 16,384-triangle stress terrain with a sky, so
-the binning stage takes the hierarchical binning, through kernels A-D.
+"""Every single-card path as one captured CUDA graph a frame, on the card:
+1024x192 (8 x 8 tiles of 24x128) of a 16,384-triangle stress terrain with a
+sky, so the binning stage takes the hierarchical binning. The paths
+(PATHS): the default one (kernels A-D), the 1024-light path (A, B, C, F,
+G), planar-tex at a 24x160 raster tile (A, B, E, F), anisotropic (A, B, F),
+`use_tex_kernel=False` (A, the direct-atlas sampler, the dense light sweep)
+and all-plain (no kernel).
 
+* Every CUDA pipeline is captured, whatever its knobs; no CPU pipeline is.
 * With the sync debug mode at "error", captured `render(collect_stats=False)`
-  calls and one `render_sequence` raise nothing (no host sync).
+  calls and one `render_sequence` raise nothing (no host sync), on each path.
 * Captured frames are bit-equal to eager ones (`eager()`) over a yaw path,
   with equal FrameStats and exposure carry, and a replay adds the launches
-  of one eager frame to the wrappers' counters.
+  of one eager frame to the wrappers' counters, on each path.
 * `render_sequence` is bit-equal to as many `render` calls, with the same
-  carry.
+  carry, on each path.
 * Changing `fused_light_dtype` or `tex_caps` captures the frame again, and
   the frame follows the knob (bit-equal to the eager frame at the new knob).
-* Only the fused path is captured: the 1024-light and planar knobs render
-  eagerly.
 
 Needs the card: marked `cuda`, skipped elsewhere (`python -m pytest
 --noconftest tests/test_torch_*_cuda.py` on a GPU machine without JAX).
@@ -34,6 +37,20 @@ pytestmark = pytest.mark.cuda
 W, H = 1024, 192
 KNOBS = dict(tile_h=24, tile_w=128, bin_cap=1024, atlas_max_dim=256, prefilter_size=16,
              brdf_lut_size=32, tex_caps=(92, 44, None, (32, 16)))
+# each path's knobs over KNOBS, and the kernels one of its frames launches
+PATHS = {
+    "default": ({}, {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1,
+                     "deferred_shade": 1}),
+    "lights1k": (dict(max_active_lights=128),
+                 {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
+                  "point_lights": 1}),
+    "planar-tex": (dict(tile_w=160), {"raster_interp": 1, "fused_cover": 4,
+                                      "atlas_resolve": 1, "env_resolve": 1}),
+    "anisotropic": (dict(texture_filter="anisotropic"),
+                    {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1}),
+    "use_tex_kernel=False": (dict(use_tex_kernel=False), {"raster_interp": 1}),
+    "all-plain": (dict(use_pallas=False, use_tex_kernel=False), {}),
+}
 _SCENE = []
 
 
@@ -80,56 +97,65 @@ def _eager_frame(pipe, cam):
     return out
 
 
-def test_only_the_fused_path_is_captured(device):
-    pipe, _ = _pipe(device)
-    assert pipe.captured and pipe.use_fused_gbuffer and pipe.use_fused_deferred
-    assert not _pipe(device, max_active_lights=128)[0].captured        # the 1024-light path
-    assert not _pipe(device, tile_w=160)[0].captured                   # the planar path
-    assert not _pipe(device, use_tex_kernel=False)[0].captured
-    assert not DeferredRenderPipeline(_cell()[0], _cell()[1], device="cpu", **KNOBS).captured
+def _launched(counts) -> dict[str, int]:
+    return {k: n for k, n in counts.items() if n}
 
 
-def test_captured_frames_make_no_host_sync(device):
-    pipe, cam = _pipe(device)
-    path = _path(cam, 6)
-    pipe.render(path[0], collect_stats=False)   # the capture (and its warm-up)
+def test_every_cuda_pipeline_is_captured(device):
+    for path, (knobs, _) in PATHS.items():
+        assert _pipe(device, **knobs)[0].captured, path
+    assert _pipe(device, fused_light_dtype="bfloat16", tex_caps="auto")[0].captured
+    for knobs, _ in PATHS.values():
+        assert not DeferredRenderPipeline(_cell()[0], _cell()[1], device="cpu",
+                                          **dict(KNOBS, **knobs)).captured
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_captured_frames_make_no_host_sync(device, path):
+    pipe, cam = _pipe(device, **PATHS[path][0])
+    frames = _path(cam, 6)
+    pipe.render(frames[0], collect_stats=False)   # the capture (and its warm-up)
     torch.cuda.synchronize()
     assert pipe.captured_frame is not None
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for c in path[1:]:
+        for c in frames[1:]:
             pipe.render(c, collect_stats=False)
-        frames = pipe.render_sequence(path)
+        seq = pipe.render_sequence(frames)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert frames.shape == (len(path), H, W, 3) and frames.dtype == torch.uint8
+    assert seq.shape == (len(frames), H, W, 3) and seq.dtype == torch.uint8
 
 
-def test_captured_frames_equal_eager_frames(device):
-    pipe, cam = _pipe(device)
+@pytest.mark.parametrize("path", list(PATHS))
+def test_captured_frames_equal_eager_frames(device, path):
+    knobs, kernels = PATHS[path]
+    pipe, cam = _pipe(device, **knobs)
     pipe.render(cam)   # the capture: its warm-up frames launch too
-    for c in _path(cam, 4):
-        want, want_stats, want_avg = _eager_frame(pipe, c)
+    for c in _path(cam, 3):
         before = read_launches()
+        want, want_stats, want_avg = _eager_frame(pipe, c)
+        mid = read_launches()
         got = pipe.render(c)
-        counts = {k: n - before[k] for k, n in read_launches().items()}
+        eager_counts = _launched({k: n - before[k] for k, n in mid.items()})
+        counts = _launched({k: n - mid[k] for k, n in read_launches().items()})
         assert torch.equal(got, want)
         assert pipe.last_stats == want_stats
         assert torch.equal(pipe.avg_luminance, want_avg)
-        assert (counts["raster_interp"], counts["fused_cover"], counts["resolve_shade"],
-                counts["deferred_shade"]) == (1, 4, 1, 1)
+        assert counts == eager_counts == kernels
     assert (got.max(-1).values > 16).float().mean() > 0.05   # a non-trivial frame
 
 
-def test_render_sequence_equals_render_calls(device):
-    pipe, cam = _pipe(device)
-    path = _path(cam, 5)
+@pytest.mark.parametrize("path", list(PATHS))
+def test_render_sequence_equals_render_calls(device, path):
+    pipe, cam = _pipe(device, **PATHS[path][0])
+    frames = _path(cam, 5)
     pipe.render(cam, collect_stats=False)
     carry = pipe.avg_luminance.clone()
-    seq = pipe.render_sequence(path)
+    seq = pipe.render_sequence(frames)
     seq_avg = pipe.avg_luminance
     pipe.avg_luminance = carry
-    loop = torch.stack([pipe.render(c, collect_stats=False) for c in path])
+    loop = torch.stack([pipe.render(c, collect_stats=False) for c in frames])
     assert torch.equal(seq, loop)
     assert torch.equal(seq_avg, pipe.avg_luminance)
 

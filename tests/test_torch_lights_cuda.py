@@ -210,7 +210,8 @@ def _launches():
 
 def test_light_tile_frame_on_the_card_matches_the_cpu_frame(device):
     from direct12pbrrenderer_tpu_torch.config import RenderConfig
-    from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import (CAPTURE_WARMUP,
+                                                                 DeferredRenderPipeline)
     from direct12pbrrenderer_tpu_torch.scene.camera import Camera
     from direct12pbrrenderer_tpu_torch.tools.stress_scene import build_stress_scene
 
@@ -228,8 +229,11 @@ def test_light_tile_frame_on_the_card_matches_the_cpu_frame(device):
     before = _launches()
     a = card.render(cam).cpu().numpy().astype(np.float64) / 255.0
     torch.cuda.synchronize()
-    # A, B (3 texture covers + 1 env cover), C, not D, F, G
-    assert [y - x for x, y in zip(before, _launches())] == [1, 4, 1, 0, 1, 1]
+    # A, B (3 texture covers + 1 env cover), C, not D, F, G a frame; the
+    # first render captures the frame: its warm-up frames launch, then the replay
+    frames = CAPTURE_WARMUP + 1
+    assert [y - x for x, y in zip(before, _launches())] == [
+        frames * n for n in (1, 4, 1, 0, 1, 1)]
     b = cpu.render(cam).numpy().astype(np.float64) / 255.0
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
     assert card.last_stats == cpu.last_stats
