@@ -52,10 +52,14 @@ on the card, then renders at 1920x1080 with a procedural sky:
   gloo ranks sharing the card in 270-row bands on 288-row canvases
   ([sharded]), on one NCCL rank ([sharded-nccl]), and the 1024-light cell on
   two gloo ranks in 540-row bands on 552-row canvases ([sharded-lights1k]);
-  each rank holds its band frame's kernel calls to their plain versions,
-  counts its launches (A, B four times, C, D; or A, B four times, C, F, G)
-  and times the frame and its collectives, and rank 0 holds the gathered
-  frame to the single-card `render()` of the pose;
+  each rank holds one eager band frame's kernel calls to their plain
+  versions, captures the band frame (one CUDA graph a frame on NCCL ranks;
+  the band body on gloo ranks, whose post chain stays eager), holds
+  captured frames to eager ones bit for bit, counts the replays' launches
+  (A, B four times, C, D; or A, B four times, C, F, G), times captured
+  against eager frames, and traces 3 captured frames (idle share, NCCL
+  time); rank 0 holds the gathered frame to the single-card `render()` of
+  the pose and carry (bit for bit on one rank);
 * the textured cell's content as an asset tree ([asset-auto]): written as
   OBJ/MTL/PNG and HDR faces, imported by the port's importers (BC1, BC6H),
   reloaded through a fresh ResourceLoader and rendered with
@@ -207,6 +211,7 @@ BAND_PHASES = {
     "sharded-cards": ("textured", 0, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
 }
 BAND_FRAMES = 4   # band frames timed a rank; the launch counts are read after them
+BAND_EQUAL = 2    # captured band frames held bit for bit to eager ones
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s;
 # the Hopper architecture whitepaper: float16 and bfloat16 (non-tensor) FLOP/s
 HBM_BYTES_PER_S, F32_FLOP_PER_S, F16_FLOP_PER_S = 3.35e12, 67e12, 133.8e12
@@ -1717,26 +1722,52 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
     return launches
 
 
+def band_trace(run, frames: int):
+    """torch.profiler over `frames` captured band frames (`traced`; every
+    rank traces itself, in step with the others): (wall ms a frame, device
+    busy ms a frame, NCCL kernels' device ms a frame, whether the trace holds
+    every launch of the port's kernels). No second try: a rank that traced
+    again alone would leave the others waiting in a collective."""
+    spans, launched, wall = traced(run)
+    held = {name: sum(1 for n, _ in spans if f"{name}_kernel" in n) for name in KERNELS
+            if source_of(name) == name}
+    busy = sum(us for _, us in spans) / 1e3 / frames
+    nccl = sum(us for n, us in spans if "nccl" in n.lower()) / 1e3 / frames
+    return wall / frames, busy, nccl, all(launched[k] == v for k, v in held.items())
+
+
 def band_rank(mesh, phase: str, smi: str) -> list[str]:
     """One rank of band phase `phase` (BAND_PHASES): builds the cell's
-    pipeline on the rank's card, renders one band frame
-    (`frame_sharded.build_sharded_frame`) with the path's kernel calls
-    recorded and holds each call to its plain version at the kernels line's
-    bars, then renders it again with every launch count set to 0 just before
-    and read just after, timing the frame and its collectives. Rank 0 also
-    holds the gathered frame to the single-card `render()` of the same pose.
-    Fails (the rank exits 1) on a call that disagrees, a kernel of the path
-    launched fewer times than the phase wants or one it must not launch, a
-    fallback counter above 0, or a frame off the bars. Returns its lines."""
+    pipeline on the rank's card and its band frame
+    (`frame_sharded.build_sharded_frame`). One eager band frame
+    (`deferred.eager()`) with the path's kernel calls recorded holds each
+    call to its plain version at the kernels line's bars. The first call
+    outside `eager()` captures the frame (on NCCL ranks the whole frame, on
+    gloo ranks the band body, whose post chain then runs eagerly); captured
+    frames are bit-equal to eager ones over BAND_EQUAL poses with the
+    exposure carry chained on the device; BAND_FRAMES captured frames are
+    timed with every launch count set to 0 just before and read just after
+    (each replay launches the path's kernels once each, B four times), and
+    as many eager ones; torch.profiler traces 3 captured frames (idle share;
+    on NCCL the collectives' device time; gloo's collectives, eager, are
+    timed by `time_collectives`). Rank 0 holds the gathered frame to the
+    single-card `render()` of the same pose and carry: bit for bit on one
+    rank, at the fidelity bar on several (their bloom products are blocked
+    by rows). Fails (the rank exits 1) on a call that disagrees, a captured
+    frame that is not bit-equal to the eager one, a capture that did not
+    happen or happened again, launches other than the path's, a fallback
+    counter above 0, or a frame off its bar. Returns its lines."""
     import importlib
 
     import torch.distributed as dist
 
     from direct12pbrrenderer_tpu_torch.parallel import frame_sharded
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cell, _, device, want, absent = BAND_PHASES[phase]
     dev, r, n = mesh.device, mesh.rank, mesh.size
+    nccl = dist.get_backend() == "nccl"
     t0 = time.perf_counter()
     if cell == "textured":
         pipe, cam = textured_cell(dev)[4:]
@@ -1744,15 +1775,15 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
         pipe = lights1k_cell(dev, dict(BASE_KNOBS, brdf_lut_size=BRDF_LUT))[3]
         cam = cell_camera(pipe.config)
     frame = frame_sharded.build_sharded_frame(mesh, pipe, collect_stats=True)
-    args = frame_sharded.frame_args(pipe, cam, float(pipe.avg_luminance))
+    carry = pipe.avg_luminance
     build_s = time.perf_counter() - t0
     tag = f"rank {r}/{n} ({dist.get_backend()} on {dev}, y_offset {r * H // n})"
 
-    with contextlib.ExitStack() as stack:
+    with contextlib.ExitStack() as stack:   # `recording` renders inside eager()
         calls = {name: stack.enter_context(recording(importlib.import_module(
             f"direct12pbrrenderer_tpu_torch.ops.{KERNELS[name][1]}"), KERNELS[name][2]))
             for name in want}
-        frame(*args)
+        frame(*frame_sharded.frame_args(pipe, cam, carry))
         torch.cuda.synchronize()
     held = []
     for name in want:
@@ -1762,24 +1793,78 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
         held.append(f"{name} {len(errs)} calls, max_abs_err {max(errs):.3e}")
     del calls
 
+    mesh.all_reduce(torch.zeros(1, device=dev))   # the ranks capture together
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    frame(*frame_sharded.frame_args(pipe, cam, carry))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    cap = frame.captured
+    if cap is None:
+        fail(phase, f"{tag}: the first band frame outside eager() captured nothing")
+    whole = len(cap.outputs) == 6   # the whole frame's outputs, or band_render's (rt, stats)
+    if whole != nccl:
+        fail(phase, f"{tag}: the capture holds {'the whole frame' if whole else 'the band body'}"
+             f" on a {dist.get_backend()} rank")
+    path = camera_path(cam, BAND_FRAMES)
+    for c in path[:BAND_EQUAL]:
+        args = frame_sharded.frame_args(pipe, c, carry)
+        with eager():
+            ref = frame(*args)
+        got = frame(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(phase, f"{tag}: a captured band frame differs from the eager one: "
+                 f"{int((got[0] != ref[0]).any(-1).sum())} pixels, carry {float(got[1])} vs "
+                 f"{float(ref[1])}, stats {[x.tolist() for x in got[2:]]} vs "
+                 f"{[x.tolist() for x in ref[2:]]}")
+        carry = got[1]
+    if frame.captured is not cap:
+        fail(phase, f"{tag}: the yaw path captured the band frame again")
+
+    def timed_frames(start):
+        nonlocal carry
+        carry, times = start, []
+        for c in path:
+            t2 = time.perf_counter()
+            out = frame(*frame_sharded.frame_args(pipe, c, carry))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t2) * 1e3)
+            prev, carry = carry, out[1]
+        return times, out, prev
+
+    start = carry
+    mesh.time_collectives = not nccl
     mesh.all_reduce(torch.zeros(1, device=dev))   # the ranks start the timed frames together
     torch.cuda.synchronize()
+    mesh.collective_s = 0.0
     reset_launches()
-    mesh.time_collectives, mesh.collective_s = True, 0.0
-    times = []
-    for _ in range(BAND_FRAMES):
-        t1 = time.perf_counter()
-        rgb8, avg, bin_counts, tex, trunc, env = frame(*args)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
+    times, (rgb8, avg, bin_counts, tex, trunc, env), prev = timed_frames(start)
     launches = read_launches()
-    mesh.time_collectives = False
     coll_ms = mesh.collective_s * 1e3 / BAND_FRAMES
-    short = {k: v for k, v in launches.items() if k in want and v < want[k] * BAND_FRAMES}
-    extra = {k: launches[k] for k in (*absent, WIDE) if launches[k]}
-    if short or extra:
-        fail(phase, f"{tag}: kernel launches {launches} in {BAND_FRAMES} band frames: fewer "
-             f"than {want} a frame ({short}) or launched where none may be ({extra})")
+    mesh.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+    with eager():
+        eager_times, eager_out, _ = timed_frames(start)
+    mesh.time_collectives = False
+    if not all(torch.equal(a, b) for a, b in zip((rgb8, avg, bin_counts, tex, trunc, env),
+                                                 eager_out)):
+        fail(phase, f"{tag}: the last timed captured band frame differs from the eager one")
+    odd = {k: v for k, v in launches.items()
+           if v != want.get(k, 0) * BAND_FRAMES and (k in want or k in absent or k == WIDE)}
+    if odd:
+        fail(phase, f"{tag}: kernel launches {launches} in {BAND_FRAMES} captured band frames, "
+             f"want {want} a frame and none of {absent}: off {odd}")
+
+    def traced_frames():
+        nonlocal carry
+        for c in path[:3]:
+            carry = frame(*frame_sharded.frame_args(pipe, c, carry))[1]
+
+    mesh.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize()
+    wall, busy, nccl_ms, complete = band_trace(traced_frames, 3)
+    if frame.captured is not cap:
+        fail(phase, f"{tag}: the timed frames captured the band frame again")
     counts = bin_counts.cpu().numpy()
     overflow = max(pipe._stats(c, np.zeros(2, np.int64), 0, 0, 0).bin_overflow
                    for c in np.split(counts, n))
@@ -1787,31 +1872,52 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
                 "env_approx_taps": int(env), "light_tile_overflow": int(trunc)}
     if any(counters.values()):
         fail(phase, f"{tag}: FrameStats fallbacks of the band frame {counters} (all must be 0)")
-    lines = [f"{tag}: pipeline built in {build_s:.2f} s; one band frame's kernel calls held to "
-             f"their plain versions at the kernels line's bars: " + "; ".join(held)
-             + f"; kernel launches of {BAND_FRAMES} band frames {launches}; band frame mean "
-             f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, the ranks "
-             f"started together, synchronized per frame), of it collectives {coll_ms:.2f} ms a "
-             f"frame (each bracketed by synchronizations, the wait for the other ranks "
-             f"included); " + (f"{n} ranks share one card, so not a scaling figure" if n > 1
-                               and device != "cuda" else "one card a rank")
-             + f"; on {smi}"]
+    held_by = "the whole frame" if whole else "the band body; the post chain eager"
+    coll = (f"collectives {nccl_ms:.3f} ms a frame (NCCL kernels' device time in the trace, "
+            f"{nccl_ms / wall:.3f} of its wall)" if nccl else
+            f"collectives {coll_ms:.2f} ms a frame (gloo, eager: host clock, each bracketed by "
+            f"synchronizations, the wait for the other ranks included)")
+    lines = [f"{tag}: pipeline built in {build_s:.2f} s; one eager band frame's kernel calls "
+             f"held to their plain versions at the kernels line's bars: " + "; ".join(held)
+             + f"; captured ({held_by}): the first call {first_s:.3f} s (its eager warm-up "
+             f"frames and the capture), the capture itself {cap.capture_s:.3f} s, graph pool "
+             f"{cap.pool_bytes} bytes; {BAND_EQUAL} captured band frames bit-equal to eager ones "
+             f"(carry chained on the device); {BAND_FRAMES} captured band frames: mean "
+             f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms against {BAND_FRAMES} eager "
+             f"ones: mean {np.mean(eager_times):.2f} ms, p50 {np.median(eager_times):.2f} ms "
+             f"(host clock, the ranks started together, synchronized per frame; the last "
+             f"frames bit-equal); kernel launches of the captured frames {launches}; {coll}; "
+             f"torch.profiler, 3 captured band frames: wall {wall:.2f} ms/frame, device busy "
+             f"{busy:.2f} ms/frame (this rank's activities), idle share {1 - busy / wall:.3f}, "
+             f"trace {'complete' if complete else 'PARTIAL (some kernels missing)'}; "
+             + (f"{n} ranks share one card, so not a scaling figure" if n > 1
+                and device != "cuda" else "one card a rank") + f"; on {smi}"]
     full = frame_sharded.gather_rows(mesh, rgb8).cpu().numpy()
     if r:
         return lines
-    single = pipe.render(cam).cpu().numpy()   # the same pose, the same exposure carry
+    pipe.avg_luminance = prev   # the carry the last timed frame started from
+    single = pipe.render(path[-1]).cpu().numpy()
+    stats = pipe.last_stats
     diff = np.abs(full.astype(np.int64) - single.astype(np.int64))
     rmse = float(np.sqrt(np.mean((diff / 255.0) ** 2)))
     off = float((diff > 1).any(-1).mean())
     lit = float((full.max(-1) > 16).mean())
+    same_carry = torch.equal(avg, pipe.avg_luminance)
+    same_stats = (stats.bin_overflow, stats.tex_approx_taps, stats.env_approx_taps,
+                  stats.light_tile_overflow) == tuple(counters.values())
     if full.shape != (H, W, 3) or rmse > RMSE_BAR or off >= 1e-3 or lit < 0.05:
         fail(phase, f"gathered frame {full.shape}, lit {lit:.3f}: rmse vs render() {rmse:.6f} "
              f"(bar {RMSE_BAR}), share of pixels off by more than 1 {off:.2e} (bar 1e-3)")
+    if n == 1 and (diff.any() or not same_carry or not same_stats):
+        fail(phase, f"the one-rank band frame differs from render(): {int(diff.any(-1).sum())} "
+             f"pixels, carry {float(avg)} vs {float(pipe.avg_luminance)}, counters {counters} "
+             f"vs {stats}")
     return lines + [f"rank 0: the gathered {W}x{H} frame vs the single-card render() of the "
-                    f"same pose: rmse {rmse:.6f} <= {RMSE_BAR}, share of pixels off by more "
-                    f"than 1 {off:.2e} < 1e-3, {int(diff.any(-1).sum())} pixels differ; avg "
-                    f"luminance {float(avg):.6f} (render() {float(pipe.avg_luminance):.6f}); "
-                    f"band FrameStats fallbacks {counters}; lit {lit:.3f}"]
+                    f"same pose and carry: rmse {rmse:.6f} <= {RMSE_BAR}, share of pixels off by "
+                    f"more than 1 {off:.2e} < 1e-3, {int(diff.any(-1).sum())} pixels differ; "
+                    f"carry {float(avg):.6f} (render() {float(pipe.avg_luminance):.6f}, equal: "
+                    f"{same_carry}); band FrameStats fallbacks {counters} (render()'s equal: "
+                    f"{same_stats}); lit {lit:.3f}"]
 
 
 def band_phases(smi: str, phases=("sharded", "sharded-nccl", "sharded-lights1k")) -> None:

@@ -26,6 +26,16 @@ builds its own pipeline from the same scene: scene buffers and lights are
 replicated. The collectives run on the rank's device tensors; with the gloo
 backend on CUDA tensors the copies to host memory are gloo's own.
 
+On a card the band frame is captured, the counterpart of the JAX band
+frame's `jax.jit(frame)` (`BandFrame`): its first call outside
+`deferred.eager()` captures a CUDA graph over static inputs and every later
+call copies its small arguments in and replays it. On NCCL ranks the graph
+holds the whole frame, the collectives included. Gloo copies CUDA tensors
+through host memory, which no graph can hold, so on gloo ranks the graph
+holds the band body (`band_render`: everything before the first collective)
+and the post chain runs eagerly on its outputs. On the CPU, and inside
+`eager()`, the frame runs eagerly.
+
 Start the ranks with `torchrun --nproc-per-node N` (one card each, NCCL), or
 with `launch`, which spawns them on a `FileStore` in a temporary directory.
 """
@@ -45,6 +55,7 @@ import torch.multiprocessing as mp
 from ..ops import bloom as bloom_ops
 from ..ops import common, gbuffer, postprocess, texcache
 from ..pipeline import stages
+from ..pipeline.deferred import CapturedGraph, _replays, _tensors, capture
 
 
 @dataclass
@@ -53,7 +64,9 @@ class BandMesh:
     the process group, this rank's index in it, its size, and the device
     its band renders on. With `time_collectives` on, every collective is
     bracketed by device synchronizations and its host seconds are added to
-    `collective_s`."""
+    `collective_s`: the collectives that a band frame runs eagerly (inside
+    `deferred.eager()`, on the CPU, or a captured gloo frame's post chain);
+    a captured NCCL band frame refuses it (`BandFrame`)."""
     group: dist.ProcessGroup
     rank: int
     size: int
@@ -113,25 +126,104 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> BandMesh | None:
     return BandMesh(group, rank, n, device)
 
 
-def frame_args(pipe, camera, prev_avg_lum: float = 0.0, delta_time: float = 1.0 / 60.0):
+def frame_args(pipe, camera, prev_avg_lum=0.0, delta_time: float = 1.0 / 60.0):
     """The band frame's twelve arguments for `camera`, on the pipeline's
-    device, as the pipeline's own frame packs them (float32)."""
+    device, as the pipeline's own frame packs them (float32). On a card the
+    packs go up from pinned memory without a host sync. `prev_avg_lum`, the
+    exposure carry, is a float or a tensor: pass the previous band frame's
+    `avg` to carry it on the device with no host read."""
     p = pipe.packed
     view = camera.view_matrix()
 
     def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=pipe.device)
+        t = torch.from_numpy(np.array(a, np.float32))
+        if pipe.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(pipe.device, non_blocking=True)
 
-    normal_mats = np.ascontiguousarray(np.transpose(p.inv_model_mats[:, :3, :3], (0, 2, 1)))
+    prev = (prev_avg_lum.to(pipe.device, torch.float32) if isinstance(prev_avg_lum, torch.Tensor)
+            else dev(prev_avg_lum))
+    normal_mats = np.transpose(p.inv_model_mats[:, :3, :3], (0, 2, 1))
     return (pipe.buffers, dev(p.model_mats), dev(normal_mats), dev(p.instance_bounds),
             dev(p.light_bounds), dev(camera.frustum_planes()), dev(view),
             dev(camera.world_matrix()), dev(camera.projection_matrix() @ view),
-            dev(camera.position), dev(prev_avg_lum), dev(delta_time))
+            dev(camera.position), prev, dev(delta_time))
 
 
-def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
+class BandFrame:
+    """frame(...) of `build_sharded_frame`: one band frame a call, captured
+    on a card (the counterpart of the JAX band frame's `jax.jit(frame)`).
+
+    On a CUDA mesh, the first call outside `deferred.eager()` captures
+    (`deferred.capture`: CAPTURE_WARMUP eager calls on a side stream, then
+    the capture) over static copies of the eleven small arguments, and
+    every call copies them in on the device, with no host sync, and
+    replays the graph. On NCCL ranks the graph is the whole frame; on gloo
+    ranks it is `band_render`, and the post chain (bloom, exposure, tone
+    mapping, the stats' collectives) runs eagerly on its outputs. The
+    outputs are clones, as `render` returns them. `captured` is the
+    capture (`capture_s`, `pool_bytes`, the launches a replay adds).
+
+    The graph is keyed on the pipeline's `_graph_key()`, the mesh (rank,
+    size, backend), `collect_stats`, the addresses of `buffers` and the
+    arguments' shapes: a change captures it anew. Every rank must make the
+    same changes at the same call: the capture's warm-up frames run the
+    NCCL collectives, so a rank that captures alone deadlocks the group.
+    `mesh.time_collectives` on a captured NCCL frame raises ValueError: its
+    collectives replay inside the graph, so time them from a torch.profiler
+    trace of replays (the NCCL kernels' device time).
+
+    On the CPU, and inside `eager()`, every call runs the frame eagerly."""
+
+    def __init__(self, mesh: BandMesh, pipe, collect_stats: bool, band_render, post):
+        self.mesh, self.pipe, self.collect_stats = mesh, pipe, collect_stats
+        self.band_render, self.post = band_render, post
+        self.captured: CapturedGraph | None = None
+        self._key = None
+        self._static: tuple = ()
+        self._stream = None
+
+    def run_eager(self, buffers, *small):
+        """The frame run eagerly: the band body, then the post chain."""
+        return self.post(*self.band_render(buffers, *small[:9]), *small[9:])
+
+    def __call__(self, buffers, *small):
+        mesh = self.mesh
+        if mesh.device.type != "cuda" or not _replays():
+            return self.run_eager(buffers, *small)
+        backend = dist.get_backend(mesh.group)
+        whole = backend == "nccl"
+        if whole and mesh.time_collectives:
+            raise ValueError("time_collectives on a captured NCCL band frame: its collectives "
+                             "replay inside the CUDA graph, out of the host clock's reach; "
+                             "time them from a torch.profiler trace of replays (the NCCL "
+                             "kernels' device time), or run the frame inside deferred.eager()")
+        key = (self.pipe._graph_key(), mesh.rank, mesh.size, backend, self.collect_stats,
+               tuple(t.data_ptr() for t in _tensors(buffers)),
+               tuple((a.shape, a.dtype, a.device) for a in small))
+        if key != self._key:
+            self.captured = self._key = None   # the old graph's pool goes first
+            static = self._static = tuple(a.clone() for a in small)
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(mesh.device)
+            if whole:
+                self.captured = capture(lambda: self.run_eager(buffers, *static), self._stream)
+            else:
+                self.captured = capture(lambda: self.band_render(buffers, *static[:9]),
+                                        self._stream)
+            self._key = key
+        for dst, src in zip(self._static, small):
+            dst.copy_(src)
+        self.captured.replay()
+        out = (self.captured.outputs if whole
+               else self.post(*self.captured.outputs, *small[9:]))
+        return tuple(x.clone() for x in out)
+
+
+def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False) -> BandFrame:
     """frame(...) rendering `pipe`'s scene in row bands over `mesh`, with
-    the same kernels and knobs as `pipe`'s single-device graph.
+    the same kernels and knobs as `pipe`'s single-device graph; captured on
+    a card (`BandFrame`).
 
     frame(buffers, model_mats, normal_mats, instance_bounds, light_bounds,
           frustum_planes, view, inv_view, view_proj, camera_pos,
@@ -141,7 +233,8 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
          env_approx, summed over the bands; light_trunc, their maximum)
        with collect_stats]
 
-    The arguments are tensors on the rank's device (`frame_args`). The
+    The arguments are tensors on the rank's device (`frame_args`); pass
+    each frame's `avg` on as the next frame's `prev_avg_lum`. The
     height must split into n equal bands; each band's canvas rounds up to
     whole tiles and is cropped back, so 1080 rows on 4 ranks are 270-row
     bands on 288-row canvases. Every raster call gets the viewport (W, H):
@@ -236,12 +329,8 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
                  else torch.clamp(light_counts - pipe.light_cap, min=0).max())
         return rt[:band_h, :w], (bins.counts, tex_approx, env_approx, trunc)
 
-    def frame(buffers, model_mats, normal_mats, instance_bounds, light_bounds,
-              frustum_planes, view, inv_view, view_proj, camera_pos, prev_avg_lum,
-              delta_time):
-        rt, (counts, tex_approx, env_approx, trunc) = band_render(
-            buffers, model_mats, normal_mats, instance_bounds, light_bounds, frustum_planes,
-            view, inv_view, view_proj, camera_pos)
+    def post(rt, stats, prev_avg_lum, delta_time):
+        counts, tex_approx, env_approx, trunc = stats
         if cfg.enable_bloom:
             rt = bloom_ops.bloom_band(rt, h, mesh)
         sums = mesh.all_reduce(postprocess.luminance_sums(rt))
@@ -255,7 +344,7 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False):
         trunc = mesh.all_reduce(trunc.to(torch.int32).reshape(1), op=dist.ReduceOp.MAX)[0]
         return rgb8, avg, bin_counts, approx[0], trunc, approx[1]
 
-    return frame
+    return BandFrame(mesh, pipe, collect_stats, band_render, post)
 
 
 def gather_rows(mesh: BandMesh, band: torch.Tensor) -> torch.Tensor:

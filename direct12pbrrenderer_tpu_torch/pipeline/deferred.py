@@ -17,7 +17,8 @@ and replays it, with no host sync when it collects no stats;
 together (the JAX pipeline's `lax.scan`). A change to a knob the passes
 read captures it anew. Any path on the CPU, and every frame inside an
 `eager()` block (the counterpart of `jax.disable_jit()`), run the graph's
-passes eagerly; so does the band frame (`parallel/frame_sharded.py`).
+passes eagerly. `capture` is the capture itself, shared with the band
+frame (`parallel/frame_sharded.py`).
 
 Ported configurations (every path of the JAX pipeline but the knobs below):
 * the default on a CUDA device (`use_pallas` and `use_tex_kernel` resolve to
@@ -169,22 +170,71 @@ def _upload_into(dst: torch.Tensor, arr: np.ndarray) -> None:
 
 
 @dataclass
-class CapturedFrame:
+class CapturedGraph:
+    """One call captured as a CUDA graph over static inputs (`capture`):
+    `outputs` is what the call returned, in the graph's memory pool, which
+    every replay overwrites."""
+    graph: torch.cuda.CUDAGraph
+    outputs: object
+    launches: dict = field(repr=False)   # kernel launches a replay makes
+    capture_s: float = 0.0               # host seconds of the capture
+    pool_bytes: int = 0                  # device memory the capture reserved
+
+    def replay(self) -> None:
+        """Replay the graph on the current stream; each wrapper's launch
+        counter gains the launches the capture recorded."""
+        self.graph.replay()
+        _add_launches(self.launches)
+
+
+def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
+    """Capture `fn()`, a call over static inputs, into a CUDA graph on
+    `stream`, after CAPTURE_WARMUP eager calls on that stream (they build
+    the kernels, fill the persistent grids' caches, the raster's merge
+    scratch of that stream, cuBLAS's workspace, the device constants and,
+    for a call with NCCL collectives, the communicator). The capture is
+    thread-local: other threads' CUDA calls go on. A capture launches
+    nothing, so the wrappers' launch counts are left as they were before
+    it; a failed capture raises."""
+    dev = stream.device
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        for _ in range(CAPTURE_WARMUP):
+            fn()
+    torch.cuda.synchronize(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    counts = _launch_counters()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            outputs = fn()
+    finally:
+        after = _launch_counters()
+        for (mod, name, attr), n in counts.items():
+            setattr(getattr(mod, name), attr, n)
+    torch.cuda.synchronize(dev)
+    return CapturedGraph(graph, outputs,
+                         launches={k: n - counts.get(k, 0) for k, n in after.items()
+                                   if n != counts.get(k, 0)},
+                         capture_s=time.perf_counter() - t0,
+                         pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+
+
+@dataclass(kw_only=True)
+class CapturedFrame(CapturedGraph):
     """One captured `_frame` (the counterpart of the JAX pipeline's
     `jax.jit(_frame)`): a CUDA graph over static inputs, the scene pack,
     the camera pack and the previous average luminance, whose outputs
     (`_frame`'s, and their `_stats_vector`) live in the graph's memory pool
     and are overwritten by every replay."""
     key: tuple
-    graph: torch.cuda.CUDAGraph
     scene: torch.Tensor
     camera: torch.Tensor
     prev_avg: torch.Tensor
-    outputs: tuple
     stats: torch.Tensor
-    launches: dict = field(repr=False)   # kernel launches a replay makes
-    capture_s: float = 0.0               # host seconds of the capture
-    pool_bytes: int = 0                  # device memory the capture reserved
     scene_np: np.ndarray | None = field(default=None, repr=False)
     camera_np: np.ndarray | None = field(default=None, repr=False)
 
@@ -196,12 +246,6 @@ class CapturedFrame:
         if not np.array_equal(self.camera_np, cam_f32):
             _upload_into(self.camera, cam_f32)
             self.camera_np = cam_f32
-
-    def replay(self) -> None:
-        """Replay the graph on the current stream; each wrapper's launch
-        counter gains the launches the capture recorded."""
-        self.graph.replay()
-        _add_launches(self.launches)
 
 
 @dataclass
@@ -720,46 +764,24 @@ class DeferredRenderPipeline:
         return self.captured_frame
 
     def _capture(self, key: tuple, scene_f32: np.ndarray, cam_f32: np.ndarray) -> CapturedFrame:
-        """Capture `_frame` over static inputs holding these packs and the
-        exposure carry, after CAPTURE_WARMUP eager frames on the capture
-        stream (they build the kernels, fill the persistent grids' caches,
-        the raster's merge scratch of that stream, cuBLAS's workspace and
-        the device constants). A failed capture raises."""
+        """Capture `_frame` (`capture`) over static inputs holding these
+        packs and the exposure carry."""
         dev = self.device
         scene = torch.as_tensor(scene_f32, device=dev)
         camera = torch.as_tensor(cam_f32, device=dev)
         prev_avg = self.avg_luminance.clone()
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(dev)
-        side = self._capture_stream
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(CAPTURE_WARMUP):
-                self._frame(scene, camera, prev_avg)
-        torch.cuda.synchronize(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        counts = _launch_counters()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                outputs = self._frame(scene, camera, prev_avg)
-                stats = _stats_vector(outputs)
-        finally:
-            # a capture launches nothing: the wrappers' counts go back
-            after = _launch_counters()
-            for (mod, name, attr), n in counts.items():
-                setattr(getattr(mod, name), attr, n)
-        torch.cuda.synchronize(dev)
-        return CapturedFrame(
-            key, graph, scene, camera, prev_avg, outputs, stats,
-            launches={k: n - counts.get(k, 0) for k, n in after.items()
-                      if n != counts.get(k, 0)},
-            capture_s=time.perf_counter() - t0,
-            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
-            scene_np=scene_f32, camera_np=cam_f32)
+
+        def frame():
+            out = self._frame(scene, camera, prev_avg)
+            return out, _stats_vector(out)
+
+        cap = capture(frame, self._capture_stream)
+        outputs, stats = cap.outputs
+        return CapturedFrame(**dict(vars(cap), outputs=outputs), key=key, scene=scene,
+                             camera=camera, prev_avg=prev_avg, stats=stats,
+                             scene_np=scene_f32, camera_np=cam_f32)
 
     def render_sequence(self, cameras, delta_time: float = 1.0 / 60.0):
         """Render a camera path with the exposure EMA carried frame to frame,

@@ -14,16 +14,13 @@ JAX pipeline's `jax.jit(_frame)` and `render_sequence` (its `lax.scan`).
 * Bloom with its matrices cached on the device against the JAX package's
   `ops/bloom.bloom` (rtol 1e-5 / atol 1e-5, tests/test_torch_gbuffer_shading.py's
   bar), the second call making no host-to-device copy.
-* A guard that fails the test on any host read of a tensor (`Tensor.item`,
-  `tolist`, `__bool__`, `__int__`, `__float__`, `__index__`, `cpu`,
-  `numpy`, and the aten ops they and boolean indexing dispatch) and on any
-  tensor made from host data (`torch.tensor`) while `_frame` runs at the
-  default path's knobs and on every other single-card path (PATHS: the
-  1024-light path, planar-tex, anisotropic, `use_tex_kernel=False`,
-  all-plain; on the sky scene at 256x96), or the hierarchical binning,
-  outside the kernels' plain versions (which keep their host loop bounds:
-  the card runs the kernels instead). On a card these are the syncs and
-  pageable copies a CUDA graph capture refuses;
+* A guard (`tests/torch_host_reads.py`'s `no_host_reads`) that fails the
+  test on any host read of a tensor or tensor made from host data while
+  `_frame` runs at the default path's knobs and on every other single-card
+  path (PATHS: the 1024-light path, planar-tex, anisotropic,
+  `use_tex_kernel=False`, all-plain; on the sky scene at 256x96), or the
+  hierarchical binning, outside the kernels' plain versions. On a card
+  these are the syncs and pageable copies a CUDA graph capture refuses;
   `tests/test_torch_frame_graph_cuda.py` holds the captured frames there.
 * The glue that a frame once read back or uploaded, each bit for bit
   against what it computed before: the dense light sweep at its static
@@ -40,17 +37,14 @@ JAX pipeline's `jax.jit(_frame)` and `render_sequence` (its `lax.scan`).
   package's (its `lax.scan`), at the default path's bars.
 """
 
-import contextlib
 import dataclasses
 import functools
 import math
-import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from chip_smoke import random_triangles
 from direct12pbrrenderer_tpu.ops import bloom as jbloom
@@ -60,26 +54,17 @@ from direct12pbrrenderer_tpu.ops import ibl as jibl
 from direct12pbrrenderer_tpu.ops import raster as jraster
 from direct12pbrrenderer_tpu.ops import shading as jsh
 from direct12pbrrenderer_tpu.pipeline.deferred import DeferredRenderPipeline as JaxPipeline
-from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, bloom, common, cover_cuda,
-                                              env_resolve_cuda, lights_cuda, raster,
-                                              raster_cuda, resolve_shade_cuda, shade_fused,
-                                              shading)
+from direct12pbrrenderer_tpu_torch.ops import bloom, common, lights_cuda, raster, shading
 from direct12pbrrenderer_tpu_torch.pipeline import stages
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.state import state_from_jax
 from direct12pbrrenderer_tpu_torch.tools.tiny_scene import tiny_pipeline
 from test_torch_gbuffer_shading import _camera, _lights
 from test_torch_pipeline import FUSED_KNOBS, RMSE_BAR, _fused_scene, _poses, _rmse, jax_state
+from torch_host_reads import no_host_reads
 
 torch.set_num_threads(2)
 
-# the kernels' plain versions: the CPU's stand-ins for kernels A-G, whose
-# loop bounds (and kernel B's cap row) are host values
-PLAIN_VERSIONS = {f.__code__ for f in (
-    raster_cuda.rasterize_interp_reference, raster_cuda.rasterize_depth_reference,
-    cover_cuda.fused_cover_reference, resolve_shade_cuda.resolve_shade_reference,
-    shade_fused.deferred_kernel_reference, atlas_resolve_cuda.atlas_resolve_reference,
-    env_resolve_cuda.env_resolve_reference, lights_cuda.point_lights_kernel_reference)}
 # every single-card path besides the default one: its knobs over
 # FUSED_KNOBS (tile 24x128, bin_cap 512) on the sky scene at 256x96
 PATHS = {
@@ -93,55 +78,6 @@ PATHS = {
     # the plain fold, the row gather, the direct-atlas sampler, the dense sweep
     "all-plain": dict(use_pallas=False, use_tex_kernel=False),
 }
-HOST_READS = ("item", "tolist", "__bool__", "__int__", "__float__", "__index__", "cpu",
-              "numpy")
-# aten ops that read a tensor on the host (a sync on a card: for bincount,
-# histc and repeat_interleave the CUDA kernel reads its output size back) or
-# make one from host data (a pageable upload on a card)
-HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select", "aten.unique",
-            "aten._unique2", "aten.unique_consecutive", "aten.unique_dim", "aten.bincount",
-            "aten.histc", "aten.repeat_interleave", "aten.lift_fresh")
-
-
-def _in_plain_version() -> bool:
-    f = sys._getframe(2)
-    while f is not None:
-        if f.f_code in PLAIN_VERSIONS:
-            return True
-        f = f.f_back
-    return False
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Raise AssertionError on a host read of a tensor or a tensor made
-    from host data while the block runs, outside the kernels' plain
-    versions."""
-    def guarded(name, orig):
-        def fn(self, *args, **kwargs):
-            if not _in_plain_version():
-                raise AssertionError(f"Tensor.{name} in the frame")
-            return orig(self, *args, **kwargs)
-        return fn
-
-    class Guard(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = f"aten.{func.overloadpacket.__name__}"
-            bool_index = name == "aten.index" and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in args[1] or ())
-            if (name in HOST_OPS or bool_index) and not _in_plain_version():
-                raise AssertionError(f"{func} in the frame")
-            return func(*args, **(kwargs or {}))
-
-    originals = {name: getattr(torch.Tensor, name) for name in HOST_READS}
-    for name, orig in originals.items():
-        setattr(torch.Tensor, name, guarded(name, orig))
-    try:
-        with Guard():
-            yield
-    finally:
-        for name, orig in originals.items():
-            setattr(torch.Tensor, name, orig)
 
 
 @pytest.mark.parametrize("probe", [
