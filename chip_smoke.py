@@ -24,6 +24,13 @@ on the card, then renders at 1920x1080 with a procedural sky:
   the replays: `use_tex_kernel=False`, all-plain, planar-tex and
   anisotropic on this scene, the 1024-light path and its all-plain
   reference on the 1024-light scene;
+* the JAX package's reference-only functions, ported as plain PyTorch
+  ([reference-fns]): the literal bloom chain against the pipeline's bloom
+  on the default frame's pre-bloom image (both timed), the per-cluster
+  light lists of the 1024-light cell (timed) and their parameter rows, the
+  cluster index, barycentrics and 2D bilinear sampler on the default
+  frame's planes, and the env prefilter from the sky's cube-map texture,
+  each held to the same call on the CPU;
 * the same scene through the `use_tex_kernel=False` path: kernel A, the
   direct-atlas sampler and the dense deferred shading;
 * the same scene through the planar texture-cache path at a 24x160 raster
@@ -175,6 +182,19 @@ SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of val
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
                                                    # cluster edge flips a membership
 F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
+# [reference-fns]: the JAX package's reference-only functions on the card.
+# bloom vs bloom_reference: rtol and atol 2e-5, the JAX package's own bar
+# (tests/test_postprocess.py); its two blooms differ by 1.14e-5 at most at
+# 1920x1080 on the CPU (PERF.md). The cull's (cluster, light) decisions and
+# the cluster indices may differ from the CPU's on max(1, 1e-4) of them (a
+# one-ulp change at a cluster face or slice edge); the barycentrics within
+# rtol 1e-5 of the CPU, atol 1e-6 for weights that cancel to near 0 at a
+# triangle's edge; the bilinear sampler within rtol 1e-6; the env prefilter,
+# 1024 samples summed in the same order, within rtol 1e-4 / atol 2e-5,
+# held at REF_PF_SIZE (the CPU run at the pipeline's 256 takes minutes)
+REF_BLOOM_BAR, REF_DECISION_FRAC = 2e-5, 1e-4
+REF_BARY_RTOL, REF_BARY_ATOL, REF_SAMPLER_RTOL = 1e-5, 1e-6, 1e-6
+REF_PF_RTOL, REF_PF_ATOL, REF_PF_SIZE = 1e-4, 2e-5, 64
 # the asset-auto cell: the textured stress cell's terrain (512x256 cells,
 # 262,144 triangles) imported from source files, with tex_caps="auto"
 ASSET_CELLS = (512, 256)
@@ -1020,6 +1040,224 @@ def profiled_frames(pipe, cam, frames: int):
     top = sorted(((v / 1e3 / frames, k) for k, v in by_name.items()), reverse=True)[:5]
     busy = sum(by_name.values()) / 1e3 / frames
     return wall / frames, busy, len(spans) / frames, top
+
+
+def cluster_members(lists, n_lights: int) -> torch.Tensor:
+    """(C, L) bool from (C, 32) cluster lists: light l is on cluster c's list."""
+    lists = lists.cpu().long()
+    m = torch.zeros((lists.shape[0], n_lights + 1), dtype=torch.bool)
+    m[torch.arange(lists.shape[0])[:, None], torch.where(lists >= 0, lists, n_lights)] = True
+    return m[:, :n_lights]
+
+
+def max_errs(got, want) -> tuple[float, float]:
+    """(max abs, max rel) difference of two float tensors (any devices)."""
+    got, want = got.cpu().double(), want.cpu().double()
+    d = (got - want).abs()
+    return float(d.max()), float((d / want.abs().clamp(min=1e-30)).max())
+
+
+def within(got, want, rtol: float, atol: float) -> bool:
+    return bool(torch.all((got.cpu() - want.cpu()).abs()
+                          <= atol + rtol * want.cpu().abs()))
+
+
+def reference_fns(dev, smi, pipe, cam, scene, args) -> None:
+    """[reference-fns]: the JAX package's reference-only functions, ported
+    as plain PyTorch, on the cells' own data on the card (no frame runs
+    them). The literal bloom chain against the pipeline's matrix bloom on
+    the default frame's pre-bloom HDR image; the per-cluster light lists
+    of the 1024-light cell's lights, view and clusters, and their parameter
+    rows; the per-pixel cluster index of the default frame's uv and view-z
+    planes; the barycentrics on its tri_id plane, from the setup and from
+    the packed rows; the 2D bilinear sampler on the scene's 256^2 albedo
+    map at the frame's interpolated uv, wrap and clamp; the env prefilter
+    from the 256^2 sky's CubeMapTextureData. Each is held to the same call
+    on the CPU (bloom to `bloom`), at the bars above."""
+    from direct12pbrrenderer_tpu_torch.config import RenderConfig
+    from direct12pbrrenderer_tpu_torch.ops import bloom, clustered, common, ibl, raster
+    from direct12pbrrenderer_tpu_torch.ops import raster_cuda
+    from direct12pbrrenderer_tpu_torch.ops.shading import view_space_depth
+    from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
+    from direct12pbrrenderer_tpu_torch.pipeline.scene_pack import pack_scene
+
+    phase, cpu, parts = "reference-fns", torch.device("cpu"), []
+    t_phase = time.perf_counter()
+
+    # ---- bloom: the literal chain against the pipeline's matrix bloom -----
+    hdrs, orig = [], bloom.bloom
+
+    def keep(hdr):
+        hdrs.append(hdr.clone())
+        return orig(hdr)
+
+    bloom.bloom = keep
+    try:
+        with eager():
+            pipe.render(cam, collect_stats=False)
+    finally:
+        bloom.bloom = orig
+    torch.cuda.synchronize()
+    if len(hdrs) != 1:
+        fail(phase, f"a default frame called bloom {len(hdrs)} times, want 1")
+    hdr, = hdrs
+    # the frame peaks near the bright-pass knee, so its bloom term is small;
+    # the same image scaled to a peak of 12 (the JAX test's range) blooms
+    bloom_errs = []
+    for img in (hdr, hdr * (12.0 / hdr.max())):
+        literal, fused = bloom.bloom_reference(img), bloom.bloom(img)
+        err = max_errs(fused, literal)
+        if not (torch.isfinite(literal).all() and within(fused, literal, REF_BLOOM_BAR,
+                                                         REF_BLOOM_BAR)):
+            fail(phase, f"bloom vs bloom_reference on the {tuple(img.shape)} frame (peak "
+                 f"{float(img.max()):.2f}): max abs/rel {err} outside rtol/atol "
+                 f"{REF_BLOOM_BAR}")
+        bloom_errs.append(f"peak {float(img.max()):.2f}, bloom term up to "
+                          f"{float((literal - img).abs().max()):.3e}: max abs {err[0]:.3e}, "
+                          f"max rel {err[1]:.3e}")
+    literal_ms = cuda_ms(lambda: bloom.bloom_reference(hdr), 5)
+    fused_ms = cuda_ms(lambda: bloom.bloom(hdr), 5)
+    parts.append(f"bloom_reference vs bloom on the default frame's {tuple(hdr.shape)} "
+                 f"pre-bloom image ({bloom_errs[0]}) and on it scaled ({bloom_errs[1]}), bar "
+                 f"rtol/atol {REF_BLOOM_BAR}; bloom_reference {literal_ms:.4f} ms, bloom "
+                 f"{fused_ms:.4f} ms (CUDA events)")
+    del hdrs, hdr, img, literal, fused
+
+    # ---- the per-cluster light lists of the 1024-light cell ---------------
+    l1k = stress_scene(*L1K_CELLS, 256, 80.0, n_lights=L1K_LIGHTS)
+    l1k_cfg = RenderConfig(W, H, max_instances=2, max_lights=L1K_LIGHTS)
+    packed = pack_scene(l1k, l1k_cfg, BASE_KNOBS["atlas_max_dim"])
+    l1k_cam = cell_camera(l1k_cfg)
+    n = packed.light_count
+    host = {"bounds": clustered.cluster_bounds(l1k_cfg.fov, l1k_cfg.ratio, l1k_cfg.near,
+                                               l1k_cfg.far),
+            "view": np.asarray(l1k_cam.view_matrix(), np.float32),
+            "pos": packed.light_pos[:n], "radius": packed.light_attenuation[:n, 0],
+            "intensity": packed.light_intensity[:n],
+            "valid": packed.visible_lights(np.asarray(l1k_cam.frustum_planes(),
+                                                      np.float32))[:n],
+            "color": packed.light_color[:n], "att": packed.light_attenuation[:n]}
+    on = {d: {k: torch.as_tensor(np.ascontiguousarray(v), device=d) for k, v in host.items()}
+          for d in (dev, cpu)}
+
+    def cull(d):
+        x = on[d]
+        return clustered.cull_lights_to_clusters(x["bounds"], x["view"], x["pos"],
+                                                 x["radius"], x["intensity"], x["valid"])
+
+    (lists, counts), (lists_c, counts_c) = cull(dev), cull(cpu)
+    c = lists.shape[0]
+    differ = int((cluster_members(lists, n) != cluster_members(lists_c, n)).sum())
+    bar = max(1, int(REF_DECISION_FRAC * c * n))
+    if differ > bar or int((counts.cpu() - counts_c).abs().sum()) > differ:
+        fail(phase, f"cull_lights_to_clusters: {differ} (cluster, light) decisions differ "
+             f"from the CPU's (bar {bar})")
+    if int(counts.sum()) == 0:
+        fail(phase, "cull_lights_to_clusters listed no light")
+    cull_ms = cuda_ms(lambda: cull(dev), 5)
+
+    def params(d, lists_d):
+        x = on[d]
+        return clustered.build_cluster_light_params(lists_d, x["pos"], x["color"],
+                                                    x["intensity"], x["att"])
+
+    rows = params(dev, lists)
+    if not torch.equal(rows.cpu(), params(cpu, lists.cpu())):
+        fail(phase, "build_cluster_light_params differs from its CPU run")
+    parts.append(f"cull_lights_to_clusters of the 1024-light cell ({n} lights, "
+                 f"{int(host['valid'].sum())} in the frustum, {c} clusters, a ({c}, {n}, 3) "
+                 f"grid): {differ} of {c * n} (cluster, light) decisions differ from the CPU's "
+                 f"(bar {bar}), {int(counts.sum())} listed, {int((counts == 32).sum())} "
+                 f"clusters at the cap of 32; {cull_ms:.4f} ms (CUDA events); "
+                 f"build_cluster_light_params {tuple(rows.shape)} equal to the CPU's")
+    del lists, counts, lists_c, counts_c, rows, on, l1k, packed
+
+    # ---- the default frame's planes: cluster index, barycentrics, sampler --
+    setup, _, _, width, height, _, _ = args
+    tri_id, depth, planes = raster_cuda.rasterize_interp(*args)
+    cfg = pipe.config
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev), torch.arange(width, device=dev),
+                            indexing="ij")
+    uv_x, uv_y = (xs + 0.5) / width, (ys + 0.5) / height
+    z_view = view_space_depth(depth, cfg.near, cfg.far)
+
+    def index(*xs_):
+        return clustered.cluster_index_image(*xs_, cfg.near, cfg.far)
+
+    idx = index(uv_x, uv_y, z_view)
+    idx_differ = int((idx.cpu() != index(uv_x.cpu(), uv_y.cpu(), z_view.cpu())).sum())
+    idx_bar = max(1, int(REF_DECISION_FRAC * idx.numel()))
+    if idx_differ > idx_bar or idx.dtype != torch.int32:
+        fail(phase, f"cluster_index_image: {idx_differ} pixels differ from the CPU's "
+             f"(bar {idx_bar})")
+    parts.append(f"cluster_index_image on the {width}x{height} uv and view-z planes: "
+                 f"{idx_differ} pixels differ from the CPU's (bar {idx_bar}), "
+                 f"{int(torch.unique(idx).numel())} distinct clusters")
+
+    hit = tri_id >= 0
+    ids, px, py = tri_id[hit], xs[hit].float() + 0.5, ys[hit].float() + 0.5
+    packed_rows = raster.pack_pixel_data(setup)
+    at = raster.barycentrics_at(setup, ids, px, py)
+    from_packed = raster.barycentrics_from_packed(packed_rows, ids, px, py)
+    setup_c = raster.TriangleSetup(*(t.cpu() for t in setup))
+    at_c = raster.barycentrics_at(setup_c, ids.cpu(), px.cpu(), py.cpu())
+    errs = []
+    for name, a, b, ac in zip(("lam", "lam_persp", "one_over_w"), at, from_packed, at_c):
+        if not torch.equal(a, b):
+            fail(phase, f"barycentrics_at and barycentrics_from_packed differ in {name}")
+        if not (torch.isfinite(a).all() and within(a, ac, REF_BARY_RTOL, REF_BARY_ATOL)):
+            fail(phase, f"barycentrics {name}: max abs/rel {max_errs(a, ac)} from the CPU's, "
+                 f"bar rtol {REF_BARY_RTOL} / atol {REF_BARY_ATOL}")
+        errs.append(max_errs(a, ac)[0])
+    parts.append(f"barycentrics on the tri_id plane ({ids.numel()} covered pixels): "
+                 f"barycentrics_at == barycentrics_from_packed bit for bit, max abs from the "
+                 f"CPU's {max(errs):.3e} (bar rtol {REF_BARY_RTOL} / atol {REF_BARY_ATOL})")
+    del at, from_packed, at_c, setup_c, packed_rows
+
+    albedo = scene.models[0].model.materials[0].textures["AlbedoMap"].texture
+    tex = torch.as_tensor(albedo.mip_array_rgba(0).astype(np.float32) / 255.0, device=dev)
+    u, v = planes[0][hit], planes[1][hit]
+    sampled = []
+    for wrap in (True, False):
+        got = common.sample_texture2d_bilinear(tex, u, v, wrap=wrap)
+        want = common.sample_texture2d_bilinear(tex.cpu(), u.cpu(), v.cpu(), wrap=wrap)
+        if not within(got, want, REF_SAMPLER_RTOL, 0.0):
+            fail(phase, f"sample_texture2d_bilinear wrap={wrap}: max abs/rel "
+                 f"{max_errs(got, want)} from the CPU's, bar rtol {REF_SAMPLER_RTOL}")
+        sampled.append(f"wrap={wrap} max rel {max_errs(got, want)[1]:.3e}")
+    parts.append(f"sample_texture2d_bilinear on the {tuple(tex.shape)} albedo map at the "
+                 f"frame's uv ({u.numel()} pixels, u in [{float(u.min()):.2f}, "
+                 f"{float(u.max()):.2f}]): " + ", ".join(sampled)
+                 + f" from the CPU's (bar rtol {REF_SAMPLER_RTOL})")
+    del tri_id, depth, planes, idx, u, v, tex
+
+    # ---- the env prefilter from the sky's CubeMapTextureData --------------
+    sky = scene.skybox.cubemap
+
+    def prefilter(size, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ibl.prefilter_env_map_from_texture(sky, out_size=size, device=device)
+        return out, time.perf_counter() - t0
+
+    got, card_s = prefilter(REF_PF_SIZE, dev)
+    want, cpu_s = prefilter(REF_PF_SIZE, cpu)
+    for m, (a, b) in enumerate(zip(got, want)):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if a.shape != b.shape or not within(a, b, REF_PF_RTOL, REF_PF_ATOL):
+            fail(phase, f"prefilter_env_map_from_texture mip {m}: max abs/rel "
+                 f"{max_errs(a, b)} from the CPU's, bar rtol {REF_PF_RTOL} / atol "
+                 f"{REF_PF_ATOL}")
+    pf_err = [max_errs(torch.as_tensor(a), torch.as_tensor(b)) for a, b in zip(got, want)]
+    pf_err = (max(e[0] for e in pf_err), max(e[1] for e in pf_err))
+    full, full_s = prefilter(min(256, sky.faces[0].width), dev)
+    parts.append(f"prefilter_env_map_from_texture of the {sky.faces[0].width}^2 sky at "
+                 f"out_size {REF_PF_SIZE}: max abs/rel {pf_err[0]:.3e}/{pf_err[1]:.3e} from "
+                 f"the CPU's (bar rtol {REF_PF_RTOL} / atol {REF_PF_ATOL}), {card_s:.3f} s "
+                 f"on the card, {cpu_s:.3f} s on the CPU; at the pipeline's out_size "
+                 f"{full[0].shape[1]} {full_s:.3f} s on the card")
+    say(phase, f"on {smi}: " + "; ".join(parts)
+        + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def build_kernels() -> None:
@@ -3325,6 +3563,9 @@ def main(argv=None) -> None:
         + f"; of gbuffer_shade_fused, kernel B (3 texture covers) {sum(cover_ms[:3]):.2f}, "
         f"kernel C {ms_c:.2f}")
     del tiled, tri_id, depth, planes
+
+    # ---- the JAX package's reference-only functions on the card -----------
+    reference_fns(dev, smi, pipe, cam, scene, args)
 
     # ---- the default frame through kernels A, B, C, D, run eagerly ----------
     path = camera_path(cam, WARMUP + FRAMES)

@@ -8,6 +8,10 @@ axis and runs as `torch.matmul`. The matrices are uploaded once per
 (shape, device) and reused (`_mat`), so a frame makes no host-to-device
 copy. The products are float32 (callers keep
 `torch.backends.cuda.matmul.allow_tf32` off, its default).
+
+`bloom_reference` keeps the literal per-pass formulation (9-tap shifted
+adds `blur_h`/`blur_v` and separate resizes, in BloomPass::Execute's
+order): the semantic spec that `bloom` re-associates, run by no frame.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..config import BLOOM_KNEE, BLOOM_STEPS, BLOOM_THRESHOLD, GAUSS_WEIGHTS
 
 from . import common
 
+_W = torch.tensor(GAUSS_WEIGHTS, dtype=torch.float32)   # blur.hlsli:17
 _R = 4
 
 
@@ -32,6 +37,15 @@ def _shift(img, dy, dx, lo=0, hi=None):
     ys = torch.clamp(torch.arange(lo, hi, device=img.device) + dy, 0, h - 1)
     xs = torch.clamp(torch.arange(w, device=img.device) + dx, 0, w - 1)
     return img[ys][:, xs]
+
+
+def blur_h(img):
+    """9-tap horizontal Gaussian, same resolution, clamp addressing."""
+    return sum(_W[i + _R] * _shift(img, 0, i) for i in range(-_R, _R + 1))
+
+
+def blur_v(img):
+    return sum(_W[i + _R] * _shift(img, i, 0) for i in range(-_R, _R + 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,6 +177,29 @@ def bloom(hdr):
         a[m] = (_mm_cols(bh, _mm_rows(bv, a[m]))
                 + _mm_cols(br(ww, lw), _mm_rows(br(hh, lh), a[m + 1])))
     full = _mm_cols(br(w, mip_size(1)[1]), _mm_rows(br(h, mip_size(1)[0]), a[1]))
+    return hdr + full
+
+
+def bloom_reference(hdr):
+    """The literal per-pass formulation (BloomPass::Execute order, shifted
+    adds and separate resizes): the spec `bloom` must match."""
+    h, w = hdr.shape[0], hdr.shape[1]
+
+    def mip_size(m):
+        return max(1, h >> m), max(1, w >> m)
+
+    a = {1: prefilter(hdr, *mip_size(1))}
+    for i in range(BLOOM_STEPS):
+        m = i + 1
+        lo_h, lo_w = mip_size(m + 1)
+        down = blur_h(resize_bilinear(a[m], lo_h, lo_w))
+        a[m + 1] = blur_v(down)
+    for i in range(BLOOM_STEPS - 1, -1, -1):
+        m = i + 1
+        hh, ww = mip_size(m)
+        up = blur_h(a[m]) + blur_h(resize_bilinear(a[m + 1], hh, ww))
+        a[m] = blur_v(up)
+    full = blur_v(blur_h(resize_bilinear(a[1], h, w)))
     return hdr + full
 
 

@@ -364,3 +364,34 @@ def sample_quad_tex2d(quad, h: int, w: int, u, v):
     fy = torch.clamp(y - y0, 0.0, 1.0)[..., None]
     q = quad[y0 * w + x0]
     return bilerp(q[..., 0, :], q[..., 1, :], q[..., 2, :], q[..., 3, :], fx, fy)
+
+
+def sample_texture2d_bilinear(tex, u, v, wrap: bool = True):
+    """(h, w, c) bilinear sample at uv on `tex`'s device; wrap or clamp
+    addressing. Texel indices stay integer: wrap takes `torch.remainder`,
+    whose result has the divisor's sign as `jnp.mod`'s does."""
+    h, w = tex.shape[0], tex.shape[1]
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int32)
+    y0 = y0f.to(torch.int32)
+    if wrap:
+        x0 = torch.remainder(x0, w)
+        y0 = torch.remainder(y0, h)
+        x1 = torch.remainder(x0 + 1, w)
+        y1 = torch.remainder(y0 + 1, h)
+    else:
+        x0 = torch.clamp(x0, 0, w - 1)
+        y0 = torch.clamp(y0, 0, h - 1)
+        x1 = torch.clamp(x0 + 1, max=w - 1)
+        y1 = torch.clamp(y0 + 1, max=h - 1)
+    flat = tex.reshape(h * w, tex.shape[-1])
+    c00 = flat[(y0 * w + x0).long()]
+    c01 = flat[(y0 * w + x1).long()]
+    c10 = flat[(y1 * w + x0).long()]
+    c11 = flat[(y1 * w + x1).long()]
+    return bilerp(c00, c01, c10, c11, fx, fy)

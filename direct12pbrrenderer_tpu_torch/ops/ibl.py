@@ -9,6 +9,7 @@ the float32 sums accumulate in the same order. Runs once per skybox.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import (
@@ -112,3 +113,17 @@ def prefilter_env_map(
             weight_acc = weight_acc + n_dot_l.sum(-1)
         out.append(color_acc / torch.clamp(weight_acc[..., None], min=1e-8))
     return out
+
+
+def prefilter_env_map_from_texture(cubemap, out_size: int = 512, *, device,
+                                   **kw) -> list[np.ndarray]:
+    """CubeMapTextureData -> prefiltered mips (numpy), computed on `device`.
+
+    The source mips are a box-filtered chain of the faces' mip 0 (the
+    reference samples the skybox's full hardware mip chain)."""
+    base = torch.as_tensor(
+        np.stack([f.mip_array_rgba(0)[..., :3] for f in cubemap.faces]).astype(np.float32),
+        device=device)
+    n_src_mips = int(np.log2(base.shape[1])) + 1
+    src = build_cubemap_mips(base, n_src_mips)
+    return [m.cpu().numpy() for m in prefilter_env_map(src, out_size=out_size, **kw)]

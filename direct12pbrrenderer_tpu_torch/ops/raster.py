@@ -279,3 +279,64 @@ def rasterize(setup: TriangleSetup, bins: Bins, width: int, height: int, tile_h:
     z_img = _untile(zbuf, tiles_y, tiles_x, tile_h, tile_w)
     id_img = _untile(idbuf, tiles_y, tiles_x, tile_h, tile_w)
     return id_img, torch.where(torch.isinf(z_img), 1.0, z_img)
+
+
+def pack_pixel_data(setup: TriangleSetup) -> torch.Tensor:
+    """Per-triangle data needed at pixel rate as one (T, 16) row, so a pixel
+    reads one contiguous 64-byte row: [edges(9), pad(1), z_clip(3), w_clip(3)]."""
+    t = setup.edges.shape[0]
+    return torch.cat(
+        [
+            setup.edges.reshape(t, 9),
+            torch.zeros((t, 1), dtype=torch.float32, device=setup.edges.device),
+            setup.z,
+            setup.w_clip,
+        ],
+        dim=1,
+    )
+
+
+def _sum3(x):
+    """x[..., 0] + x[..., 1] + x[..., 2], added left to right: the card and
+    the CPU then round alike (a reduction kernel may associate otherwise,
+    and an edge score is a sum that cancels)."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
+def _bary_from_scores(scores, wv):
+    """Homogeneous barycentrics from edge scores B_i and vertex clip w.
+
+    Returns (lam_affine, lam_persp, one_over_w): perspective barycentrics are
+    B / sum(B); screen-affine ones are (B*w) / sum(B*w)."""
+    sum_b = _sum3(scores)
+    lam_persp = scores / torch.where(sum_b == 0, 1.0, sum_b)[..., None]
+    bw = scores * wv
+    sum_bw = _sum3(bw)
+    lam = bw / torch.where(sum_bw == 0, 1.0, sum_bw)[..., None]
+    one_over_w = sum_b / torch.where(sum_bw == 0, 1.0, sum_bw)
+    return lam, lam_persp, one_over_w
+
+
+def barycentrics_from_packed(packed, tri_id, px, py):
+    """Same results as `barycentrics_at`, one row read per pixel.
+    packed: (T, 16) from pack_pixel_data. Returns (lam, lam_persp, one_over_w)."""
+    row = packed[tri_id.long()]  # (..., 16)
+    e = row[..., :9].reshape(row.shape[:-1] + (3, 3))
+    ph = torch.stack([px, py, torch.ones_like(px)], -1)
+    scores = _sum3(e * ph[..., None, :])
+    return _bary_from_scores(scores, row[..., 13:16])
+
+
+def barycentrics_at(setup: TriangleSetup, tri_id, px, py):
+    """Perspective-correct barycentrics for given pixels.
+
+    tri_id (...,) int (>= 0), px/py (...,) pixel centers ->
+    (lam_affine (..., 3), lam_persp (..., 3), one_over_w (...,)).
+    lam_affine interpolates screen-affine quantities; lam_persp interpolates
+    vertex attributes (uv, normals) perspective-correctly.
+    """
+    tri_id = tri_id.long()
+    e = setup.edges[tri_id]  # (..., 3, 3)
+    ph = torch.stack([px, py, torch.ones_like(px)], -1)  # (..., 3)
+    scores = _sum3(e * ph[..., None, :])  # (..., 3)
+    return _bary_from_scores(scores, setup.w_clip[tri_id])

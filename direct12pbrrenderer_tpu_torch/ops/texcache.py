@@ -35,6 +35,7 @@ import torch
 
 from . import (atlas_resolve_cuda, common, cover_cuda, cover_two, gbuffer,
                resolve_shade_cuda)
+from .cover_two import SENTINEL
 from .gbuffer import AtlasDevice
 
 MAX_MIPS = 13
@@ -172,7 +173,7 @@ def _distinct_by_sort(cand, cap_max: int, cap_arr=None):
     if cap_arr is None:
         cap_arr = torch.full((1,) * (cand.dim() - 1), cap_max, dtype=torch.int32, device=dev)
     sv, sp = torch.sort(cand, dim=-1, stable=True)
-    live = sv != cover_two.SENTINEL
+    live = sv != SENTINEL
     first = torch.cat([torch.ones_like(live[..., :1]), sv[..., 1:] != sv[..., :-1]], -1) & live
     rank_sorted = torch.cumsum(first.to(torch.int32), -1, dtype=torch.int32) - 1
     rank_sorted = torch.where(live, rank_sorted, n)
@@ -479,8 +480,8 @@ def _distinct_counts(rows):
     """Distinct non-SENTINEL values per row of `rows` (n, L) int32, by a sort
     along the row -> (n,) int64 numpy counts on the host."""
     s = torch.sort(rows, dim=-1).values
-    first = s[:, :1] != cover_two.SENTINEL
-    rest = (s[:, 1:] != s[:, :-1]) & (s[:, 1:] != cover_two.SENTINEL)
+    first = s[:, :1] != SENTINEL
+    rest = (s[:, 1:] != s[:, :-1]) & (s[:, 1:] != SENTINEL)
     return (first.sum(-1) + rest.sum(-1)).cpu().numpy()
 
 
@@ -524,8 +525,8 @@ def tap_census(atlas: AtlasDevice, tex, u, v, lod, active, filter: str = "trilin
     tile_spans = None
     for name, m in zip(("lo", "hi"), mips):
         page, _, _, _ = _tap_addresses(base_w, base_h, select_mip(pb, m), m, u5, v5)
-        pg = torch.where(act_t, tile_g(page), cover_two.SENTINEL)
-        pg = torch.nn.functional.pad(pg, (0, 0, 0, pad), value=cover_two.SENTINEL)
+        pg = torch.where(act_t, tile_g(page), SENTINEL)
+        pg = torch.nn.functional.pad(pg, (0, 0, 0, pad), value=SENTINEL)
         tiles_n, g = pg.shape[:2]
         counts = _distinct_counts(pg.reshape(tiles_n * g, blocks * 128))
         rcounts = _distinct_counts(pg.reshape(tiles_n * g * blocks, 128))
