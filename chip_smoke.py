@@ -1987,9 +1987,10 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
     timed with every launch count set to 0 just before and read just after
     (each replay launches the path's kernels once each, B four times), and
     as many eager ones; torch.profiler traces 3 captured frames (idle share;
-    on NCCL the collectives' device time; gloo's collectives, eager, are
-    timed by `time_collectives`). Rank 0 holds the gathered frame to the
-    single-card `render()` of the same pose and carry: bit for bit on one
+    on NCCL the collectives' device time), and the frame tracer 3 more
+    (the "band.exchange" spans: every collective, gloo's eager ones too).
+    Rank 0 holds the gathered frame to the single-card `render()` of the
+    same pose and carry: bit for bit on one
     rank, at the fidelity bar on several (their bloom products are blocked
     by rows). Fails (the rank exits 1) on a call that disagrees, a captured
     frame that is not bit-equal to the eager one, a capture that did not
@@ -2071,19 +2072,15 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
         return times, out, prev
 
     start = carry
-    mesh.time_collectives = not nccl
     mesh.all_reduce(torch.zeros(1, device=dev))   # the ranks start the timed frames together
     torch.cuda.synchronize()
-    mesh.collective_s = 0.0
     reset_launches()
     times, (rgb8, avg, bin_counts, tex, trunc, env), prev = timed_frames(start)
     launches = read_launches()
-    coll_ms = mesh.collective_s * 1e3 / BAND_FRAMES
     mesh.all_reduce(torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     with eager():
         eager_times, eager_out, _ = timed_frames(start)
-    mesh.time_collectives = False
     if not all(torch.equal(a, b) for a, b in zip((rgb8, avg, bin_counts, tex, trunc, env),
                                                  eager_out)):
         fail(phase, f"{tag}: the last timed captured band frame differs from the eager one")
@@ -2103,6 +2100,9 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
     wall, busy, nccl_ms, complete = band_trace(traced_frames, 3)
     if frame.captured is not cap:
         fail(phase, f"{tag}: the timed frames captured the band frame again")
+    pipe.start_trace()   # every rank at this call: the band frame is captured anew
+    traced_frames()
+    exchange = pipe.stop_trace().summary()["device"].get("band.exchange", 0.0)
     counts = bin_counts.cpu().numpy()
     overflow = max(pipe._stats(c, np.zeros(2, np.int64), 0, 0, 0).bin_overflow
                    for c in np.split(counts, n))
@@ -2111,10 +2111,10 @@ def band_rank(mesh, phase: str, smi: str) -> list[str]:
     if any(counters.values()):
         fail(phase, f"{tag}: FrameStats fallbacks of the band frame {counters} (all must be 0)")
     held_by = "the whole frame" if whole else "the band body; the post chain eager"
-    coll = (f"collectives {nccl_ms:.3f} ms a frame (NCCL kernels' device time in the trace, "
-            f"{nccl_ms / wall:.3f} of its wall)" if nccl else
-            f"collectives {coll_ms:.2f} ms a frame (gloo, eager: host clock, each bracketed by "
-            f"synchronizations, the wait for the other ranks included)")
+    coll = ((f"collectives {nccl_ms:.3f} ms a frame (NCCL kernels' device time in the trace, "
+             f"{nccl_ms / wall:.3f} of its wall); " if nccl else "")
+            + f"band.exchange spans {exchange:.3f} ms a frame (the frame tracer, 3 frames; "
+            f"the wait for the other ranks included)")
     lines = [f"{tag}: pipeline built in {build_s:.2f} s; one eager band frame's kernel calls "
              f"held to their plain versions at the kernels line's bars: " + "; ".join(held)
              + f"; captured ({held_by}): the first call {first_s:.3f} s (its eager warm-up "
@@ -2793,7 +2793,7 @@ def viewer_phase(smi, tree) -> None:
 
 def profile_app_phase(smi, app) -> None:
     """[profile-app]: tools/profile.profile_pipeline on the App's pipeline
-    and camera, 5 iterations a stage (CUDA events)."""
+    and camera: 5 traced frames, each stage read from their spans."""
     from direct12pbrrenderer_tpu_torch.tools import profile
 
     t0 = time.perf_counter()
@@ -2802,9 +2802,9 @@ def profile_app_phase(smi, app) -> None:
     if any(v < 0 for v in t.values()) or list(t)[-2:] != frames:
         fail("profile-app", f"stage timings {t}")
     total = sum(v for k, v in t.items() if k not in frames)
-    say("profile-app", f"tools/profile.profile_pipeline on the App's pipeline, median device ms "
-        f"per stage (CUDA events) on {smi}: " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()
-                                                          if k not in frames)
+    say("profile-app", f"tools/profile.profile_pipeline on the App's pipeline, mean device ms "
+        f"a frame per stage (the traced frames' spans) on {smi}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in t.items() if k not in frames)
         + f"; sum of stages {total:.2f}, full_frame {t['full_frame']:.2f} (captured), "
         f"full_frame_eager {t['full_frame_eager']:.2f}; {time.perf_counter() - t0:.1f} s")
 

@@ -16,13 +16,17 @@ ranges (FGResourceAllocator + TLSF), passes here are plain functions and the
 lifetime intervals are surfaced so the executor drops dead-after-use
 intermediates; PyTorch's caching allocator reuses their memory.
 
-`execute()` runs the sorted passes over a dict environment.
+`execute()` runs the sorted passes over a dict environment; each pass is a
+stage of the frame's trace (`utils/trace.py`) at depth 1, where the frame
+is traced.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+from ..utils import trace
 
 
 class ResourceRegistry:
@@ -178,6 +182,7 @@ def execute(graph: CompiledGraph, env: dict[str, Any]) -> dict[str, Any]:
         missing = [r for r in p.reads if r not in env]
         if missing:
             raise GraphError(f"pass {p.name!r} reads undeclared {missing}")
+        trace.stage(p.name, 1)
         out = p.fn(env)
         bad = set(out) - set(p.writes)
         if bad:

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import env_resolve_cuda
 from .cover_two import SENTINEL
 from .env_resolve_cuda import REC_I32
@@ -218,7 +219,9 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
 
     Returns (off_arr (tiles, G), cnts (tiles, G), staged (tiles, B*8, 128)
     int32 (page p value pair k at row p*8+k), rec_t/fx_t/fy_t (tiles, G,
-    blocks, 128), covered_t (tiles, G, blocks, 128) bool)."""
+    blocks, 128), covered_t (tiles, G, blocks, 128) bool). Counts the
+    frame's active taps and staged pages (`trace.count`: env_taps,
+    env_pages_staged)."""
     n_tiles, g = tex_t.shape[:2]
     if len(caps) != g or len(fb_tids) != g:
         raise ValueError(f"{g} groups need {g} caps and fallback lists")
@@ -281,6 +284,8 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
         for i in range(g)], 1)
     ids = _pack_ids(off_arr, span_arr, ids_full, budget)
     cnts = CAP_FB + count_eff
+    trace.count("env_taps", act_t)
+    trace.count("env_pages_staged", cnts)
 
     n_pages = atlas.data.shape[0] // PAGE_RECORDS
     pages_cm = atlas.data.reshape(n_pages, PAGE_RECORDS, REC_I32).transpose(1, 2)
@@ -316,6 +321,7 @@ def sample_env_tiled(atlas: FloatAtlas, tex, mip, u, v, active, *, fb_tids: tupl
     off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = plan_env_tiled(
         atlas, tile_g(tex), tile_g(mip), tile_g(u), tile_g(v), tile_g(active), fb_tids=fb_tids,
         share=share, caps=caps, block_cap=block_cap, stage_budget=stage_budget)
+    trace.end("shade.env_plan")   # opened by shading.deferred_shade, where it traces
     out = env_resolve_cuda.env_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t)
     rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)  # (H, W, G, 4)
     covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)

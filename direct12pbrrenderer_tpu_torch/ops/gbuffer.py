@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from . import common, raster
+from ..utils import trace
 
 
 class AtlasDevice(NamedTuple):
@@ -305,6 +306,7 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
     ddx, ddy, size5, lod5 = tap_lod(uv, tex, mask, atlas, use_tex_kernel)
     approx_count = None
     if texture_filter == "anisotropic":
+        trace.stage("gbuffer.tex_resolve", 2)
         samples = sample_atlas_anisotropic(atlas, tex, uv, ddx, ddy, size5, mask)
     elif use_tex_kernel:
         from . import texcache
@@ -315,6 +317,7 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
             **_cascade_kw(tex_cascade), **_cap_kw(tex_caps))
         approx_count = approx.sum().to(torch.int32)
     else:
+        trace.stage("gbuffer.tex_resolve", 2)
         samples = sample_atlas_trilinear(atlas, tex, uv[..., 0:1], uv[..., 1:2], lod5,
                                          filter=texture_filter)   # (H, W, 5, 4)
     albedo_tex = samples[..., 0, :3]

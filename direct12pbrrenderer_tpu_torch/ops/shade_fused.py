@@ -43,6 +43,7 @@ from ..config import (
     MAX_LIGHTS_PER_CLUSTER,
 )
 
+from ..utils import trace
 from . import common, envcache, tap_planes
 from .env_resolve_cuda import resolve_env_group
 from .shading import env_tap_groups
@@ -398,6 +399,7 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
     ray = common.normalize(cam_vec, 1e-20)
 
     # env tap groups + plan (kernel B)
+    trace.begin("shade.env_plan")
     (texg, mipg, uq, vq, act, fb_tids, caps, fracm, has_env) = env_tap_groups(
         refl, ray, gb_tiles[:, 6], n_dot_v, mask_t, env_ids)
 
@@ -409,6 +411,7 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
         env_atlas, to_g(texg), to_g(mipg), to_g(uq), to_g(vq), act_g, fb_tids=fb_tids,
         share=((0, 1),), caps=caps, block_cap=8, stage_budget=env_budget)
     env_approx = (act_g & ~covered_t).sum().to(torch.int32)
+    trace.end("shade.env_plan")
 
     cov0 = covered_t[:, 0].float()
     cov4 = covered_t[:, 4].float() if has_env else torch.zeros_like(cov0)

@@ -22,6 +22,7 @@ import torch
 
 from ..config import MAX_LIGHTS_PER_CLUSTER, PREFILTER_ENVMAP_MIP_LEVELS
 
+from ..utils import trace
 from . import common, envcache, lights_cuda
 from .clustered import CLUSTER_X, CLUSTER_Y, CLUSTER_Z
 
@@ -170,6 +171,8 @@ def deferred_shade(
     if env_ids is not None:
         # the four sampler taps (env trilinear halves, BRDF LUT, background
         # sky) and the cascade through one float page-cache plan + resolve
+        # the env plan's span ends inside sample_env_tiled, before kernel F
+        trace.begin("shade.env_plan")
         (tex5, mip5, uq, vq, act, fb_tids, caps, fracm,
          has_env) = env_tap_groups(refl, ray, roughness, n_dot_v, mask, env_ids)
         rgba, covered, env_approx = envcache.sample_env_tiled(

@@ -35,6 +35,7 @@ import torch
 
 from . import (atlas_resolve_cuda, common, cover_cuda, cover_two, gbuffer,
                resolve_shade_cuda)
+from ..utils import trace
 from .cover_two import SENTINEL
 from .gbuffer import AtlasDevice
 
@@ -250,7 +251,8 @@ def _plan_and_stage(atlas, tex_t, u_t, v_t, lod_t, act_t, *, trilinear, cap_lo, 
     page block (page p channel c at row p*4+c), rec/fx/fy (tiles, G, blocks,
     128), tl (tiles, 5, blocks, 128) trilinear fracs, covered (tiles, 5,
     blocks, 128) bool, sel (tiles, 5, blocks, 128) int32 cascade mask or
-    None)."""
+    None). Counts the frame's active taps and staged pages (`trace.count`:
+    tex_taps, tex_pages_staged)."""
     n_tiles = tex_t.shape[0]
     for c in (cap_lo, cap_hi, cap_casc):
         if (c + CAP_FB) % SEG_CHUNK:
@@ -329,6 +331,8 @@ def _plan_and_stage(atlas, tex_t, u_t, v_t, lod_t, act_t, *, trilinear, cap_lo, 
     fx_t = torch.cat(fxs, 1)
     fy_t = torch.cat(fys, 1)
     cnts = torch.cat(cnts, 1)
+    trace.count("tex_taps", act_t)
+    trace.count("tex_pages_staged", cnts)
     if cascade:
         # per-tile any-cascade flag: kernel C skips the cascade resolve on
         # clean tiles
@@ -369,6 +373,7 @@ def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str =
         stage_budget=stage_budget, cascade=cascade, cap_casc=cascade_caps[0],
         block_cap_casc=cascade_caps[1],
         casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+    trace.stage("gbuffer.tex_resolve", 2)
     out = atlas_resolve_cuda.atlas_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t,
                                            sel_t, trilinear=trilinear)
     rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)   # (H, W, 5, 4)
@@ -392,6 +397,7 @@ def sample_atlas_textured(atlas: AtlasDevice, tex, u, v, lod, active,
     height, width = u.shape
     tile = pick_tile(height, width)
     if tile is None:
+        trace.stage("gbuffer.tex_resolve", 2)
         rgba = gbuffer.sample_atlas_trilinear(atlas, tex.long(), u[..., None], v[..., None],
                                               lod, filter=filter)
         return rgba, torch.zeros(tex.shape, dtype=torch.bool, device=tex.device)
@@ -462,6 +468,7 @@ def shade_planes_fused(atlas: AtlasDevice, pl_tiles, id_tiles, height: int, widt
         cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
         cap_casc=cascade_caps[0], block_cap_casc=cascade_caps[1],
         casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+    trace.stage("gbuffer.tex_resolve", 2)
 
     srgb5 = onehot_lookup(atlas.srgb.float()[:, None], tex_t)[..., 0] > 0.5
     flags = torch.cat([srgb5, mask_t], 1).to(torch.int32)          # (tiles, 6, b, 128)

@@ -26,6 +26,14 @@ builds its own pipeline from the same scene: scene buffers and lights are
 replicated. The collectives run on the rank's device tensors; with the gloo
 backend on CUDA tensors the copies to host memory are gloo's own.
 
+Traced (`pipe.start_trace()` on every rank's pipeline), a band frame
+records the single-card frame's stages where it has them (Cull, GBuffer
+with its gbuffer.* stages, Clustered, DeferredShading, Bloom,
+AutoExposure, ToneMapping, stats) and a "band.exchange" span around every
+collective of `BandMesh.all_reduce`: bloom's, the exposure's, the
+counters', and `gather_rows`' after the frame, whose marks land in the
+frame's row.
+
 On a card the band frame is captured, the counterpart of the JAX band
 frame's `jax.jit(frame)` (`BandFrame`): its first call outside
 `deferred.eager()` captures a CUDA graph over static inputs and every later
@@ -44,7 +52,6 @@ from __future__ import annotations
 
 import os
 import tempfile
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,42 +60,28 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..ops import bloom as bloom_ops
-from ..ops import common, gbuffer, postprocess, texcache
+from ..ops import common, postprocess, texcache
 from ..pipeline import stages
 from ..pipeline.deferred import CapturedGraph, _replays, _tensors, capture
+from ..utils import trace
 
 
 @dataclass
 class BandMesh:
     """The ranks one frame's row bands are spread over, one band a rank:
     the process group, this rank's index in it, its size, and the device
-    its band renders on. With `time_collectives` on, every collective is
-    bracketed by device synchronizations and its host seconds are added to
-    `collective_s`: the collectives that a band frame runs eagerly (inside
-    `deferred.eager()`, on the CPU, or a captured gloo frame's post chain);
-    a captured NCCL band frame refuses it (`BandFrame`)."""
+    its band renders on."""
     group: dist.ProcessGroup
     rank: int
     size: int
     device: torch.device
-    time_collectives: bool = False
-    collective_s: float = 0.0
 
     def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """Reduce `t` in place over the group; returns it."""
-        if not self.time_collectives:
+        """Reduce `t` in place over the group; returns it. Traced, it is a
+        "band.exchange" span (on captured frames too)."""
+        with trace.span("band.exchange"):
             dist.all_reduce(t, op=op, group=self.group)
-            return t
-        self._sync()
-        t0 = time.perf_counter()
-        dist.all_reduce(t, op=op, group=self.group)
-        self._sync()
-        self.collective_s += time.perf_counter() - t0
         return t
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def gather(self, part: torch.Tensor, n_rows: int, lo: int) -> torch.Tensor:
         """The whole (n_rows, ...) tensor whose rows [lo, lo + len(part)) this
@@ -169,9 +162,8 @@ class BandFrame:
     arguments' shapes: a change captures it anew. Every rank must make the
     same changes at the same call: the capture's warm-up frames run the
     NCCL collectives, so a rank that captures alone deadlocks the group.
-    `mesh.time_collectives` on a captured NCCL frame raises ValueError: its
-    collectives replay inside the graph, so time them from a torch.profiler
-    trace of replays (the NCCL kernels' device time).
+    Tracing joins the key (`pipe._graph_key()`): turn it on or off on every
+    rank at the same call.
 
     On the CPU, and inside `eager()`, every call runs the frame eagerly."""
 
@@ -193,11 +185,6 @@ class BandFrame:
             return self.run_eager(buffers, *small)
         backend = dist.get_backend(mesh.group)
         whole = backend == "nccl"
-        if whole and mesh.time_collectives:
-            raise ValueError("time_collectives on a captured NCCL band frame: its collectives "
-                             "replay inside the CUDA graph, out of the host clock's reach; "
-                             "time them from a torch.profiler trace of replays (the NCCL "
-                             "kernels' device time), or run the frame inside deferred.eager()")
         key = (self.pipe._graph_key(), mesh.rank, mesh.size, backend, self.collect_stats,
                tuple(t.data_ptr() for t in _tensors(buffers)),
                tuple((a.shape, a.dtype, a.device) for a in small))
@@ -265,6 +252,8 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False) -> Ba
                     frustum_planes, view, inv_view, view_proj, camera_pos):
         # the Cull pass on the device; the pool's padding rows (zero AABBs
         # at the origin) are masked off by index
+        trace.begin_frame(pipe.tracer)
+        trace.stage("Cull", 1)
         dev = instance_bounds.device
         n_inst, n_lgt = pipe.packed.instance_count, pipe.packed.light_count
         instance_visible = common.frustum_cull_aabbs(
@@ -274,41 +263,22 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False) -> Ba
             frustum_planes, light_bounds[:, 0], light_bounds[:, 1]
         ) & (torch.arange(light_bounds.shape[0], device=dev) < n_lgt)
 
-        setup, vattrs = stages.geometry(buffers, model_mats, normal_mats, instance_visible,
-                                        view_proj, w, h)
-        bins = stages.binning(setup, rw, band_rh, tile_h, tile_w, bin_cap, y_offset=y0)
-        if use_fused:
-            tri_id, depth, pl_tiles, id_tiles, z_tiles = stages.rasterize_interp(
-                setup, bins, buffers, vattrs, rw, band_rh, tile_h, tile_w, y_offset=y0,
-                return_tiled=True, raster_caps=pipe.raster_caps, viewport=viewport)
-            out = gbuffer.gbuffer_shade_fused(
-                tri_id, depth, pl_tiles, id_tiles, buffers["atlas"], band_rh, rw, tile_h,
-                tile_w, pipe.texture_filter, tex_caps=pipe.tex_caps,
-                tex_cascade=pipe.tex_cascade, return_tiled=use_fused_deferred)
-            gb, gb_tiles = out if use_fused_deferred else (out, None)
-        elif pipe.use_pallas:
-            tri_id, depth, planes = stages.rasterize_interp(
-                setup, bins, buffers, vattrs, rw, band_rh, tile_h, tile_w, y_offset=y0,
-                raster_caps=pipe.raster_caps, viewport=viewport)
-            gb = gbuffer.gbuffer_shade_planar(
-                tri_id, depth, planes, buffers["atlas"], pipe.texture_filter,
-                use_tex_kernel=use_tex_kernel, tex_caps=pipe.tex_caps,
-                tex_cascade=pipe.tex_cascade)
-        else:
-            tri_id, depth = stages.rasterize(setup, bins, rw, band_rh, tile_h, tile_w,
-                                             pipe.use_pallas, y_offset=y0,
-                                             raster_caps=pipe.raster_caps, viewport=viewport)
-            gb = stages.gbuffer_shade(
-                tri_id, depth, setup, buffers, vattrs, rw, band_rh,
-                texture_filter=pipe.texture_filter, y_offset=y0,
-                use_tex_kernel=use_tex_kernel, tex_caps=pipe.tex_caps,
-                tex_cascade=pipe.tex_cascade)
+        trace.stage("GBuffer", 1)
+        gb, bins, tiles = stages.gbuffer_pass(
+            buffers, model_mats, normal_mats, instance_visible, view_proj, w, h, rw, band_rh,
+            tile_h, tile_w, bin_cap, use_pallas=pipe.use_pallas, use_fused=use_fused,
+            use_tex_kernel=use_tex_kernel, texture_filter=pipe.texture_filter,
+            tex_caps=pipe.tex_caps, tex_cascade=pipe.tex_cascade, raster_caps=pipe.raster_caps,
+            return_tiled=use_fused_deferred, y_offset=y0)
+        trace.stage("Clustered", 1)
         active = stages.active_lights(buffers, light_valid, view, pipe.max_active_lights)
+        trace.stage("DeferredShading", 1)
         light_counts = None
         if use_fused_deferred:
             # kernel D: the pixel coordinates ride y_offset / full_height. Its
             # light loop stays float32 whatever pipe.fused_light_dtype says:
             # the JAX band frame does not pass its light_dtype either
+            gb_tiles, z_tiles, id_tiles = tiles
             rt, env_approx = stages.deferred_shade_fused(
                 gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos, cfg, rw,
                 band_rh, tile_h, tile_w, env_ids, y_offset=y0, full_height=h, full_width=w,
@@ -331,17 +301,23 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False) -> Ba
 
     def post(rt, stats, prev_avg_lum, delta_time):
         counts, tex_approx, env_approx, trunc = stats
+        trace.stage("Bloom", 1)
         if cfg.enable_bloom:
             rt = bloom_ops.bloom_band(rt, h, mesh)
+        trace.stage("AutoExposure", 1)
         sums = mesh.all_reduce(postprocess.luminance_sums(rt))
         avg = postprocess.average_luminance_from_sums(sums, float(w * h), prev_avg_lum,
                                                       delta_time)
+        trace.stage("ToneMapping", 1)
         rgb8 = (postprocess.tone_map(rt, avg) * 255.0 + 0.5).to(torch.uint8)
         if not collect_stats:
+            trace.finish_frame()
             return rgb8, avg
+        trace.stage("stats", 1)
         bin_counts = mesh.gather(counts, n * counts.shape[0], mesh.rank * counts.shape[0])
         approx = mesh.all_reduce(torch.stack([tex_approx, env_approx]).to(torch.int32))
         trunc = mesh.all_reduce(trunc.to(torch.int32).reshape(1), op=dist.ReduceOp.MAX)[0]
+        trace.finish_frame()
         return rgb8, avg, bin_counts, approx[0], trunc, approx[1]
 
     return BandFrame(mesh, pipe, collect_stats, band_render, post)

@@ -87,6 +87,8 @@ from ..ops import (atlas_resolve_cuda, clustered, common, cover_cuda, env_resolv
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 from ..tools import tap_census
+from ..utils import trace
+from ..utils.trace import NO_SPAN
 from . import stages
 from .scene_pack import PackedScene, pack_scene
 
@@ -155,11 +157,12 @@ def _tensors(x):
 
 def _stats_vector(out) -> torch.Tensor:
     """`_frame`'s counters as one int32 vector: the bin counts, the visible
-    instances and lights, the texture and env fallback taps and the light
-    tile overflow (`DeferredRenderPipeline._stats_of` reads it)."""
-    _, _, bin_counts, tex_approx, light_trunc, env_approx, vis_counts = out
+    instances and lights, the texture and env fallback taps, the light tile
+    overflow and, on a traced frame, the plans' counters
+    (`trace.PLAN_COUNTERS`; `DeferredRenderPipeline._stats_of` reads it)."""
+    bin_counts, tex_approx, light_trunc, env_approx, vis_counts = out[2:7]
     return torch.cat([x.reshape(-1).to(torch.int32) for x in
-                      (bin_counts, vis_counts, tex_approx, env_approx, light_trunc)])
+                      (bin_counts, vis_counts, tex_approx, env_approx, light_trunc, *out[7:])])
 
 
 def _upload_into(dst: torch.Tensor, arr: np.ndarray) -> None:
@@ -179,11 +182,15 @@ class CapturedGraph:
     launches: dict = field(repr=False)   # kernel launches a replay makes
     capture_s: float = 0.0               # host seconds of the capture
     pool_bytes: int = 0                  # device memory the capture reserved
+    trace_state: tuple | None = field(default=None, repr=False)   # `trace.snapshot()`
 
     def replay(self) -> None:
         """Replay the graph on the current stream; each wrapper's launch
-        counter gains the launches the capture recorded."""
+        counter gains the launches the capture recorded. A graph captured
+        with its frame traced (`trace_state`) has begun a frame on the
+        device, and this thread's later marks continue its row."""
         self.graph.replay()
+        trace.resume(self.trace_state)
         _add_launches(self.launches)
 
 
@@ -195,7 +202,9 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
     for a call with NCCL collectives, the communicator). The capture is
     thread-local: other threads' CUDA calls go on. A capture launches
     nothing, so the wrappers' launch counts are left as they were before
-    it; a failed capture raises."""
+    it; a failed capture raises. Where `fn` traces its frame
+    (`utils/trace.py`), the graph holds the marks and `trace_state` the
+    recording as the capture left it."""
     dev = stream.device
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
@@ -208,9 +217,11 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
     counts = _launch_counters()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
+    trace.clear()
     try:
         with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             outputs = fn()
+        state = trace.snapshot()
     finally:
         after = _launch_counters()
         for (mod, name, attr), n in counts.items():
@@ -220,7 +231,7 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
                          launches={k: n - counts.get(k, 0) for k, n in after.items()
                                    if n != counts.get(k, 0)},
                          capture_s=time.perf_counter() - t0,
-                         pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+                         pool_bytes=torch.cuda.memory_reserved(dev) - reserved, trace_state=state)
 
 
 @dataclass(kw_only=True)
@@ -258,6 +269,16 @@ class FrameStats:
     env_approx_taps: int = 0  # env-cache taps resolved via fallback/cascade
     lights_truncated: int = 0  # visible lights beyond max_active_lights
     light_tile_overflow: int = 0  # per-tile culled lights beyond light_cap
+    # the texture and env plans' work, where it happens (`trace.PLAN_COUNTERS`):
+    # active taps and staged pages (fallback / taps is the plan's waste,
+    # staged / budget its fill), counted on traced frames (`start_trace`)
+    # and 0 on others, whose graph they would change. The JAX pipeline's
+    # FrameStats has none of them, so they are plain attributes, not fields:
+    # FrameStats compare and convert (`asdict`) as the JAX package's do
+    tex_taps = 0
+    tex_pages_staged = 0
+    env_taps = 0
+    env_pages_staged = 0
 
 
 class DeferredRenderPipeline:
@@ -442,6 +463,7 @@ class DeferredRenderPipeline:
         self._cam_np = self._cam_dev = None
         self.captured_frame: CapturedFrame | None = None   # the captured frame (`captured`)
         self._capture_stream = None
+        self.tracer: trace.Tracer | None = None   # `start_trace` / `stop_trace`
 
     def load_state(self, state: dict) -> None:
         """Replace the device buffers and the exposure carry with `state`
@@ -484,55 +506,18 @@ class DeferredRenderPipeline:
                     "PointLights": active[:, 13] > 0}
 
         def gbuffer_pass(env):
-            setup, vattrs = stages.geometry(env, env["ModelMats"], env["NormalMats"],
-                                            env["InstanceVisible"], env["ViewProj"], w, h)
-            bins = stages.binning(setup, rw, rh, self.tile_h, self.tile_w, self.bin_cap)
-            if self.use_fused_gbuffer:
-                # kernel A's tile blocks feed the plan (kernel B) and the
-                # resolve + pixel shade (kernel C); the deferred pass reads
-                # the G-buffer tile blocks, the (H, W) planes are for parity
-                tri_id, depth, pl_tiles, id_tiles, z_tiles = stages.rasterize_interp(
-                    setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
-                    return_tiled=True, raster_caps=self.raster_caps, viewport=(w, h))
-                out = gbuffer.gbuffer_shade_fused(
-                    tri_id, depth, pl_tiles, id_tiles, env["atlas"], rh, rw, self.tile_h,
-                    self.tile_w, self.texture_filter, tex_caps=self.tex_caps,
-                    tex_cascade=self.tex_cascade, return_tiled=self.use_fused_deferred)
-                result = {}
-                if self.use_fused_deferred:
-                    gb, gb_tiles = out
-                    result["GBufferTiles"] = (gb_tiles, z_tiles, id_tiles)
-                else:
-                    gb = out
-                return {
-                    **result,
-                    "GBufferA": gb.albedo_emission,
-                    "GBufferB": gb.normal_oct,
-                    "GBufferC": gb.rough_metal_ao,
-                    "GBufferDepthStencil": (gb.depth, gb.mask),
-                    "BinCounts": bins.counts,
-                    "TexApproxCount": gb.tex_approx,
-                }
-            if self.use_pallas:
-                # fused raster + attribute interpolation (kernel A): the
-                # winning row is gathered once per pixel inside the kernel
-                tri_id, depth, planes = stages.rasterize_interp(
-                    setup, bins, env, vattrs, rw, rh, self.tile_h, self.tile_w,
-                    raster_caps=self.raster_caps, viewport=(w, h))
-                gb = gbuffer.gbuffer_shade_planar(
-                    tri_id, depth, planes, env["atlas"], self.texture_filter,
-                    use_tex_kernel=self.use_tex_kernel, tex_caps=self.tex_caps,
-                    tex_cascade=self.tex_cascade)
-            else:
-                tri_id, depth = stages.rasterize(setup, bins, rw, rh, self.tile_h,
-                                                 self.tile_w, self.use_pallas,
-                                                 raster_caps=self.raster_caps,
-                                                 viewport=(w, h))
-                gb = stages.gbuffer_shade(
-                    tri_id, depth, setup, env, vattrs, rw, rh,
-                    texture_filter=self.texture_filter, use_tex_kernel=self.use_tex_kernel,
-                    tex_caps=self.tex_caps, tex_cascade=self.tex_cascade)
+            # kernel A's tile blocks feed the plan (kernel B) and the resolve
+            # + pixel shade (kernel C) on the fused G-buffer; the deferred
+            # pass reads its tile blocks, the (H, W) planes are for parity
+            gb, bins, tiles = stages.gbuffer_pass(
+                env, env["ModelMats"], env["NormalMats"], env["InstanceVisible"],
+                env["ViewProj"], w, h, rw, rh, self.tile_h, self.tile_w, self.bin_cap,
+                use_pallas=self.use_pallas, use_fused=self.use_fused_gbuffer,
+                use_tex_kernel=self.use_tex_kernel, texture_filter=self.texture_filter,
+                tex_caps=self.tex_caps, tex_cascade=self.tex_cascade,
+                raster_caps=self.raster_caps, return_tiled=self.use_fused_deferred)
             return {
+                **({"GBufferTiles": tiles} if tiles is not None else {}),
                 "GBufferA": gb.albedo_emission,
                 "GBufferB": gb.normal_oct,
                 "GBufferC": gb.rough_metal_ao,
@@ -675,7 +660,11 @@ class DeferredRenderPipeline:
             PrevAverageLuminance=prev_avg_lum,
             DeltaTime=cam_f32[75],
         )
-        return fg.execute(self.graph, env)["BackBuffer"]
+        if self.tracer is None:
+            return fg.execute(self.graph, env)["BackBuffer"]
+        # a traced frame also returns the plans' counters (`trace.count`)
+        with trace.counting(self.tracer.counts) as counts:
+            return (*fg.execute(self.graph, env)["BackBuffer"], counts)
 
     def _pack_camera(self, camera: Camera, delta_time: float) -> np.ndarray:
         view = camera.view_matrix()
@@ -745,22 +734,27 @@ class DeferredRenderPipeline:
     def _graph_key(self) -> tuple:
         """What a captured frame depends on besides its static inputs: the
         knobs the passes read when they run, the config, the graph, the pack
-        lengths and the device buffers' addresses."""
+        lengths, the tracer (a traced frame holds its marks) and the device
+        buffers' addresses."""
         p = self.packed
         return (tuple(repr(getattr(self, k)) for k in _GRAPH_KNOBS), repr(self.config),
-                id(self.graph), p.model_mats.shape, p.instance_bounds.shape,
+                id(self.graph), self.tracer.serial if self.tracer is not None else None,
+                p.model_mats.shape, p.instance_bounds.shape,
                 p.light_bounds.shape, p.instance_count, p.light_count,
                 tuple(t.data_ptr() for t in _tensors(self.buffers)))
 
     def _captured_frame(self, scene_f32: np.ndarray, cam_f32: np.ndarray) -> CapturedFrame:
         """The captured frame for the pipeline's current knobs with the packs
         loaded; captured anew whenever its key changed."""
+        tr = self.tracer
         key = self._graph_key()
         if self.captured_frame is not None and self.captured_frame.key == key:
-            self.captured_frame.load(scene_f32, cam_f32)
+            with NO_SPAN if tr is None else tr.host("render.upload"):
+                self.captured_frame.load(scene_f32, cam_f32)
         else:
             self.captured_frame = None   # the old graph's pool goes first
-            self.captured_frame = self._capture(key, scene_f32, cam_f32)
+            with NO_SPAN if tr is None else tr.host("capture"):
+                self.captured_frame = self._capture(key, scene_f32, cam_f32)
         return self.captured_frame
 
     def _capture(self, key: tuple, scene_f32: np.ndarray, cam_f32: np.ndarray) -> CapturedFrame:
@@ -774,8 +768,12 @@ class DeferredRenderPipeline:
             self._capture_stream = torch.cuda.Stream(dev)
 
         def frame():
+            trace.begin_frame(self.tracer)
             out = self._frame(scene, camera, prev_avg)
-            return out, _stats_vector(out)
+            trace.stage("stats", 1)
+            stats = _stats_vector(out)
+            trace.finish_frame()
+            return out, stats
 
         cap = capture(frame, self._capture_stream)
         outputs, stats = cap.outputs
@@ -791,26 +789,35 @@ class DeferredRenderPipeline:
         pack into the static input, a replay and a copy of the frame, with
         the EMA chained on the device: no host sync from the first replay to
         the return (the counterpart of the JAX pipeline's `lax.scan`).
-        Otherwise it is a loop of `render` calls."""
+        Otherwise it is a loop of `render` calls. Traced, its host spans are
+        "render_sequence" and, inside it, "render.pack", "render.upload" and
+        "render.replay" (the loop of replays)."""
         if cameras:
             self._ensure_auto_caps(cameras[0])
         if not (cameras and self.captured and _replays()):
             return torch.stack([self.render(c, delta_time, collect_stats=False)
                                 for c in cameras])
-        packs = np.stack([self._pack_camera(c, delta_time) for c in cameras])
-        cf = self._captured_frame(self._pack_scene(), packs[0])
-        cams = torch.from_numpy(packs).pin_memory().to(self.device, non_blocking=True)
-        rgb8, avg = cf.outputs[:2]
-        frames = torch.empty((len(cameras), *rgb8.shape), dtype=rgb8.dtype, device=self.device)
-        cf.prev_avg.copy_(self.avg_luminance)
-        for i in range(len(cameras)):
-            cf.camera.copy_(cams[i])
-            cf.replay()
-            frames[i].copy_(rgb8)
-            cf.prev_avg.copy_(avg)
-        cf.camera_np = packs[-1]
-        self.avg_luminance = avg.clone()
-        return frames
+        tr = self.tracer
+        with NO_SPAN if tr is None else tr.host("render_sequence"):
+            with NO_SPAN if tr is None else tr.host("render.pack"):
+                packs = np.stack([self._pack_camera(c, delta_time) for c in cameras])
+                scene_f32 = self._pack_scene()
+            cf = self._captured_frame(scene_f32, packs[0])
+            with NO_SPAN if tr is None else tr.host("render.upload"):
+                cams = torch.from_numpy(packs).pin_memory().to(self.device, non_blocking=True)
+            rgb8, avg = cf.outputs[:2]
+            frames = torch.empty((len(cameras), *rgb8.shape), dtype=rgb8.dtype,
+                                 device=self.device)
+            with NO_SPAN if tr is None else tr.host("render.replay"):
+                cf.prev_avg.copy_(self.avg_luminance)
+                for i in range(len(cameras)):
+                    cf.camera.copy_(cams[i])
+                    cf.replay()
+                    frames[i].copy_(rgb8)
+                    cf.prev_avg.copy_(avg)
+            cf.camera_np = packs[-1]
+            self.avg_luminance = avg.clone()
+            return frames
 
     def render(self, camera: Camera, delta_time: float = 1.0 / 60.0,
                collect_stats: bool = True):
@@ -822,29 +829,67 @@ class DeferredRenderPipeline:
         carry come back as clones; the first call (and the first after a
         knob it reads changed) captures it. collect_stats=False makes that a
         frame with no host sync; collect_stats=True reads the counters back
-        in one device-to-host copy."""
-        self._ensure_auto_caps(camera)
-        if self.captured and _replays():
-            cf = self._captured_frame(self._pack_scene(), self._pack_camera(camera, delta_time))
-            cf.prev_avg.copy_(self.avg_luminance)
-            cf.replay()
-            rgb8, avg = (x.clone() for x in cf.outputs[:2])
-            stats = cf.stats
-        else:
-            self._upload(camera, delta_time)
-            out = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)
-            rgb8, avg = out[:2]
-            stats = _stats_vector(out) if collect_stats else None
-        self.avg_luminance = avg
-        if collect_stats:
-            self.last_stats = self._stats_of(stats.cpu().numpy())
-        return rgb8
+        in one device-to-host copy.
 
-    def _stats_of(self, vec: np.ndarray) -> FrameStats:
-        """FrameStats from a frame's `_stats_vector`."""
-        n = vec.size - 5
-        tex_approx, env_approx, light_trunc = (int(x) for x in vec[n + 2:])
-        return self._stats(vec[:n], vec[n:n + 2], tex_approx, env_approx, light_trunc)
+        Traced (`tracer`), its host spans are "render" and, inside it,
+        "render.pack" (the scene and camera packs; on an eager frame their
+        upload too), "render.upload" (`CapturedFrame.load`), "capture",
+        "render.replay" (the carry's copy, the replay and the launch
+        counts), "render.clone" (the outputs' clones) and "render.stats" (the
+        counters' read); an eager frame records its marks as it runs."""
+        tr = self.tracer
+        with NO_SPAN if tr is None else tr.host("render"):
+            self._ensure_auto_caps(camera)
+            if self.captured and _replays():
+                with NO_SPAN if tr is None else tr.host("render.pack"):
+                    packs = self._pack_scene(), self._pack_camera(camera, delta_time)
+                cf = self._captured_frame(*packs)
+                with NO_SPAN if tr is None else tr.host("render.replay"):
+                    cf.prev_avg.copy_(self.avg_luminance)
+                    cf.replay()
+                with NO_SPAN if tr is None else tr.host("render.clone"):
+                    rgb8, avg = (x.clone() for x in cf.outputs[:2])
+                stats, traced = cf.stats, cf.trace_state is not None
+            else:
+                with NO_SPAN if tr is None else tr.host("render.pack"):
+                    self._upload(camera, delta_time)
+                trace.begin_frame(tr)
+                out = self._frame(self._scene_dev, self._cam_dev, self.avg_luminance)
+                rgb8, avg = out[:2]
+                trace.stage("stats", 1)
+                stats, traced = _stats_vector(out) if collect_stats else None, tr is not None
+                trace.finish_frame()
+            self.avg_luminance = avg
+            if collect_stats:
+                with NO_SPAN if tr is None else tr.host("render.stats"):
+                    self.last_stats = self._stats_of(stats.cpu().numpy(), traced)
+            return rgb8
+
+    def start_trace(self, ring_frames: int = 64) -> trace.Tracer:
+        """Turn tracing on (`utils/trace.py`): a ring of `ring_frames` frames'
+        device marks and the host spans of `render`. The next frame is
+        captured anew with its marks."""
+        self.tracer = trace.Tracer(self.device, ring_frames)
+        return self.tracer
+
+    def stop_trace(self) -> trace.Trace:
+        """Turn tracing off and read it out (`Tracer.read`: the last
+        `ring_frames` frames, every host span, the seams, on the host's
+        clock). The next frame is captured anew without marks."""
+        if self.tracer is None:
+            raise RuntimeError("stop_trace without start_trace")
+        tr, self.tracer = self.tracer, None
+        return tr.read()
+
+    def _stats_of(self, vec: np.ndarray, traced: bool = False) -> FrameStats:
+        """FrameStats from a frame's `_stats_vector` (a traced frame's ends
+        with the plans' counters)."""
+        n = vec.size - 5 - (len(trace.PLAN_COUNTERS) if traced else 0)
+        tex_approx, env_approx, light_trunc = (int(x) for x in vec[n + 2:n + 5])
+        stats = self._stats(vec[:n], vec[n:n + 2], tex_approx, env_approx, light_trunc)
+        for k, v in zip(trace.PLAN_COUNTERS, vec[n + 5:]):
+            setattr(stats, k, int(v))
+        return stats
 
     def _stats(self, counts_np, vis_np, tex_approx, env_approx, light_trunc) -> FrameStats:
         overflow = int(np.maximum(counts_np - self.bin_cap, 0).max())

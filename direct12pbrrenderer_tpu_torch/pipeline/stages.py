@@ -1,8 +1,13 @@
 """Per-band render stages — counterpart of `pipeline/stages.py`.
 
 One implementation of the heavy frame stages, shared by the pipeline (a
-full frame is one band at y_offset 0) and by measurement scripts that time
-a stage in isolation.
+full frame is one band at y_offset 0) and by the band frame
+(`parallel/frame_sharded.py`). `gbuffer_pass` is the GBuffer pass of both, and
+marks its stages for the tracer (`utils/trace.py`): gbuffer.geometry,
+gbuffer.binning, gbuffer.raster, gbuffer.tex_plan (the taps' setup and the
+texture plan) and gbuffer.tex_resolve (from the end of the plan, which
+`ops/texcache.py` marks, or where `ops/gbuffer.py` starts a sampler that
+needs no plan).
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import clustered, gbuffer, raster, raster_cuda, shade_fused, shading
+from ..utils import trace
 
 
 def geometry(buffers, model_mats, normal_mats, instance_visible, view_proj,
@@ -90,6 +96,59 @@ def gbuffer_shade(tri_id, depth, setup, buffers, vattrs, width: int, band_h: int
                                  y_offset=y_offset, texture_filter=texture_filter,
                                  use_tex_kernel=use_tex_kernel, tex_caps=tex_caps,
                                  tex_cascade=tex_cascade)
+
+
+def gbuffer_pass(buffers, model_mats, normal_mats, instance_visible, view_proj, width: int,
+                 height: int, canvas_w: int, canvas_h: int, tile_h: int, tile_w: int,
+                 bin_cap: int, *, use_pallas: bool, use_fused: bool, use_tex_kernel: bool,
+                 texture_filter: str, tex_caps, tex_cascade, raster_caps, return_tiled: bool,
+                 y_offset=0):
+    """The GBuffer pass of a frame, or of the band at `y_offset` on its
+    (canvas_w, canvas_h) pad-to-tile canvas: geometry at the (width,
+    height) viewport, binning, then the raster and the G-buffer shade of
+    the path. With `use_fused`, kernel A's tile blocks feed the fused
+    G-buffer (plan, kernels B and C); with `use_pallas`, kernel A's (H, W)
+    planes feed the planar G-buffer; otherwise the plain depth fold feeds
+    the row gather. Returns (GBuffer, bins, tiles):
+    tiles (gb_tiles, z_tiles, id_tiles) for the fused deferred pass with
+    `return_tiled` on the fused path, else None."""
+    viewport = (width, height)
+    trace.stage("gbuffer.geometry", 2)
+    setup, vattrs = geometry(buffers, model_mats, normal_mats, instance_visible, view_proj,
+                             width, height)
+    trace.stage("gbuffer.binning", 2)
+    bins = binning(setup, canvas_w, canvas_h, tile_h, tile_w, bin_cap, y_offset=y_offset)
+    trace.stage("gbuffer.raster", 2)
+    if use_fused:
+        tri_id, depth, pl_tiles, id_tiles, z_tiles = rasterize_interp(
+            setup, bins, buffers, vattrs, canvas_w, canvas_h, tile_h, tile_w, y_offset=y_offset,
+            return_tiled=True, raster_caps=raster_caps, viewport=viewport)
+        trace.stage("gbuffer.tex_plan", 2)
+        out = gbuffer.gbuffer_shade_fused(
+            tri_id, depth, pl_tiles, id_tiles, buffers["atlas"], canvas_h, canvas_w, tile_h,
+            tile_w, texture_filter, tex_caps=tex_caps, tex_cascade=tex_cascade,
+            return_tiled=return_tiled)
+        if return_tiled:
+            gb, gb_tiles = out
+            return gb, bins, (gb_tiles, z_tiles, id_tiles)
+        return out, bins, None
+    if use_pallas:
+        tri_id, depth, planes = rasterize_interp(
+            setup, bins, buffers, vattrs, canvas_w, canvas_h, tile_h, tile_w, y_offset=y_offset,
+            raster_caps=raster_caps, viewport=viewport)
+        trace.stage("gbuffer.tex_plan", 2)
+        gb = gbuffer.gbuffer_shade_planar(
+            tri_id, depth, planes, buffers["atlas"], texture_filter,
+            use_tex_kernel=use_tex_kernel, tex_caps=tex_caps, tex_cascade=tex_cascade)
+    else:
+        tri_id, depth = rasterize(setup, bins, canvas_w, canvas_h, tile_h, tile_w, False,
+                                  y_offset=y_offset, raster_caps=raster_caps, viewport=viewport)
+        trace.stage("gbuffer.tex_plan", 2)
+        gb = gbuffer_shade(tri_id, depth, setup, buffers, vattrs, canvas_w, canvas_h,
+                           texture_filter=texture_filter, y_offset=y_offset,
+                           use_tex_kernel=use_tex_kernel, tex_caps=tex_caps,
+                           tex_cascade=tex_cascade)
+    return gb, bins, None
 
 
 def active_lights(buffers, light_valid, view, max_active: int):

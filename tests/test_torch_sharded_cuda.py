@@ -20,7 +20,9 @@ at 256x192 on the fused path:
   the path and each replay launches A 1, B 4, C 1, D 1; with the sync
   debug mode at "error" the replays (and `frame_args`' uploads) make no
   host sync; a changed `tex_caps` captures again and the frame follows it;
-  `time_collectives` on the captured frame raises ValueError.
+  traced (`pipe.start_trace()`), the captured frames record a
+  `band.exchange` span around each collective inside the graph and one
+  around `gather_rows` after it, in the frame's row.
 * Two gloo ranks on card 0 capture the band body only: each captured frame
   (the graph's band body, then the eager post chain) equals the eager band
   frame bit for bit, with equal `collect_stats` outputs.
@@ -111,7 +113,7 @@ def _equal(a, b) -> bool:
 
 def _nccl_rank(mesh):
     """One NCCL rank: the captured band frame against eager band frames and
-    `render()`; no host sync; a changed knob; time_collectives."""
+    `render()`; no host sync; a changed knob; the traced exchange."""
     pipe, cam = _cell(mesh.device)
     frame = frame_sharded.build_sharded_frame(mesh, pipe, collect_stats=True)
     out = dict(equal_eager=[], equal_render=[], launches=[])
@@ -159,12 +161,16 @@ def _nccl_rank(mesh):
         got = frame(*args)
         out["recaptured"] = frame.captured is not first
         out["equal_after_knob"] = _equal(got, want)
-        mesh.time_collectives = True
-        try:
-            frame(*args)
-            out["time_collectives"] = None
-        except ValueError as e:
-            out["time_collectives"] = str(e)
+        pipe.start_trace()
+        for c in chip_smoke.camera_path(cam, 4):
+            band, carry = frame(*frame_sharded.frame_args(pipe, c, carry))[:2]
+            frame_sharded.gather_rows(mesh, band)
+        tr = pipe.stop_trace()
+        last = tr.steady()[-1]
+        out["traced_captured"] = [f.captured for f in tr.steady()]
+        out["exchange"] = [(None if p is None else last.spans[p][0])
+                           for name, _, _, p, _ in last.spans if name == "band.exchange"]
+        out["exchange_ms"] = tr.summary()["device"].get("band.exchange", 0.0)
     return out
 
 
@@ -207,8 +213,13 @@ def test_nccl_band_frame_captures_again_on_a_changed_knob(nccl_run):
     assert nccl_run["recaptured"] and nccl_run["equal_after_knob"]
 
 
-def test_captured_nccl_band_frame_refuses_time_collectives(nccl_run):
-    assert "profiler" in (nccl_run["time_collectives"] or "")
+def test_traced_nccl_band_frame_times_its_exchange(nccl_run):
+    """The exchange is timed on captured frames: each collective of the
+    frame in the graph, `gather_rows`' after it."""
+    assert nccl_run["traced_captured"] == [True] * 4
+    assert nccl_run["exchange"][-1] is None and "Bloom" in nccl_run["exchange"]
+    assert {"AutoExposure", "stats"} <= set(nccl_run["exchange"])
+    assert nccl_run["exchange_ms"] > 0
 
 
 def test_gloo_captured_band_body_equals_eager_band_frame():
