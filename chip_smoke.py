@@ -158,9 +158,10 @@ GRAPH_FRAMES, EQUAL_FRAMES, SYNC_FRAMES, SEQ_FRAMES = 16, 4, 8, 32
 PATH_FRAMES, PATH_SEQ = 3, 8
 PATH_KERNELS = {
     "lights1k": {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
-                 "point_lights": 1},
-    "planar-tex": {"raster_interp": 1, "fused_cover": 4, "atlas_resolve": 1, "env_resolve": 1},
-    "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1},
+                 "point_lights": 1, "env_plan": 2},
+    "planar-tex": {"raster_interp": 1, "fused_cover": 4, "atlas_resolve": 1, "env_resolve": 1,
+                   "env_plan": 2},
+    "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2},
     "use_tex_kernel=False": {"raster_interp": 1},
     "all-plain": {},
 }
@@ -182,6 +183,8 @@ SHADE_MAX, SHADE_FRAC = 1.01 / 255.0, 2e-3   # kernel C: 1 LSB, on < 0.2% of val
 G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at a
                                                    # cluster edge flips a membership
 F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
+ENV_PLAN_OUTPUTS = ("off", "cnts", "staged", "rec", "fx", "fy", "covered", "env_approx",
+                    "fracm", "has_env")
 # [reference-fns]: the JAX package's reference-only functions on the card.
 # bloom vs bloom_reference: rtol and atol 2e-5, the JAX package's own bar
 # (tests/test_postprocess.py); its two blooms differ by 1.14e-5 at most at
@@ -206,10 +209,11 @@ ASSET_CELLS = (512, 256)
 # the AppConfig defaults from APP_POSE ((x, y, z), yaw, pitch in degrees,
 # orbit degrees per frame: the stress cells' pose); each frame launches
 # kernel A once, B five times (texture fallback, lo, hi, the cascade, env),
-# C and D once, and no other
+# C and D once, the env plan's two kernels, and no other
 APP_CELLS, APP_GRID = (128, 64), (8, 4)
 APP_POSE = ((0.0, 6.0, 18.0), 180.0, 20.05, 1.0)
-APP_KERNELS = {"raster_interp": 1, "fused_cover": 5, "resolve_shade": 1, "deferred_shade": 1}
+APP_KERNELS = {"raster_interp": 1, "fused_cover": 5, "resolve_shade": 1, "deferred_shade": 1,
+               "env_plan": 2}
 APP_COUNTED = 8          # frames whose launches [app] counts
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
@@ -220,9 +224,10 @@ BASE_KNOBS = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=2
 # 270-row bands on 288-row canvases; one NCCL rank renders the whole frame
 # as one band; two gloo ranks render the 1024-light cell in 540-row bands
 # on 552-row canvases (kernels F and G at y_offset 540).
-BAND_A_D = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "deferred_shade": 1}
+BAND_A_D = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "deferred_shade": 1,
+            "env_plan": 2}
 BAND_L1K = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
-            "point_lights": 1}
+            "point_lights": 1, "env_plan": 2}
 BAND_PHASES = {
     "sharded": ("textured", 4, "cuda:0", BAND_A_D, ("env_resolve", "point_lights")),
     "sharded-nccl": ("textured", 1, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
@@ -252,6 +257,11 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch 
                      "point_lights_kernel", "launches"),
     "raster_depth": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:88", "raster_cuda",
                      "rasterize_depth", "launches"),
+    # the env cache's plan (csrc/env_plan.cu, two launches a call around
+    # kernel B's env cover): no TPU kernel, the JAX package's XLA glue
+    "env_plan": ("none: the XLA glue direct12pbrrenderer_tpu/ops/shading.py:93 "
+                 "(env_tap_groups) + ops/envcache.py:312 (plan_env_tiled)", "envcache",
+                 "env_plan", "launches"),
     # kernel I, the TPU's two-kernel cover for caps above 128: on the card
     # kernel B's launch at such a cap, counted apart (and in B's count too)
     "cover_wide": ("direct12pbrrenderer_tpu/ops/texcache.py:278 (_block_cover_kernel) and "
@@ -274,10 +284,11 @@ INSTANCES = (WIDE, *D_DTYPES)
 # tile is 64 wide, so its frame takes the planar texture cache (B, E) and
 # the unfused deferred pass with the env cache (B, F).
 BENCH_CELLS = {
-    "smoke": ("raster_interp", "fused_cover", "atlas_resolve", "env_resolve"),
-    "sponza_class": ("raster_interp", "fused_cover", "resolve_shade", "deferred_shade"),
+    "smoke": ("raster_interp", "fused_cover", "atlas_resolve", "env_resolve", "env_plan"),
+    "sponza_class": ("raster_interp", "fused_cover", "resolve_shade", "deferred_shade",
+                     "env_plan"),
     "lights1k": ("raster_interp", "fused_cover", "resolve_shade", "env_resolve",
-                 "point_lights"),
+                 "point_lights", "env_plan"),
 }
 BENCH_TRACE = 8   # frames of each bench cell traced by torch.profiler
 # kernel I runs kernel B's source and device kernel, D's instances D's
@@ -724,6 +735,9 @@ def hold_call(phase: str, name: str, args, kw, empty_ok: bool = False) -> float:
         for g, r, out in zip(got, want, ("list", "count", "slot", "covered")):
             if not torch.equal(g, r):
                 fail(phase, f"fused_cover: {out} differs from the plain version")
+        return 0.0
+    if name == "env_plan":
+        check_env_plan(phase, got, want)
         return 0.0
     if name == "resolve_shade":
         return check_shade(phase, got, want)
@@ -1309,6 +1323,50 @@ def check_deferred(phase, got, want) -> float:
     return 0.0
 
 
+def env_plan_stage(phase: str, pargs, pkw, smi: str):
+    """[kernel-env-plan]: one frame's recorded `envcache.env_plan` call held
+    bit for bit to `env_plan_reference` on the same fields, then timed
+    through the wrapper (CUDA events, warm and with the L2 evicted), its two
+    kernels alone and all its device work (kernel B's env cover, the
+    allocations' fills) by torch.profiler, and the plain version. The bound
+    reads the fields once, writes every output once and reads the staged
+    pages once (at most every page of the atlas). Returns ((max abs error,
+    ms, plain ms, kernels' ms, cold ms), bound)."""
+    from direct12pbrrenderer_tpu_torch.ops import envcache
+
+    def plan():
+        return envcache.env_plan(*pargs, **pkw)
+
+    def plain():
+        return envcache.env_plan_reference(*pargs, **pkw)
+
+    got = plan()
+    check_env_plan(phase, got, plain())
+    ms, cold = cuda_ms(plan, 20), cold_ms(plan, 20)
+    alone, busy = device_ms(plan, 10, "env_plan")
+    plain_ms = cuda_ms(plain, 3)
+    atlas, rec, cnts = pargs[0], got[3], got[1]
+    pages_read = min(int(cnts.sum()), atlas.data.shape[0] // 128) * 128 * 8 * 4
+    n_bytes = nbytes(*pargs[1:6]) + nbytes(*got[:8]) + pages_read
+    b = bound(n_bytes)
+    say(phase, f"{tuple(rec.shape)} taps from {tuple(pargs[1].shape)} refl (tile "
+        f"{pkw.get('tile')}), staged {tuple(got[2].shape)}, {int(cnts.sum())} pages staged "
+        f"under the counts, env_approx {int(got[7])}: bit-equal to the plain version on every "
+        f"output; through its wrapper {ms:.4f} ms (CUDA events; {cold:.4f} ms with the L2 "
+        f"evicted before each call), its two kernels alone {alone:.4f} ms of {busy:.4f} ms of "
+        f"device work with kernel B's cover (torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}: {n_bytes / 1e6:.1f} MB, the staged pages' reads "
+        f"{pages_read / 1e6:.1f} MB) on {smi}")
+    return (0.0, ms, plain_ms, alone, cold), b
+
+
+def check_env_plan(phase, got, want) -> None:
+    """The env plan's bar: every output bit-equal to the plain version's."""
+    for g, r, out in zip(got, want, ENV_PLAN_OUTPUTS):
+        if not (torch.equal(g, r) if isinstance(g, torch.Tensor) else g == r):
+            fail(phase, f"env_plan: {out} differs from the plain version")
+
+
 def check_close(phase, got, want) -> float:
     """Kernels E and F's bar: rtol 1e-6 / atol 1e-7, every value finite."""
     if not torch.isfinite(got).all() or not torch.allclose(got, want, rtol=F_RTOL, atol=F_ATOL):
@@ -1459,7 +1517,7 @@ def frame_graph_phase(smi: str, pipe, cam, eager_times, binning_ms: float) -> di
     if pipe.captured_frame is not cf:
         fail(phase, "the yaw path captured the frame again")
     want_launches = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1,
-                     "deferred_shade": 1}
+                     "deferred_shade": 1, "env_plan": 2}
     times, launches = run_frames(phase, pipe, path, {
         k: n * GRAPH_FRAMES for k, n in want_launches.items()})
     if any(launches[k] != n * GRAPH_FRAMES for k, n in want_launches.items()):
@@ -1805,6 +1863,7 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
     Adds F's and G's (max abs error, ms, plain ms) to `measured` and their
     bounds to `bounds`; returns the frames' launch counts."""
     from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, envcache, lights_cuda
+    from direct12pbrrenderer_tpu_torch.ops.texcache import _untile
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 
     t0 = time.perf_counter()
@@ -1815,15 +1874,18 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
         fail("scene-lights1k", "the pipeline on the card is not the 1024-light kernel path")
     with recording(lights_cuda, "point_lights_kernel") as light_calls, \
             recording(lights_cuda, "point_lights_tiled") as tiled_calls, \
-            recording(env_resolve_cuda, "env_resolve") as env_calls:
+            recording(env_resolve_cuda, "env_resolve") as env_calls, \
+            recording(envcache, "env_plan") as plan_calls:
         pipe.render(cam)
         torch.cuda.synchronize()
-    if (len(light_calls), len(tiled_calls), len(env_calls)) != (1, 1, 1):
+    if (len(light_calls), len(tiled_calls), len(env_calls), len(plan_calls)) != (1, 1, 1, 1):
         fail("scene-lights1k", f"a frame made {len(light_calls)} light, {len(tiled_calls)} "
-             f"tiled-light and {len(env_calls)} env-resolve calls, want 1, 1 and 1")
+             f"tiled-light, {len(env_calls)} env-resolve and {len(plan_calls)} env-plan calls, "
+             f"want 1 of each")
     (gargs, gkw), = light_calls
     tiled_call, = tiled_calls
     (fargs, _), = env_calls
+    (pargs, pkw), = plan_calls
     listed = gargs[0].cpu().numpy()
     say("scene-lights1k", f"stress scene {pipe.packed.tris.shape[0]} tris, "
         f"{pipe.packed.light_count} lights ({pipe.last_stats.visible_lights} visible), sky 256, "
@@ -1902,13 +1964,17 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
         f"({bounds['env_resolve'][1]})")
     del got, gargs, fargs, light_calls, tiled_calls, tiled_call, env_calls
 
+    # ---- the env plan on the unfused pass's image layout --------------------
+    env_plan_stage("kernel-env-plan-unfused", pargs, pkw, smi)
+    del pargs, plan_calls
+
     # ---- the 1024-light path: A, B, C, F, G; never D ------------------------
     path = camera_path(cam, WARMUP + FRAMES)
     for c in path[:WARMUP]:
         pipe.render(c)
     times, launches = run_frames("frame-lights1k", pipe, path[WARMUP:], {
         "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
-        "env_resolve": FRAMES, "point_lights": FRAMES})
+        "env_resolve": FRAMES, "point_lights": FRAMES, "env_plan": 2 * FRAMES})
     if launches["deferred_shade"]:
         fail("frame-lights1k", f"kernel D launched {launches['deferred_shade']} times")
     frame_line = check_frame("frame-lights1k", pipe, path[-1])
@@ -1926,13 +1992,15 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
     # ---- against the all-plain pipeline (the dense 1024-light sweep) --------
     ref = DeferredRenderPipeline(scene, cfg, use_pallas=False, use_tex_kernel=False,
                                  device=dev, **l1k_knobs)
-    with recording(envcache, "sample_env_tiled") as env_calls:
+    with recording(envcache, "env_plan") as env_calls:
         rmse, ndiff = fidelity(pipe, ref, path[-1])
     st = pipe.last_stats
     counters = {k: getattr(st, k) for k in ("lights_truncated", "light_tile_overflow",
                                             "tex_approx_taps", "env_approx_taps")}
     (eargs, ekw), = env_calls   # the env taps' fallbacks by group, for the record
-    by_group = envcache.sample_env_tiled(*eargs, **ekw)[2].sum((0, 1)).tolist()
+    covered = _untile(envcache.env_plan(*eargs, **ekw)[6], *eargs[4].shape, *ekw["tile"])
+    active = torch.stack([eargs[5]] * 3 + [~eargs[5]] + [eargs[5]] * (covered.shape[0] - 4))
+    by_group = (active & ~covered).sum((1, 2)).tolist()
     if rmse > RMSE_BAR or any(counters.values()):
         fail("fidelity-lights1k", f"frame rmse vs use_pallas=False, use_tex_kernel=False "
              f"{rmse:.6f} (bar {RMSE_BAR}); {counters} (all must be 0); env fallback taps by "
@@ -2494,22 +2562,24 @@ def app_cli_argv(tree, out_dir) -> list[str]:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """While the block runs, the App path's kernels (A, B, C, D) run their
-    plain versions on the card: each wrapper's launch is swapped for the
-    plain PyTorch function that `hold_call` holds it to. The frame keeps
-    every knob's semantics (the raster's two-pass cut lists, the caches'
-    page caps and their fallbacks); only the kernels' arithmetic changes.
+    """While the block runs, the App path's kernels (A, B, C, D and the env
+    plan's) run their plain versions on the card: each wrapper's launch is
+    swapped for the plain PyTorch function that `hold_call` holds it to. The
+    frame keeps every knob's semantics (the raster's two-pass cut lists, the
+    caches' page caps and their fallbacks); only the kernels' arithmetic
+    changes.
     Frames rendered meanwhile run eagerly (a replay calls no wrapper)."""
     from unittest import mock
 
-    from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, raster_cuda, resolve_shade_cuda,
-                                                   shade_fused)
+    from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, envcache, raster_cuda,
+                                                   resolve_shade_cuda, shade_fused)
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
 
     with contextlib.ExitStack() as stack:
         stack.enter_context(eager())
         for module, name, plain in (
                 (raster_cuda, "_launch", raster_cuda.rasterize_interp_reference),
+                (envcache, "env_plan", envcache.env_plan_reference),
                 (cover_cuda, "fused_cover", cover_cuda.fused_cover_reference),
                 (resolve_shade_cuda, "resolve_shade", resolve_shade_cuda.resolve_shade_reference),
                 (shade_fused, "deferred_kernel", shade_fused.deferred_kernel_reference)):
@@ -3321,6 +3391,7 @@ def main(argv=None) -> None:
 
     from direct12pbrrenderer_tpu_torch.ops import (
         cover_cuda,
+        envcache,
         gbuffer,
         raster,
         raster_cuda,
@@ -3414,12 +3485,13 @@ def main(argv=None) -> None:
         cover_calls = stack.enter_context(recording(cover_cuda, "fused_cover"))
         shade_calls = stack.enter_context(recording(resolve_shade_cuda, "resolve_shade"))
         deferred_calls = stack.enter_context(recording(shade_fused, "deferred_kernel"))
+        plan_calls = stack.enter_context(recording(envcache, "env_plan"))
         pipe.render(cam, collect_stats=False)
         torch.cuda.synchronize()
-    if (len(cover_calls), len(shade_calls), len(deferred_calls)) != (4, 1, 1):
+    if (len(cover_calls), len(shade_calls), len(deferred_calls), len(plan_calls)) != (4, 1, 1, 1):
         fail("kernel-cover", f"a default frame made {len(cover_calls)} cover, "
-             f"{len(shade_calls)} resolve-shade and {len(deferred_calls)} deferred calls, "
-             "want 4, 1, 1")
+             f"{len(shade_calls)} resolve-shade, {len(deferred_calls)} deferred and "
+             f"{len(plan_calls)} env-plan calls, want 4, 1, 1, 1")
     parts, cover_ms, cover_alone_ms, cover_plain_ms = [], [], [], []
     cover_bytes = plane_bytes = 0
     for (cargs, ckw), what in zip(cover_calls, ("texture fallback", "texture lo half",
@@ -3542,6 +3614,11 @@ def main(argv=None) -> None:
         + ", ".join(f"{ld} {ms:.4f} ms" for ld, ms in dtype_ms.items()))
     del shade_calls, deferred_calls, sargs, dargs
 
+    # ---- the env plan vs its plain version on the same frame ---------------
+    (pargs, pkw), = plan_calls
+    measured["env_plan"], bounds["env_plan"] = env_plan_stage("kernel-env-plan", pargs, pkw, smi)
+    del plan_calls, pargs
+
     # ---- GBuffer pass stages of both paths ---------------------------------
     tri_id, depth, planes = raster_cuda.rasterize_interp(*args)
     stage_ms["gbuffer_shade_planar"] = cuda_ms(lambda: gbuffer.gbuffer_shade_planar(
@@ -3574,7 +3651,7 @@ def main(argv=None) -> None:
             pipe.render(c)
         times, launches = run_frames("frame", pipe, path[WARMUP:], {
             "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
-            "deferred_shade": FRAMES})
+            "deferred_shade": FRAMES, "env_plan": 2 * FRAMES})
         frame_line = check_frame("frame", pipe, path[-1])
     say("frame", f"default path run eagerly (`eager()`), {FRAMES} frames {W}x{H}: mean "
         f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "

@@ -4,6 +4,11 @@ the unfused deferred pass (the resolve is kernel F, `ops/env_resolve_cuda.py`;
 the fused pass resolves inside kernel D, `ops/shade_fused.py`), and the tap
 census that sizes `env_budget` (`tap_census`, `recommend_budget`).
 
+Both deferred passes plan through `env_plan`, from their per-pixel fields to
+the staged pages: on a CUDA device the hand-written kernels of
+`csrc/env_plan.cu` around kernel B's cover, on the CPU its plain version
+`env_plan_reference` (`shading.env_tap_groups`, then `plan_env_tiled`).
+
 The float sibling of the texture cache: the prefiltered env cube's mips, the
 skybox faces and the BRDF LUT are stored page-major as clamp-addressed 2x2
 quads of 4 channels, rounded to bf16 and packed in pairs into int32 (v[2k]
@@ -16,14 +21,16 @@ nearest even, as jnp's), so both packages store the same pages.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..config import PREFILTER_ENVMAP_MIP_LEVELS
 from ..utils import trace
-from . import env_resolve_cuda
+from . import cover_cuda, env_resolve_cuda
 from .cover_two import SENTINEL
 from .env_resolve_cuda import REC_I32
 from .texcache import (
@@ -44,6 +51,8 @@ PAGE_H = 8
 PAGE_RECORDS = PAGE_W * PAGE_H
 REC_F32 = 16  # 4 clamp-quad corners x 4 channels
 CAP_FB = 8    # fallback-page slots per group (a SEG_CHUNK-aligned static list)
+MAX_GROUPS = 5   # the deferred pass's tap groups: 4, or 5 with env content
+_KERNEL = "env_plan"
 
 
 class FloatAtlas(NamedTuple):
@@ -203,6 +212,17 @@ def _tap_addresses_clamp(base_w, base_h, page_base, mip, u, v):
     return page, intra, fx, fy
 
 
+def _stage_budget(caps: tuple, stage_budget: int | None) -> int:
+    """The staged pages a tile: every group's [fallback | cap] span, or
+    `stage_budget` where that is smaller."""
+    full_budget = sum(c + CAP_FB for c in caps)
+    budget = full_budget if stage_budget is None else min(stage_budget, full_budget)
+    if budget % SEG_CHUNK or budget < SEG_CHUNK * len(caps):
+        raise ValueError(f"env stage budget {budget} must be a multiple of {SEG_CHUNK} "
+                         f"and at least {SEG_CHUNK * len(caps)}")
+    return budget
+
+
 @functools.lru_cache(maxsize=None)
 def _fb_index(tids: tuple, device: torch.device) -> torch.Tensor:
     """A group's fallback texture ids padded to CAP_FB with its first, as an
@@ -255,12 +275,7 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
 
     # compact staging: the sequential clamp reserves SEG_CHUNK rows per later
     # group, so the CAP_FB (= SEG_CHUNK) fallback pages always fit
-    caps_t = tuple(c + CAP_FB for c in caps)
-    full_budget = sum(caps_t)
-    budget = full_budget if stage_budget is None else min(stage_budget, full_budget)
-    if budget % SEG_CHUNK or budget < SEG_CHUNK * g:
-        raise ValueError(f"env stage budget {budget} must be a multiple of {SEG_CHUNK} "
-                         f"and at least {SEG_CHUNK * g}")
+    budget = _stage_budget(caps, stage_budget)
     off_arr, span_arr = _compact_layout(count, CAP_FB, budget)
     count_eff = torch.minimum(count, span_arr - CAP_FB)
 
@@ -277,10 +292,10 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
     fx_t = torch.where(covered_t, fx, fb_fx_t)
     fy_t = torch.where(covered_t, fy, fb_fy_t)
 
-    span_max = max(caps_t)
+    span_max = max(caps) + CAP_FB
     ids_full = torch.stack([
         torch.nn.functional.pad(torch.cat([fb_rows[i], page_list[:, i, :caps[i]]], -1),
-                                (0, span_max - caps_t[i]))
+                                (0, span_max - caps[i] - CAP_FB))
         for i in range(g)], 1)
     ids = _pack_ids(off_arr, span_arr, ids_full, budget)
     cnts = CAP_FB + count_eff
@@ -291,6 +306,190 @@ def plan_env_tiled(atlas: FloatAtlas, tex_t, mip_t, u_t, v_t, act_t, *, fb_tids:
     pages_cm = atlas.data.reshape(n_pages, PAGE_RECORDS, REC_I32).transpose(1, 2)
     staged = pages_cm[ids.reshape(-1).long()].reshape(n_tiles, budget * REC_I32, PAGE_RECORDS)
     return off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t
+
+
+# ----------------------------------------------- the deferred pass's plan ----
+def env_groups(env_ids: tuple):
+    """The static part of the deferred pass's env tap groups from its env_ids
+    (env_base, sky_base, lut_tid, env_mips[, has_env]): (env_base, sky_base,
+    lut_tid, env_mips, has_env, fb_tids, caps). The groups are the env
+    trilinear halves, the BRDF LUT, the background sky and, with env content,
+    the mip+3 cascade (`shading.env_tap_groups` builds their taps)."""
+    env_base, sky_base, lut_tid, env_mips, has_env = (
+        env_ids if len(env_ids) == 5 else (*env_ids, True))
+    env_tids = tuple(range(env_base, env_base + 6))
+    fb_tids = (env_tids, env_tids, (lut_tid,), tuple(range(sky_base, sky_base + 6)))
+    caps = (32, 32, 32, 32)
+    if has_env:
+        fb_tids += (env_tids,)
+        caps += (16,)
+    return env_base, sky_base, lut_tid, env_mips, has_env, fb_tids, caps
+
+
+def env_mip_level(roughness, env_mips: int):
+    """The env taps' trilinear level roughness * PREFILTER_ENVMAP_MIP_LEVELS,
+    clamped to the chain: (its floor (...) int32, its frac (..., 1))."""
+    lvl = torch.clamp(roughness * PREFILTER_ENVMAP_MIP_LEVELS, 0.0, env_mips - 1.0)
+    lo = torch.floor(lvl).to(torch.int32)
+    return lo, (lvl - lo)[..., None]
+
+
+def _tiling(shape: tuple, tile: tuple | None):
+    """(tiles, blocks, tx, w) of per-pixel fields of leading shape `shape`:
+    tile blocks (tiles, blocks, 128) with `tile` None, else an (H, W) image cut
+    into `tile` = (tile_h, tile_w) tiles; tx and w are the divisors of
+    csrc/env_plan.cu's pixel offsets."""
+    if tile is None:
+        if len(shape) != 3 or shape[2] != 128:
+            raise ValueError(f"tile blocks must be (tiles, blocks, 128), got {shape}")
+        return shape[0], shape[1], 1, 128
+    (height, width), (tile_h, tile_w) = shape, tile
+    if (tile_h * tile_w) % 128 or height % tile_h or width % tile_w:
+        raise ValueError(f"a {tile_h}x{tile_w} tile of 128-pixel rows must divide the "
+                         f"{height}x{width} frame")
+    return (height // tile_h) * (width // tile_w), tile_h * tile_w // 128, width // tile_w, tile_w
+
+
+def _plane(x: torch.Tensor, tile: tuple | None) -> tuple:
+    """(a, b, c, e) of csrc/env_plan.cu's Plane: pixel p of tile t lies at
+    element (t / tx) * a + (t % tx) * b + (p / w) * c + (p % w) * e of `x`."""
+    s = x.stride()
+    if tile is None:
+        return s[0], 0, s[1], s[2]
+    return tile[0] * s[0], tile[1] * s[1], s[0], s[1]
+
+
+def env_plan(atlas: FloatAtlas, refl, ray, roughness, n_dot_v, mask, env_ids: tuple, *,
+             tile: tuple | None = None, stage_budget: int | None = None):
+    """The deferred pass's env-cache plan from its per-pixel fields: the tap
+    groups of `shading.env_tap_groups` planned by `plan_env_tiled` (block_cap
+    8, groups 0 and 1 sharing one covered mask).
+
+    refl/ray (..., 3), roughness/n_dot_v (...) f32 and mask (...) bool lie in
+    tile blocks (tiles, blocks, 128) with `tile` None (the fused pass), or in
+    an (H, W) image that `tile` = (tile_h, tile_w) cuts into tiles (the
+    unfused pass); they are read in place through their strides. Returns
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t) as `plan_env_tiled`
+    does, env_approx (() int32: the active taps left to the fallback), fracm
+    (..., 1) (the trilinear frac, in the fields' layout) and has_env. Counts
+    the frame's active taps and staged pages (`trace.count`: env_taps,
+    env_pages_staged).
+
+    CUDA tensors launch `csrc/env_plan.cu`: its tap kernel, kernel B's cover
+    (`cover_cuda.fused_cover`) and its select kernel, two launches of its own
+    a call; CPU tensors take `env_plan_reference`, the plain version. There
+    is no fallback between the two: a CUDA input launches or raises."""
+    tiles, blocks, tx, w = _tiling(tuple(refl.shape[:-1]), tile)
+    if refl.device.type == "cpu":
+        return env_plan_reference(atlas, refl, ray, roughness, n_dot_v, mask, env_ids,
+                                  tile=tile, stage_budget=stage_budget)
+    if refl.device.type != "cuda":
+        raise ValueError(f"env_plan: unsupported device {refl.device}")
+    env_base, sky_base, lut_tid, env_mips, has_env, fb_tids, caps = env_groups(env_ids)
+    g, lead, dev = len(caps), tuple(refl.shape[:-1]), refl.device
+    fields = {"refl": (refl, lead + (3,), torch.float32), "ray": (ray, lead + (3,), torch.float32),
+              "roughness": (roughness, lead, torch.float32),
+              "n_dot_v": (n_dot_v, lead, torch.float32), "mask": (mask, lead, torch.bool)}
+    for name, (x, shape, dtype) in fields.items():
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != dev:
+            raise ValueError(f"{name} must be {shape} {dtype} on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if not 0 < blocks <= 32:
+        raise ValueError(f"kernel B takes 1..32 rows of 128 pixels a tile, got {blocks}")
+    data = atlas.data
+    if data.dtype != torch.int32 or data.shape[1:] != (REC_I32,) or not data.is_contiguous():
+        raise ValueError(f"atlas.data must be contiguous (P*128, {REC_I32}) int32, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    budget = _stage_budget(caps, stage_budget)
+    table = torch.cat([atlas.base_size, atlas.fb_page[:, None], atlas.fb_size,
+                       atlas.page_base[:, :MAX_MIPS]], -1).to(torch.int32)
+    planes = (ctypes.c_longlong * 22)(*(v for x in (refl, ray, roughness, n_dot_v, mask)
+                                        for v in _plane(x, tile)), refl.stride(-1), ray.stride(-1))
+    padded = [t + (t[0],) * (CAP_FB - len(t)) for t in fb_tids] + [(0,) * CAP_FB] * (MAX_GROUPS - g)
+    groups = (ctypes.c_int * (5 + MAX_GROUPS * (1 + CAP_FB)))(
+        g, env_base, sky_base, lut_tid, env_mips,
+        *(len(t) for t in fb_tids), *(0,) * (MAX_GROUPS - g), *(j for t in padded for j in t))
+    fields_args = (refl.data_ptr(), ray.data_ptr(), roughness.data_ptr(), n_dot_v.data_ptr(),
+                   mask.data_ptr(), planes, tx, w, tiles, blocks, table.data_ptr(),
+                   table.shape[0], groups)
+    plane_shape = (tiles, g, blocks, 128)
+    pages = torch.empty(plane_shape, dtype=torch.int32, device=dev)
+    act = torch.empty(plane_shape, dtype=torch.bool, device=dev)
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.env_plan_taps_launch(*fields_args, pages.data_ptr(), act.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"env_plan tap kernel launch failed: CUDA error {err}")
+        page_list, count, slot, found = cover_cuda.fused_cover(pages, act, caps, 8)
+        off_arr = torch.empty((tiles, g), dtype=torch.int32, device=dev)
+        cnts = torch.empty((tiles, g), dtype=torch.int32, device=dev)
+        staged = torch.empty((tiles, budget * REC_I32, PAGE_RECORDS), dtype=torch.int32,
+                             device=dev)
+        rec_t = torch.empty(plane_shape, dtype=torch.int32, device=dev)
+        fx_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
+        fy_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
+        covered_t = torch.empty(plane_shape, dtype=torch.bool, device=dev)
+        env_approx = torch.zeros((), dtype=torch.int32, device=dev)
+        err = lib.env_plan_select_launch(
+            *fields_args, data.data_ptr(), count.data_ptr(), page_list.data_ptr(),
+            page_list.shape[-1], slot.data_ptr(), found.data_ptr(), budget, off_arr.data_ptr(),
+            cnts.data_ptr(), staged.data_ptr(), rec_t.data_ptr(), fx_t.data_ptr(),
+            fy_t.data_ptr(), covered_t.data_ptr(), env_approx.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"env_plan select kernel launch failed: CUDA error {err}")
+        env_plan.launches += 2
+    trace.count("env_taps", act)
+    trace.count("env_pages_staged", cnts)
+    fracm = env_mip_level(roughness, env_mips)[1]
+    return off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t, env_approx, fracm, has_env
+
+
+env_plan.launches = 0  # kernel launches in this process (reset by callers)
+
+
+def _library() -> ctypes.CDLL:
+    from ..kernels import build
+
+    lib = build.load(_KERNEL)
+    if lib.env_plan_taps_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fields = [p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, p, i,
+                  ctypes.POINTER(ctypes.c_int)]
+        lib.env_plan_taps_launch.argtypes = fields + [p, p, p]
+        lib.env_plan_taps_launch.restype = ctypes.c_int
+        lib.env_plan_select_launch.argtypes = fields + [p, p, p, i, p, p, i] + [p] * 9
+        lib.env_plan_select_launch.restype = ctypes.c_int
+    return lib
+
+
+def env_plan_reference(atlas: FloatAtlas, refl, ray, roughness, n_dot_v, mask, env_ids: tuple,
+                       *, tile: tuple | None = None, stage_budget: int | None = None):
+    """Plain version of `env_plan`: `shading.env_tap_groups` on the fields,
+    its (..., G) stacks laid out (tiles, G, blocks, 128), then
+    `plan_env_tiled`; env_approx counts the active taps it left uncovered."""
+    from .shading import env_tap_groups   # shading imports this module
+
+    tex, mip, u, v, act, fb_tids, caps, fracm, has_env = env_tap_groups(
+        refl, ray, roughness, n_dot_v, mask, env_ids)
+
+    def to_g(x):  # (..., G) -> (tiles, G, blocks, 128)
+        return x.permute(0, 3, 1, 2) if tile is None else _tile(x.permute(2, 0, 1), *tile)
+
+    act_t = to_g(act)
+    plan = plan_env_tiled(atlas, to_g(tex), to_g(mip), to_g(u), to_g(v), act_t, fb_tids=fb_tids,
+                          share=((0, 1),), caps=caps, block_cap=8, stage_budget=stage_budget)
+    return (*plan, (act_t & ~plan[6]).sum().to(torch.int32), fracm, has_env)
+
+
+def resolve_untiled(plan: tuple, height: int, width: int, tile_h: int, tile_w: int):
+    """Kernel F (`env_resolve_cuda.env_resolve`) over a plan's (off_arr, cnts,
+    staged, rec_t, fx_t, fy_t, covered_t), untiled: (rgba (H, W, G, 4),
+    covered (H, W, G))."""
+    off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = plan
+    out = env_resolve_cuda.env_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t)
+    rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)
+    return rgba, _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
 
 
 # -------------------------------------------------------------- sampling ----
@@ -318,13 +517,10 @@ def sample_env_tiled(atlas: FloatAtlas, tex, mip, u, v, active, *, fb_tids: tupl
     def tile_g(x):  # (H, W, G) -> (tiles, G, blocks, 128)
         return _tile(x.permute(2, 0, 1), tile_h, tile_w)
 
-    off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = plan_env_tiled(
+    plan = plan_env_tiled(
         atlas, tile_g(tex), tile_g(mip), tile_g(u), tile_g(v), tile_g(active), fb_tids=fb_tids,
         share=share, caps=caps, block_cap=block_cap, stage_budget=stage_budget)
-    trace.end("shade.env_plan")   # opened by shading.deferred_shade, where it traces
-    out = env_resolve_cuda.env_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t)
-    rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)  # (H, W, G, 4)
-    covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
+    rgba, covered = resolve_untiled(plan, height, width, tile_h, tile_w)
     return rgba, covered, active & ~covered
 
 

@@ -2,8 +2,8 @@
 `ops/shade_pallas.py` (kernel D).
 
 `deferred_shade_fused` computes the tiled per-pixel geometry, the env-cache
-tap groups and their plan (`envcache.plan_env_tiled`, kernel B) and the
-64-float `const` vector, then runs kernel D: env-page resolve (bf16 pairs),
+plan (`envcache.env_plan`: its kernels around kernel B) and the 64-float
+`const` vector, then runs kernel D: env-page resolve (bf16 pairs),
 SH2 irradiance diffuse, split-sum specular, the clustered point-light loop
 over the frame's compacted active lights with the per-cluster cap-32 counter,
 emission, and the sky on background pixels (deferred_shading.hlsl:23-186,
@@ -46,7 +46,6 @@ from ..config import (
 from ..utils import trace
 from . import common, envcache, tap_planes
 from .env_resolve_cuda import resolve_env_group
-from .shading import env_tap_groups
 from .texcache import _untile
 
 _EPS = 1e-6
@@ -398,19 +397,11 @@ def deferred_shade_fused(gb_tiles, z_tiles, id_tiles, sh_pack, env_atlas, active
                             1e-20)
     ray = common.normalize(cam_vec, 1e-20)
 
-    # env tap groups + plan (kernel B)
+    # the env cache's plan: tap groups, covers (kernel B), staged pages
     trace.begin("shade.env_plan")
-    (texg, mipg, uq, vq, act, fb_tids, caps, fracm, has_env) = env_tap_groups(
-        refl, ray, gb_tiles[:, 6], n_dot_v, mask_t, env_ids)
-
-    def to_g(x):  # (tiles, blocks, 128, G) -> (tiles, G, blocks, 128)
-        return x.permute(0, 3, 1, 2)
-
-    act_g = to_g(act)
-    off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t = envcache.plan_env_tiled(
-        env_atlas, to_g(texg), to_g(mipg), to_g(uq), to_g(vq), act_g, fb_tids=fb_tids,
-        share=((0, 1),), caps=caps, block_cap=8, stage_budget=env_budget)
-    env_approx = (act_g & ~covered_t).sum().to(torch.int32)
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t, env_approx, fracm,
+     has_env) = envcache.env_plan(env_atlas, refl, ray, gb_tiles[:, 6], n_dot_v, mask_t, env_ids,
+                                  stage_budget=env_budget)
     trace.end("shade.env_plan")
 
     cov0 = covered_t[:, 0].float()

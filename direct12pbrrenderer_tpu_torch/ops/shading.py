@@ -6,8 +6,8 @@ computed but never added, AO is read but unused): SH ambient diffuse +
 split-sum specular + clustered point lights + emission, and the deferred
 skybox on uncovered pixels. Both of the JAX package's switches are kept:
 * `env_ids`: the env taps (trilinear halves, BRDF LUT, sky, mip+3 cascade)
-  through the float page cache (`envcache.sample_env_tiled`: kernel B plans,
-  kernel F resolves); without it, direct cube-atlas / LUT sampler taps;
+  through the float page cache (`envcache.env_plan` plans, kernel F
+  resolves); without it, direct cube-atlas / LUT sampler taps;
 * `light_tile`: the tile-clustered point lights (`lights_cuda`, kernel G),
   the 1024-light operating point; without it, a serial sweep over the
   compacted active lights.
@@ -78,32 +78,25 @@ def env_tap_groups(refl, ray, roughness, n_dot_v, mask, env_ids):
     background sky and (when env content exists) the mip+3 LOD-clamp
     cascade, plus the matching fb_tids/caps. Returns (tex, mip, u, v, act,
     fb_tids, caps, fracm, has_env)."""
-    env_base, sky_base, lut_tid, env_mips, has_env = (
-        env_ids if len(env_ids) == 5 else (*env_ids, True))
-    lvl = torch.clamp(roughness * PREFILTER_ENVMAP_MIP_LEVELS, 0.0, env_mips - 1.0)
-    lo = torch.floor(lvl).to(torch.int32)
-    fracm = (lvl - lo)[..., None]
+    env_base, sky_base, lut_tid, env_mips, has_env, fb_tids, caps = envcache.env_groups(env_ids)
+    lo, fracm = envcache.env_mip_level(roughness, env_mips)
     hi = torch.clamp(lo + 1, max=env_mips - 1)
     face_e, ue, ve = common.cubemap_coords(refl)
     face_s, us, vs = common.cubemap_coords(ray)
     zero = torch.zeros_like(lo)
     tex_e = env_base + face_e
-    env_tids = tuple(range(env_base, env_base + 6))
-    sky_tids = tuple(range(sky_base, sky_base + 6))
     groups = [
-        (tex_e, lo, ue, ve, mask, env_tids),
-        (tex_e, hi, ue, ve, mask, env_tids),
-        (torch.full_like(lo, lut_tid), zero, roughness, n_dot_v, mask, (lut_tid,)),
-        (sky_base + face_s, zero, us, vs, ~mask, sky_tids),
+        (tex_e, lo, ue, ve, mask),
+        (tex_e, hi, ue, ve, mask),
+        (torch.full_like(lo, lut_tid), zero, roughness, n_dot_v, mask),
+        (sky_base + face_s, zero, us, vs, ~mask),
     ]
-    caps = [32, 32, 32, 32]
     if has_env:
         # LOD-clamp cascade: mip+3 re-taps resolve mirror-tile footprints that
         # overflow the mip-0 budget at a mild blur (only with env content)
-        groups.append((tex_e, torch.clamp(lo + 3, max=env_mips - 1), ue, ve, mask, env_tids))
-        caps.append(16)
-    return (*(torch.stack([gr[i] for gr in groups], -1) for i in range(5)),
-            tuple(gr[5] for gr in groups), tuple(caps), fracm, has_env)
+        groups.append((tex_e, torch.clamp(lo + 3, max=env_mips - 1), ue, ve, mask))
+    return (*(torch.stack([gr[i] for gr in groups], -1) for i in range(5)), fb_tids, caps,
+            fracm, has_env)
 
 
 def deferred_shade(
@@ -171,13 +164,12 @@ def deferred_shade(
     if env_ids is not None:
         # the four sampler taps (env trilinear halves, BRDF LUT, background
         # sky) and the cascade through one float page-cache plan + resolve
-        # the env plan's span ends inside sample_env_tiled, before kernel F
         trace.begin("shade.env_plan")
-        (tex5, mip5, uq, vq, act, fb_tids, caps, fracm,
-         has_env) = env_tap_groups(refl, ray, roughness, n_dot_v, mask, env_ids)
-        rgba, covered, env_approx = envcache.sample_env_tiled(
-            env_cache, tex5, mip5, uq, vq, act, fb_tids=fb_tids, share=((0, 1),), cap=caps,
-            tile_h=env_tile[0], tile_w=env_tile[1], stage_budget=env_budget)
+        *plan, env_approx_cnt, fracm, has_env = envcache.env_plan(
+            env_cache, refl, ray, roughness, n_dot_v, mask, env_ids, tile=env_tile,
+            stage_budget=env_budget)
+        trace.end("shade.env_plan")
+        rgba, covered = envcache.resolve_untiled(plan, *refl.shape[:2], *env_tile)
         env_exact = rgba[..., 0, :3] * (1 - fracm) + rgba[..., 1, :3] * fracm
         # group 0 holds the coarse fallback; with env content the mip+3
         # cascade (group 4) comes first
@@ -186,7 +178,6 @@ def deferred_shade(
         env_irr = torch.where(covered[..., 0, None], env_exact, coarse)
         env_brdf = rgba[..., 2, :2]
         sky = rgba[..., 3, :3]
-        env_approx_cnt = env_approx.sum(dtype=torch.int32)
     else:
         env_irr = common.sample_cube_atlas_trilinear(
             prefiltered, refl, roughness * PREFILTER_ENVMAP_MIP_LEVELS)[..., :3]
