@@ -9,7 +9,7 @@ import torch
 
 from . import ibl, post, raster, shade
 from .camera import pose_matrices
-from .texture import CubeMips, MipTexture, mip_chain
+from .texture import TAPS, CubeMips, MipTexture, mip_chain
 
 PREFILTER_MAX = 512
 
@@ -23,9 +23,15 @@ def frustum_visible(planes, mins, maxs):
 
 class Reference:
     """The scene's derived state (mips, IBL, light attenuation) on
-    `device`, from the raw scene arrays alone."""
+    `device`, from the raw scene arrays alone. `cfg["texture_filter"]`
+    (default trilinear) picks the albedo map's filter; a filter this
+    renderer does not implement raises ValueError."""
 
     def __init__(self, scene: dict, cfg: dict, device, dtype=torch.float32):
+        self.texture_filter = cfg.get("texture_filter", "trilinear")
+        if self.texture_filter not in TAPS:
+            raise ValueError(f"texture_filter {self.texture_filter!r}: the reference "
+                             f"implements {sorted(TAPS)}")
         self.dev, self.dtype = torch.device(device), dtype
         self.cfg = cfg
         mesh = scene["mesh"]
@@ -105,9 +111,16 @@ class Reference:
         rows = shade.light_rows(self.lights, valid, cam["view"], dev)[:cfg["max_active_lights"]]
         return cam, setup, tri_id, depth, tris, rows, valid
 
+    def tex_counts(self, covered: int) -> dict:
+        """Texture samples (a covered pixel's, one a slot the material
+        samples: the albedo map's) and the trilinear or bilinear taps they
+        take under the configuration's filter."""
+        samples = covered if self.albedo is not None else 0
+        return {"tex_samples": samples, "tex_taps": samples * TAPS[self.texture_filter]}
+
     def counts(self, pose: dict) -> dict:
         """The pose's work counts: pixels, covered pixels, light rows, lit
-        (covered pixel, listed light) pairs."""
+        (covered pixel, listed light) pairs, texture samples and taps."""
         cfg = self.cfg
         w, h = cfg["width"], cfg["height"]
         cam, _, tri_id, depth, _, rows, valid = self._visible(pose)
@@ -117,9 +130,10 @@ class Reference:
         lists, _ = shade.cluster_lists(rows, cfg["fov"], w / h, near, far)
         sx, sy, sz = shade.cluster_of(z_view, h, w, near, far)
         mine = lists[((sx * shade.CLUSTERS[1] + sy) * shade.CLUSTERS[2] + sz).long()]
-        return {"pixels": w * h, "covered": int(mask.sum()), "lights": int(rows.shape[0]),
+        covered = int(mask.sum())
+        return {"pixels": w * h, "covered": covered, "lights": int(rows.shape[0]),
                 "lit_pairs": int(((mine >= 0) & mask[..., None]).sum()),
-                "visible_lights": int(valid.sum())}
+                "visible_lights": int(valid.sum()), **self.tex_counts(covered)}
 
     def render(self, pose: dict, prev_avg: float, delta_time: float):
         """-> (uint8 (H, W, 3), new average luminance (0-d), counts)."""
@@ -129,14 +143,16 @@ class Reference:
         cam, setup, tri_id, depth, tris, rows, valid = self._visible(pose)
         vattr = self.vattr[tris]
         gb_a, gb_b, gb_c, mask = shade.gbuffer(tri_id, setup.edges, vattr, self.material,
-                                               self.albedo)
+                                               self.albedo, self.texture_filter)
         hdr, pairs = shade.deferred(gb_a, gb_b, gb_c, depth, mask, cam, rows, self.ibl, fov,
                                     near, far, self.dtype)
         hdr = post.bloom(hdr)
         prev = torch.as_tensor(prev_avg, dtype=torch.float32, device=dev)
         avg = post.exposure(post.luminance_sums(hdr), float(w * h), prev, delta_time)
-        counts = {"pixels": w * h, "covered": int(mask.sum()), "lit_pairs": pairs,
-                  "lights": int(rows.shape[0]), "visible_lights": int(valid.sum())}
+        covered = int(mask.sum())
+        counts = {"pixels": w * h, "covered": covered, "lit_pairs": pairs,
+                  "lights": int(rows.shape[0]), "visible_lights": int(valid.sum()),
+                  **self.tex_counts(covered)}
         return post.present(hdr, avg), avg, counts
 
 

@@ -54,11 +54,13 @@ def quad_derivatives(img):
     return ddx, ddy
 
 
-def gbuffer(tri_id, edges, vattr, material: dict, albedo_map: MipTexture | None):
+def gbuffer(tri_id, edges, vattr, material: dict, albedo_map: MipTexture | None,
+            texture_filter: str = "trilinear"):
     """(A (H, W, 4) albedo + emission, B (H, W, 2) octahedral normal,
     C (H, W, 3) roughness, metallic, ao; each RGBA8-quantized, 0 off the
     geometry) from the id buffer, the triangles' edge rows (T, 3, 3) and
-    their vertices' (uv, normal, tangent) rows (T, 3, 8)."""
+    their vertices' (uv, normal, tangent) rows (T, 3, 8); the albedo map
+    sampled with `texture_filter` (`texture.TAPS` names them)."""
     h, w = tri_id.shape
     dev = tri_id.device
     mask = tri_id >= 0
@@ -77,11 +79,17 @@ def gbuffer(tri_id, edges, vattr, material: dict, albedo_map: MipTexture | None)
     nrm = normalize(interp[..., 2:5], 1e-20)
     if material["albedo_map"]:
         ddx, ddy = quad_derivatives(uv)
-        size = torch.tensor(albedo_map.size, device=dev)
-        gx, gy = ddx * size, ddy * size
-        rho2 = torch.maximum((gx * gx).sum(-1), (gy * gy).sum(-1))
-        lod = torch.where(mask, 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)), 99.0)
-        albedo = gamma_decode(albedo_map.trilinear(uv[..., 0], uv[..., 1], lod)[..., :3])
+        if texture_filter == "anisotropic":
+            tex = albedo_map.anisotropic(uv, ddx, ddy, mask)
+        else:
+            size = torch.tensor(albedo_map.size, device=dev)
+            gx, gy = ddx * size, ddy * size
+            rho2 = torch.maximum((gx * gx).sum(-1), (gy * gy).sum(-1))
+            lod = torch.where(mask, 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)), 99.0)
+            sample = albedo_map.trilinear if texture_filter == "trilinear" else \
+                albedo_map.nearest_mip
+            tex = sample(uv[..., 0], uv[..., 1], lod)
+        albedo = gamma_decode(tex[..., :3])
     else:
         albedo = gamma_decode(torch.as_tensor(material["albedo"], device=dev)).expand(h, w, 3)
     em = torch.full((h, w, 1), float(material["emission"]), device=dev)

@@ -1,11 +1,26 @@
-"""Textures: the albedo map's mip chain and its LinearWrap trilinear sampler,
-and clamp-addressed cube and 2D samplers (gbuffer.hlsl's implicit-LOD
-Sample, the reference's LinearClamp samplers)."""
+"""Textures: the albedo map's mip chain and its LinearWrap samplers, one for
+each value of the pipeline's `texture_filter` (gbuffer.hlsl's implicit-LOD
+Sample), and clamp-addressed cube and 2D samplers (the reference's
+LinearClamp samplers).
+
+* `trilinear`: the mip of the footprint's major axis, blended between the
+  two nearest levels;
+* `bilinear`: one bilinear sample of the level nearest that mip;
+* `anisotropic`: the port's software filter, not a D3D12 anisotropic
+  sampler, whose footprint the hardware chooses: `ANISO_TAPS` trilinear taps
+  spread along the major gradient, the mip taken from the minor axis, the
+  ratio capped at `ANISO_TAPS`, the taps summed in order and scaled by
+  1 / `ANISO_TAPS`.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+ANISO_TAPS = 4
+# trilinear (or bilinear) samples of a mip chain that one texture sample takes
+TAPS = {"trilinear": 1, "bilinear": 1, "anisotropic": ANISO_TAPS}
 
 
 def mip_chain(rgba8: np.ndarray, max_dim: int | None) -> list[np.ndarray]:
@@ -63,16 +78,47 @@ class MipTexture:
         return bilerp(t[off + y0 * w + x0], t[off + y0 * w + x1], t[off + y1 * w + x0],
                       t[off + y1 * w + x1], fx, fy)
 
-    def trilinear(self, u, v, lod):
-        """LinearWrap trilinear sample, sRGB-linearized where the format is."""
-        lod = torch.minimum(torch.clamp(lod, min=0.0), torch.tensor(float(self.n - 1),
-                                                                    device=lod.device))
-        m0 = torch.floor(lod).long()
-        frac = (lod - m0)[..., None]
-        c = self.bilinear(m0, u, v) * (1 - frac) + self.bilinear(m0 + 1, u, v) * frac
+    def _clamp_lod(self, lod):
+        return torch.minimum(torch.clamp(lod, min=0.0), torch.tensor(float(self.n - 1),
+                                                                     device=lod.device))
+
+    def _linear(self, c):
         if not self.srgb:
             return c
         return torch.cat([srgb_eotf(c[..., :3]), c[..., 3:]], -1)
+
+    def trilinear(self, u, v, lod):
+        """LinearWrap trilinear sample, sRGB-linearized where the format is."""
+        lod = self._clamp_lod(lod)
+        m0 = torch.floor(lod).long()
+        frac = (lod - m0)[..., None]
+        return self._linear(self.bilinear(m0, u, v) * (1 - frac)
+                            + self.bilinear(m0 + 1, u, v) * frac)
+
+    def nearest_mip(self, u, v, lod):
+        """LinearWrap bilinear sample of mip round(lod) (halves to even),
+        sRGB-linearized where the format is: the `bilinear` filter."""
+        return self._linear(self.bilinear(torch.round(self._clamp_lod(lod)).long(), u, v))
+
+    def anisotropic(self, uv, ddx, ddy, mask):
+        """The software anisotropic filter (module docstring) at uv (..., 2)
+        with quad derivatives ddx, ddy (..., 2) in uv units; lod 99 (the
+        last mip) where `mask` is False."""
+        size = torch.tensor(self.size, device=uv.device)
+        gx, gy = ddx * size, ddy * size
+        rx2, ry2 = (gx * gx).sum(-1), (gy * gy).sum(-1)
+        rho2 = torch.maximum(rx2, ry2)
+        rho_min2 = torch.clamp(torch.minimum(rx2, ry2), min=1e-12)
+        ratio = torch.clamp(torch.sqrt(rho2 / rho_min2), 1.0, float(ANISO_TAPS))
+        lod = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)) - torch.log2(ratio)
+        lod = torch.where(mask, lod, 99.0)
+        major = torch.where((rx2 >= ry2)[..., None], ddx, ddy)
+        acc = None
+        for i in range(ANISO_TAPS):
+            tap = uv + major * ((i + 0.5) / ANISO_TAPS - 0.5)
+            c = self.trilinear(tap[..., 0], tap[..., 1], lod)
+            acc = c if acc is None else acc + c
+        return acc * (1.0 / ANISO_TAPS)
 
 
 def cube_coords(dirs):
