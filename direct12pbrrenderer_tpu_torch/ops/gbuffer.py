@@ -119,31 +119,38 @@ def sample_atlas_trilinear(atlas: AtlasDevice, tex_id, u, v, lod, filter: str = 
     return apply_srgb(atlas, tex_id, sample_atlas_raw(atlas, tex_id, u, v, lod, filter))
 
 
+ANISO_TAPS = 4   # trilinear taps a sample of the anisotropic filter
+
+
 def sample_atlas_anisotropic(atlas: AtlasDevice, tex, uv, ddx, ddy, size5, mask,
-                             n_taps: int = 4):
+                             n_taps: int = ANISO_TAPS):
     """Software anisotropic filtering (sRGB-linearized where flagged): `n_taps`
     trilinear taps spread along the major-gradient axis, the mip chosen from
-    the footprint's minor axis sharpened by the aniso ratio.
+    the footprint's minor axis sharpened by the aniso ratio. Traced, the
+    footprint and the taps are the spans `gbuffer.aniso_footprint` and
+    `gbuffer.aniso_taps`.
 
     tex (H, W, 5); uv (H, W, 2); ddx/ddy (H, W, 2) screen-space uv
     derivatives; size5 (H, W, 5, 2) texture dims; mask (H, W) coverage."""
-    gx = ddx[..., None, :] * size5
-    gy = ddy[..., None, :] * size5
-    rx2 = (gx * gx).sum(-1)
-    ry2 = (gy * gy).sum(-1)
-    rho2 = torch.maximum(rx2, ry2)
-    rho_min2 = torch.clamp(torch.minimum(rx2, ry2), min=1e-12)
-    ratio = torch.clamp(torch.sqrt(rho2 / rho_min2), 1.0, float(n_taps))
-    lod_a = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)) - torch.log2(ratio)
-    lod_a = torch.where(mask[..., None], lod_a, 99.0)
-    major = torch.where((rx2 >= ry2)[..., None], ddx[..., None, :], ddy[..., None, :])
-    acc = 0.0
-    for i in range(n_taps):
-        t = (i + 0.5) / n_taps - 0.5
-        uv_i = uv[..., None, :] + major * t
-        acc = acc + sample_atlas_trilinear(atlas, tex, uv_i[..., 0], uv_i[..., 1], lod_a,
-                                           filter="trilinear")
-    return acc * (1.0 / n_taps)
+    with trace.span("gbuffer.aniso_footprint"):
+        gx = ddx[..., None, :] * size5
+        gy = ddy[..., None, :] * size5
+        rx2 = (gx * gx).sum(-1)
+        ry2 = (gy * gy).sum(-1)
+        rho2 = torch.maximum(rx2, ry2)
+        rho_min2 = torch.clamp(torch.minimum(rx2, ry2), min=1e-12)
+        ratio = torch.clamp(torch.sqrt(rho2 / rho_min2), 1.0, float(n_taps))
+        lod_a = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12)) - torch.log2(ratio)
+        lod_a = torch.where(mask[..., None], lod_a, 99.0)
+        major = torch.where((rx2 >= ry2)[..., None], ddx[..., None, :], ddy[..., None, :])
+    with trace.span("gbuffer.aniso_taps"):
+        acc = 0.0
+        for i in range(n_taps):
+            t = (i + 0.5) / n_taps - 0.5
+            uv_i = uv[..., None, :] + major * t
+            acc = acc + sample_atlas_trilinear(atlas, tex, uv_i[..., 0], uv_i[..., 1], lod_a,
+                                               filter="trilinear")
+        return acc * (1.0 / n_taps)
 
 
 def _quad_derivatives(img):
@@ -308,6 +315,10 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
     if texture_filter == "anisotropic":
         trace.stage("gbuffer.tex_resolve", 2)
         samples = sample_atlas_anisotropic(atlas, tex, uv, ddx, ddy, size5, mask)
+        if trace.counted():
+            # the taps of the slots the material samples at covered pixels,
+            # as the texture cache's plan counts its active taps
+            trace.count("tex_taps", (use & mask[..., None]) * ANISO_TAPS)
     elif use_tex_kernel:
         from . import texcache
 

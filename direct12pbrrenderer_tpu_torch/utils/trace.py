@@ -39,7 +39,8 @@ once a seam.
 `count(name, x)` sets a device counter of the frame to the sum of `x`,
 where the pipeline's `_frame` counts (`counting`, on a traced frame, into
 the tracer's `counts`): the texture and env plans' taps and staged pages
-(`PLAN_COUNTERS`), which ride the frame's counter vector into `FrameStats`.
+(`PLAN_COUNTERS`; the anisotropic sampler counts its trilinear taps as
+`tex_taps`), which ride the frame's counter vector into `FrameStats`.
 An untraced frame sums nothing, so its graph is the untraced one; a traced
 one sums straight into `counts` and keeps no tensor of its own alive
 through the frame, so the rest of its memory lies where it lies untraced.
@@ -227,6 +228,12 @@ def counting(counts: torch.Tensor):
         yield counts
     finally:
         _LOCAL.counts = prev
+
+
+def counted() -> bool:
+    """Whether this thread's frame counts: a counter whose input costs work
+    of its own builds it only then, so an untraced frame does none."""
+    return getattr(_LOCAL, "counts", None) is not None
 
 
 def count(name: str, x: torch.Tensor) -> None:

@@ -1,9 +1,10 @@
 """The frame tracer (`utils/trace.py`) on the CPU, where a mark reads the
 host clock into the same ring a card's mark kernel writes.
 
-* The span tree and the marks' order of a traced frame on the plain, fused
-  and planar tiny-pipeline paths: the ten passes and `stats` at depth 1,
-  the five GBuffer stages under GBuffer, `shade.env_plan` under
+* The span tree and the marks' order of a traced frame on the plain, fused,
+  planar and anisotropic tiny-pipeline paths: the ten passes and `stats` at
+  depth 1, the five GBuffer stages under GBuffer, the anisotropic
+  sampler's footprint and taps under its resolve, `shade.env_plan` under
   DeferredShading where the env cache runs; the five GBuffer stages make
   up the GBuffer pass to within its first mark.
 * Frames, exposure carry and FrameStats are bit-equal with tracing on and
@@ -14,7 +15,8 @@ host clock into the same ring a card's mark kernel writes.
   calibrated clock; `caller` where none was; `export_chrome` writes both
   tracks.
 * The plans' counters in a traced frame's FrameStats equal the plans' own
-  outputs; an untraced frame's are 0.
+  outputs, and on the anisotropic path `tex_taps` is its four trilinear
+  taps a sampled slot of a covered pixel; an untraced frame's are 0.
 * `start_trace` and `stop_trace` each change the captured frame's key.
 * On two gloo ranks the band frame records `band.exchange` around every
   collective, `gather_rows`' after the frame in the same row, and its
@@ -30,7 +32,7 @@ import pytest
 import torch
 
 from direct12pbrrenderer_tpu_torch.config import RenderConfig
-from direct12pbrrenderer_tpu_torch.ops import envcache, texcache
+from direct12pbrrenderer_tpu_torch.ops import envcache, gbuffer, texcache
 from direct12pbrrenderer_tpu_torch.parallel import frame_sharded
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.scene.camera import Camera
@@ -44,11 +46,13 @@ PATHS = {
     "plain": dict(),
     "fused": dict(width=256, tile_h=24, tile_w=128, use_pallas=True, use_tex_kernel=True),
     "planar": dict(use_pallas=True, use_tex_kernel=True),
+    "aniso": dict(use_pallas=True, use_tex_kernel=True, texture_filter="anisotropic"),
 }
 PASSES = ("Cull", "GBuffer", "Clustered", "DeferredShading", "Skybox", "Bloom", "AutoExposure",
           "ToneMapping", "Present")
 GBUFFER = ("gbuffer.geometry", "gbuffer.binning", "gbuffer.raster", "gbuffer.tex_plan",
            "gbuffer.tex_resolve")
+ANISO = ("gbuffer.aniso_footprint", "gbuffer.aniso_taps")
 
 
 def _traced(pipe, cam, frames, ring_frames=64):
@@ -70,16 +74,21 @@ def test_span_tree_and_mark_order(path):
     _, tr = _traced(pipe, cam, 2)
     frame = tr.frames[-1]
     env = path != "plain"
+    aniso = ANISO if path == "aniso" else ()
     want = ([("frame", 0, None)] + [("Cull", 1, "frame"), ("GBuffer", 1, "frame")]
             + [(s, 2, "GBuffer") for s in GBUFFER]
+            + [(s, 3, "gbuffer.tex_resolve") for s in aniso]
             + [("Clustered", 1, "frame"), ("DeferredShading", 1, "frame")]
             + ([("shade.env_plan", 2, "DeferredShading")] if env else [])
             + [(p, 1, "frame") for p in PASSES[4:]] + [("stats", 1, "frame")])
     assert _tree(frame) == want
     marks = list(frame.signature[1])
-    assert marks == (["frame", "Cull", "GBuffer", *GBUFFER, "Clustered", "DeferredShading"]
+    assert marks == (["frame", "Cull", "GBuffer", *GBUFFER]
+                     + [m for s in aniso for m in (s, "/" + s)]
+                     + ["Clustered", "DeferredShading"]
                      + (["shade.env_plan", "/shade.env_plan"] if env else [])
                      + list(PASSES[4:]) + ["stats", "end"])
+    assert len(marks) <= trace.MAX_MARKS
     t = {name: (t0, t1) for name, t0, t1, _, _ in frame.spans}
     assert t["frame"] == (frame.first_ns, frame.last_ns)
     # adjacent spans share their mark; the stages tile the GBuffer pass
@@ -88,6 +97,11 @@ def test_span_tree_and_mark_order(path):
     assert t["gbuffer.tex_resolve"][1] == t["GBuffer"][1] == t["Clustered"][0]
     for a, b in zip(GBUFFER, GBUFFER[1:]):
         assert t[a][1] == t[b][0]
+    # the anisotropic sampler's phases lie in order inside the resolve
+    lo = t["gbuffer.tex_resolve"][0]
+    for s in aniso:
+        assert lo <= t[s][0] <= t[s][1] <= t["gbuffer.tex_resolve"][1]
+        lo = t[s][1]
     ms = frame.ms()
     assert sum(ms[s] for s in GBUFFER) <= ms["GBuffer"]
     assert all(v >= 0 for v in ms.values())
@@ -189,11 +203,21 @@ def _textured_pipeline(**knobs):
     return pipe, cam
 
 
-@pytest.mark.parametrize("knobs", [{}, dict(tile_w=64, tile_h=12)], ids=["fused", "planar"])
+@pytest.mark.parametrize("knobs", [{}, dict(tile_w=64, tile_h=12),
+                                   dict(texture_filter="anisotropic")],
+                         ids=["fused", "planar", "aniso"])
 def test_plan_counters_are_the_plans_own(knobs, monkeypatch):
     pipe, cam = _textured_pipeline(**knobs)
     seen = {"tex": [], "env": []}
     plan, env_plan = texcache._plan_and_stage, envcache.plan_env_tiled
+    shade = gbuffer._shade_from_interp
+
+    def aniso_spy(interp, matrow, mask, *args, **kw):
+        # the anisotropic sampler plans nothing: its taps are the sampled
+        # slots (the material's use flags) at covered pixels, four each
+        use = matrow[..., 6:11] > 0.5
+        seen["tex"].append((gbuffer.ANISO_TAPS * int((use & mask[..., None]).sum()), 0))
+        return shade(interp, matrow, mask, *args, **kw)
 
     def tex_spy(*args, **kw):
         out = plan(*args, **kw)
@@ -208,6 +232,8 @@ def test_plan_counters_are_the_plans_own(knobs, monkeypatch):
 
     monkeypatch.setattr(texcache, "_plan_and_stage", tex_spy)
     monkeypatch.setattr(envcache, "plan_env_tiled", env_spy)
+    if knobs.get("texture_filter") == "anisotropic":
+        monkeypatch.setattr(gbuffer, "_shade_from_interp", aniso_spy)
     pipe.render(cam)
     # an untraced frame counts nothing; a traced one counts the plan's work
     assert (pipe.last_stats.tex_taps, pipe.last_stats.env_taps) == (0, 0)

@@ -1,6 +1,7 @@
 """The frame tracer (`utils/trace.py`) on the card, over the captured frames
 of `test_torch_frame_graph_cuda.py`'s stress terrain (the default path,
-kernels A-D, and the 1024-light path, A, B, C, F, G):
+kernels A-D, the 1024-light path, A, B, C, F, G, and the anisotropic
+path, A, B, F with the software filter):
 
 * With tracing off the captured frame launches the same device work as a
   pipeline that never traced; with it on, the same work in its order with
@@ -20,12 +21,13 @@ Needs the card: marked `cuda`, skipped elsewhere (`python -m pytest
 import pytest
 import torch
 
+from benchmark import spans as bench_spans
 from benchmark import trace as bench_trace
 from direct12pbrrenderer_tpu_torch.utils import trace
 from test_torch_frame_graph_cuda import PATHS, _path, _pipe
 
 pytestmark = pytest.mark.cuda
-TRACED = ("default", "lights1k")
+TRACED = ("default", "lights1k", "anisotropic")
 MARK = "trace_mark_kernel"
 # the program's host spans: under a profiler each is mirrored on the device
 # timeline, and is left out of the device activities
@@ -106,7 +108,8 @@ def test_traced_replays_fill_a_row_each_without_a_host_sync(device, path):
     s = pipe.stop_trace().summary()
     print(f"\n[trace-cuda] {path}: " + ", ".join(f"{k} {v:.4f}" for k, v in s["device"].items())
           + f"; seams {s['seams']} mean {s['seam_ms']} ms")
-    stages = sum(s["device"][k] for k in s["device"] if k.startswith("gbuffer."))
+    # the five GBuffer stages (the anisotropic sampler's spans nest in one)
+    stages = sum(s["device"][k] for k in bench_spans.GBUFFER_STAGES)
     assert 0.9 * s["device"]["GBuffer"] <= stages <= s["device"]["GBuffer"]
 
 
