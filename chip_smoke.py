@@ -40,7 +40,9 @@ on the card, then renders at 1920x1080 with a procedural sky:
 * the default path with a lo-half texture cap of 156 pages: that cover is
   kernel B's launch at a cap above 128, which stands for the TPU's
   two-kernel cover (kernel I);
-* the anisotropic filter (the planar path without kernel E);
+* the anisotropic filter (the planar path without kernel E, its sampler
+  `csrc/aniso_sample.cu`): the sampler's call of one frame held bit for bit
+  to its plain version and timed ([kernel-aniso]);
 * the depth-only raster stage, `stages.rasterize(use_pallas=True)`, on the
   default frame's geometry (kernel H);
 * the default path with `fused_light_dtype="bfloat16"` ([frame-bf16]): kernel
@@ -161,7 +163,8 @@ PATH_KERNELS = {
                  "point_lights": 1, "env_plan": 2},
     "planar-tex": {"raster_interp": 1, "fused_cover": 4, "atlas_resolve": 1, "env_resolve": 1,
                    "env_plan": 2},
-    "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2},
+    "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2,
+                    "aniso_sample": 1},
     "use_tex_kernel=False": {"raster_interp": 1},
     "all-plain": {},
 }
@@ -262,6 +265,10 @@ KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch 
     "env_plan": ("none: the XLA glue direct12pbrrenderer_tpu/ops/shading.py:93 "
                  "(env_tap_groups) + ops/envcache.py:312 (plan_env_tiled)", "envcache",
                  "env_plan", "launches"),
+    # the anisotropic sampler (csrc/aniso_sample.cu, one launch a frame on
+    # the anisotropic path): no TPU kernel, the JAX package's XLA glue
+    "aniso_sample": ("none: the XLA glue direct12pbrrenderer_tpu/ops/gbuffer.py:133 "
+                     "(sample_atlas_anisotropic)", "aniso_cuda", "aniso_sample", "launches"),
     # kernel I, the TPU's two-kernel cover for caps above 128: on the card
     # kernel B's launch at such a cap, counted apart (and in B's count too)
     "cover_wide": ("direct12pbrrenderer_tpu/ops/texcache.py:278 (_block_cover_kernel) and "
@@ -1321,6 +1328,53 @@ def check_deferred(phase, got, want) -> float:
              f"version ({int(differ[:, 3].sum())} hit counts), max abs error "
              f"{float(np.abs(a - b).max()):.3e}")
     return 0.0
+
+
+def aniso_sample_stage(pipe, cam, smi: str):
+    """[kernel-aniso]: the anisotropic sampler's recorded call of one 1080p
+    frame held bit for bit to its plain version on the card, then timed
+    through the wrapper (CUDA events, warm and with the L2 evicted), the
+    kernel alone by torch.profiler, and the plain version. The bound reads
+    uv, the mask, the use flags and texture ids once and writes the samples
+    once; its operations are the benchmark's count of the filter (156 a
+    tap, 30 a sample). Returns ((max abs error, ms, plain ms, kernel ms,
+    cold ms), bound)."""
+    from direct12pbrrenderer_tpu_torch.ops import aniso_cuda
+
+    phase = "kernel-aniso"
+    with recording(aniso_cuda, "aniso_sample") as calls:
+        pipe.render(cam, collect_stats=False)
+        torch.cuda.synchronize()
+    (args, kw), = calls
+
+    def kernel():
+        return aniso_cuda.aniso_sample(*args, **kw)
+
+    def plain():
+        return aniso_cuda.aniso_sample_reference(*args, **kw)
+
+    got, want = kernel(), plain()
+    if not torch.equal(got, want):
+        differ = got != want
+        fail(phase, f"{int(differ.sum())} of {differ.numel()} values differ from the plain "
+             f"version, max abs diff {float((got - want).abs().max()):.3e}")
+    ms, cold = cuda_ms(kernel, 20), cold_ms(kernel, 20)
+    alone, busy = device_ms(kernel, 10, "aniso_sample")
+    ops = only_kernel(phase, kernel, "aniso_sample")
+    plain_ms = cuda_ms(plain, 3)
+    _, uv, mask, use, tex = args
+    act = use & mask[..., None]
+    samples, pixels = int(act.sum()), mask.numel()
+    n_bytes = pixels * (2 * 4 + 1 + 5 + 5 * 8) + got.numel() * 4
+    b = bound(n_bytes, samples * (4 * 156 + 30))
+    say(phase, f"{tuple(uv.shape[:2])} pixels, {int(mask.sum())} covered, {samples} sampled "
+        f"slots ({4 * samples} trilinear taps): bit-equal to the plain version; through its "
+        f"wrapper {ms:.4f} ms (CUDA events; {cold:.4f} ms with the L2 evicted before each "
+        f"call), the kernel alone {alone:.4f} ms of {busy:.4f} ms of device work "
+        f"(torch.profiler), plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: "
+        f"{n_bytes / 1e6:.1f} MB); one call dispatches {ops} and traces only its kernel; "
+        f"strides uv {uv.stride()}, use {use.stride()}, tex {tex.stride()} on {smi}")
+    return (0.0, ms, plain_ms, alone, cold), b
 
 
 def env_plan_stage(phase: str, pargs, pkw, smi: str):
@@ -3329,17 +3383,19 @@ def planar_tex_cells(dev, smi, scene, cfg, cam, knobs, pipe, cover_calls, measur
         fail("frame-cap156", f"{ndiff} pixels differ although no cover exceeds {TEX_CAPS[0]}")
     del cap
 
-    # ---- the anisotropic filter: A, B (env), F; no E --------------------------
+    # ---- the anisotropic filter: A, the sampler, B (env), F; no E -------------
     aniso = DeferredRenderPipeline(scene, cfg, device=dev, tex_caps=TEX_CAPS,
                                    texture_filter="anisotropic", **knobs)
     if aniso.use_fused_gbuffer or not aniso.use_tex_kernel:
         fail("frame-aniso", "the anisotropic pipeline is not the planar path")
+    measured["aniso_sample"], bounds["aniso_sample"] = aniso_sample_stage(aniso, cam, smi)
     apath = camera_path(cam, 1 + ANISO_FRAMES)
     aniso.render(apath[0])
     times, launches = run_frames("frame-aniso", aniso, apath[1:], {
         "raster_interp": ANISO_FRAMES, "fused_cover": ANISO_FRAMES,
-        "env_resolve": ANISO_FRAMES},
+        "env_resolve": ANISO_FRAMES, "aniso_sample": ANISO_FRAMES},
         absent=("atlas_resolve", "resolve_shade", "deferred_shade"))
+    out["aniso_sample"] = launches["aniso_sample"]
     say("frame-aniso", f"texture_filter=anisotropic (tile {TILE_H}x{TILE_W}), {ANISO_FRAMES} "
         f"frames: mean {np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms; kernel launches "
         f"{launches}; {check_frame('frame-aniso', aniso, apath[-1])}")

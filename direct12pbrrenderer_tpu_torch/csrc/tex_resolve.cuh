@@ -4,7 +4,8 @@
 // predicate), tap_words (the staged gathers), blend, and resolve_slot (the
 // trilinear and cascade rule). Kernel C gathers all of a pixel's taps first
 // and hands resolve_slot blends of gathered words; kernel E hands it taps
-// that gather as they blend, one after another.
+// that gather as they blend, one after another. The anisotropic sampler
+// (aniso_sample.cu) blends the atlas's quad records with `blend` too.
 //
 // Replaces the TPU helpers direct12pbrrenderer_tpu/ops/texcache.py
 // _resolve_group, _resolve_slot and _fill_cascade. Semantics kept exactly

@@ -6,7 +6,8 @@ sampling with quad-difference LOD and sRGB linearization, TBN normal mapping,
 gamma decode, octahedral encode and RGBA8 quantization. Three samplers, as in
 the JAX package: the direct-atlas LinearWrap sampler (trilinear or
 bilinear), the software anisotropic filter (four trilinear taps along the
-major gradient), and the texture cache (`ops/texcache.py`: the plan with
+major gradient; `ops/aniso_cuda.py`, on the card the kernel
+`csrc/aniso_sample.cu`), and the texture cache (`ops/texcache.py`: the plan with
 kernel B or I, the resolve with kernel E on the planar path or kernel C on
 the fused one). G-buffer layouts are the JAX package's: A (H, W, 4), B (H,
 W, 2), C (H, W, 3), depth (H, W), mask (H, W).
@@ -19,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import common, raster
+from . import aniso_cuda, common, raster
 from ..utils import trace
 
 
@@ -310,14 +311,16 @@ def _shade_from_interp(interp, matrow, mask, depth, atlas: AtlasDevice,
     use = matrow[..., 6:11] > 0.5
     tex = torch.clamp(matrow[..., 11:16].to(torch.int64), min=0)
 
-    ddx, ddy, size5, lod5 = tap_lod(uv, tex, mask, atlas, use_tex_kernel)
     approx_count = None
-    if texture_filter == "anisotropic":
+    # the anisotropic sampler takes its quad derivatives and footprint itself
+    aniso = texture_filter == "anisotropic"
+    lod5 = None if aniso else tap_lod(uv, tex, mask, atlas, use_tex_kernel)[3]
+    if aniso:
         trace.stage("gbuffer.tex_resolve", 2)
-        samples = sample_atlas_anisotropic(atlas, tex, uv, ddx, ddy, size5, mask)
+        samples = aniso_cuda.aniso_sample(atlas, uv, mask, use, tex)   # 0 at unsampled slots
         if trace.counted():
-            # the taps of the slots the material samples at covered pixels,
-            # as the texture cache's plan counts its active taps
+            # the taps the sampler runs, as the texture cache's plan
+            # counts its active taps
             trace.count("tex_taps", (use & mask[..., None]) * ANISO_TAPS)
     elif use_tex_kernel:
         from . import texcache

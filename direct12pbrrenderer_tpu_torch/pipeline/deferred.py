@@ -81,8 +81,8 @@ from ..config import (
 )
 from ..graph import frame_graph as fg
 from ..ops import bloom as bloom_ops
-from ..ops import (atlas_resolve_cuda, clustered, common, cover_cuda, env_resolve_cuda,
-                   envcache, gbuffer, ibl, lights_cuda, postprocess, raster_cuda,
+from ..ops import (aniso_cuda, atlas_resolve_cuda, clustered, common, cover_cuda,
+                   env_resolve_cuda, envcache, gbuffer, ibl, lights_cuda, postprocess, raster_cuda,
                    resolve_shade_cuda, shade_fused, texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
@@ -101,7 +101,7 @@ _GRAPH_KNOBS = ("tex_caps", "env_budget", "tex_cascade", "fused_light_dtype", "t
                 "render_w", "render_h", "use_pallas", "use_tex_kernel", "use_fused_gbuffer",
                 "use_fused_deferred", "light_tile", "light_cap", "env_ids", "env_tile")
 _KERNEL_MODULES = (raster_cuda, cover_cuda, resolve_shade_cuda, shade_fused, atlas_resolve_cuda,
-                   env_resolve_cuda, lights_cuda, envcache)
+                   env_resolve_cuda, lights_cuda, envcache, aniso_cuda)
 _EAGER = threading.local()   # `depth`: the thread's open `eager()` blocks
 
 

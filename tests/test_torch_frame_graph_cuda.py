@@ -2,9 +2,9 @@
 1024x192 (8 x 8 tiles of 24x128) of a 16,384-triangle stress terrain with a
 sky, so the binning stage takes the hierarchical binning. The paths
 (PATHS): the default one (kernels A-D), the 1024-light path (A, B, C, F,
-G), planar-tex at a 24x160 raster tile (A, B, E, F), anisotropic (A, B, F),
-`use_tex_kernel=False` (A, the direct-atlas sampler, the dense light sweep)
-and all-plain (no kernel).
+G), planar-tex at a 24x160 raster tile (A, B, E, F), anisotropic (A, the
+anisotropic sampler, B, F), `use_tex_kernel=False` (A, the direct-atlas
+sampler, the dense light sweep) and all-plain (no kernel).
 
 * Every CUDA pipeline is captured, whatever its knobs; no CPU pipeline is.
 * With the sync debug mode at "error", captured `render(collect_stats=False)`
@@ -47,7 +47,8 @@ PATHS = {
     "planar-tex": (dict(tile_w=160), {"raster_interp": 1, "fused_cover": 4,
                                       "atlas_resolve": 1, "env_resolve": 1, "env_plan": 2}),
     "anisotropic": (dict(texture_filter="anisotropic"),
-                    {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2}),
+                    {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2,
+                     "aniso_sample": 1}),
     "use_tex_kernel=False": (dict(use_tex_kernel=False), {"raster_interp": 1}),
     "all-plain": (dict(use_pallas=False, use_tex_kernel=False), {}),
 }

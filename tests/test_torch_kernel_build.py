@@ -18,10 +18,10 @@ SOURCES = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
 # A and H through raster_fold.cuh, B directly
 PERSISTENT = ("fused_cover", "raster_depth", "raster_interp")
 # each shared header and the kernels that include it: the in-place plane
-# reads of C and D, the texture tap body of C and E, the env tap body of D
-# and F
+# reads of C and D, the texture tap body of C and E (whose corner blend the
+# anisotropic sampler shares), the env tap body of D and F
 SHARED = {"tap_planes.cuh": ("deferred_shade", "resolve_shade"),
-          "tex_resolve.cuh": ("atlas_resolve", "resolve_shade"),
+          "tex_resolve.cuh": ("aniso_sample", "atlas_resolve", "resolve_shade"),
           "env_resolve.cuh": ("deferred_shade", "env_resolve"),
           "persistent_grid.cuh": PERSISTENT}
 
