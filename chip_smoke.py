@@ -138,6 +138,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+
 ROOT = Path(__file__).resolve().parent   # the checkout: the port's package and build/
 W, H = 1920, 1080
 TILE_H, TILE_W, BIN_CAP = 24, 128, 8192
@@ -243,42 +245,41 @@ BAND_EQUAL = 2    # captured band frames held bit for bit to eager ones
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor) FLOP/s;
 # the Hopper architecture whitepaper: float16 and bfloat16 (non-tensor) FLOP/s
 HBM_BYTES_PER_S, F32_FLOP_PER_S, F16_FLOP_PER_S = 3.35e12, 67e12, 133.8e12
-KERNELS = {  # name -> (TPU kernel it replaces, wrapper module, wrapper, launch counter)
+KERNELS = {  # launch counter name -> (TPU kernel it replaces, wrapper module, wrapper)
     "raster_interp": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:157", "raster_cuda",
-                      "rasterize_interp", "launches"),
-    "fused_cover": ("direct12pbrrenderer_tpu/ops/texcache.py:486", "cover_cuda",
-                    "fused_cover", "launches"),
+                      "rasterize_interp"),
+    "fused_cover": ("direct12pbrrenderer_tpu/ops/texcache.py:486", "cover_cuda", "fused_cover"),
     "resolve_shade": ("direct12pbrrenderer_tpu/ops/texcache.py:1024", "resolve_shade_cuda",
-                      "resolve_shade", "launches"),
+                      "resolve_shade"),
     "deferred_shade": ("direct12pbrrenderer_tpu/ops/shade_pallas.py:61", "shade_fused",
-                       "deferred_kernel", "launches"),
+                       "deferred_kernel"),
     "atlas_resolve": ("direct12pbrrenderer_tpu/ops/texcache.py:992", "atlas_resolve_cuda",
-                      "atlas_resolve", "launches"),
+                      "atlas_resolve"),
     "env_resolve": ("direct12pbrrenderer_tpu/ops/envcache.py:291", "env_resolve_cuda",
-                    "env_resolve", "launches"),
+                    "env_resolve"),
     "point_lights": ("direct12pbrrenderer_tpu/ops/lights_pallas.py:138", "lights_cuda",
-                     "point_lights_kernel", "launches"),
+                     "point_lights_kernel"),
     "raster_depth": ("direct12pbrrenderer_tpu/ops/raster_pallas.py:88", "raster_cuda",
-                     "rasterize_depth", "launches"),
+                     "rasterize_depth"),
     # the env cache's plan (csrc/env_plan.cu, two launches a call around
     # kernel B's env cover): no TPU kernel, the JAX package's XLA glue
     "env_plan": ("none: the XLA glue direct12pbrrenderer_tpu/ops/shading.py:93 "
                  "(env_tap_groups) + ops/envcache.py:312 (plan_env_tiled)", "envcache",
-                 "env_plan", "launches"),
+                 "env_plan"),
     # the anisotropic sampler (csrc/aniso_sample.cu, one launch a frame on
     # the anisotropic path): no TPU kernel, the JAX package's XLA glue
     "aniso_sample": ("none: the XLA glue direct12pbrrenderer_tpu/ops/gbuffer.py:133 "
-                     "(sample_atlas_anisotropic)", "aniso_cuda", "aniso_sample", "launches"),
+                     "(sample_atlas_anisotropic)", "aniso_cuda", "aniso_sample"),
     # kernel I, the TPU's two-kernel cover for caps above 128: on the card
     # kernel B's launch at such a cap, counted apart (and in B's count too)
     "cover_wide": ("direct12pbrrenderer_tpu/ops/texcache.py:278 (_block_cover_kernel) and "
                    "direct12pbrrenderer_tpu/ops/texcache.py:331 (_pix_match_kernel)",
-                   "cover_cuda", "fused_cover", "wide_launches"),
+                   "cover_cuda", "fused_cover"),
     # kernel D's light_dtype instances (the pipeline's fused_light_dtype): its
     # launches with that light loop, counted apart (and in D's count too)
     **{f"deferred_shade_{ld}": (f"direct12pbrrenderer_tpu/ops/shade_pallas.py:61 "
                                 f"(light_dtype={ld!r}, :218-312)", "shade_fused",
-                                "deferred_kernel", f"{ld}_launches")
+                                "deferred_kernel")
        for ld in ("float32", "bfloat16", "float16")},
 }
 WIDE = "cover_wide"
@@ -604,39 +605,35 @@ def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
 
 
 def wrapper(name: str):
-    """(wrapper function, the name of its launch counter) of kernel `name`."""
+    """The wrapper function of kernel `name`."""
     import importlib
 
-    _, mod, fn, counter = KERNELS[name]
-    module = importlib.import_module(f"direct12pbrrenderer_tpu_torch.ops.{mod}")
-    return getattr(module, fn), counter
+    _, mod, fn = KERNELS[name]
+    return getattr(importlib.import_module(f"direct12pbrrenderer_tpu_torch.ops.{mod}"), fn)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        setattr(*wrapper(name), 0)
+    LAUNCHES.clear()
 
 
 def set_launches(counts: dict[str, int]) -> None:
     for name, n in counts.items():
-        setattr(*wrapper(name), n)
+        LAUNCHES[name] = n
 
 
 def read_launches() -> dict[str, int]:
-    # a counter the wrapper lacks reads 0 (kernel_ab.py runs older trees)
-    return {name: getattr(*wrapper(name), 0) for name in KERNELS}
+    """Every kernel's count in the launch counter (`kernels.launch.LAUNCHES`)."""
+    return {name: LAUNCHES[name] for name in KERNELS}
 
 
 @contextlib.contextmanager
 def recording(module, name: str):
     """Record (args, kwargs) of every call of `module.name` while the block
-    runs; the calls still go through. Launches made meanwhile are counted on
-    the recorder, not on the wrapper. Frames rendered meanwhile run eagerly
-    (`deferred.eager()`: a captured frame's replay calls no wrapper; a tree
-    older than the captured frame, which kernel_ab.py may import, has none)."""
+    runs; the calls still go through, and their launches count. Frames
+    rendered meanwhile run eagerly (`deferred.eager()`: a captured frame's
+    replay calls no wrapper)."""
     from direct12pbrrenderer_tpu_torch.pipeline import deferred
 
-    eager = getattr(deferred, "eager", contextlib.nullcontext)
     orig = getattr(module, name)
     calls = []
 
@@ -644,12 +641,9 @@ def recording(module, name: str):
         calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
-    for *_, fn, counter in KERNELS.values():
-        if fn == name:
-            setattr(rec, counter, 0)
     setattr(module, name, rec)
     try:
-        with eager():
+        with deferred.eager():
             yield calls
     finally:
         setattr(module, name, orig)
@@ -731,7 +725,7 @@ def hold_call(phase: str, name: str, args, kw, empty_ok: bool = False) -> float:
     """Hold one recorded call of kernel `name`'s wrapper against its plain
     version on the same inputs, at the bar the kernels line holds it to;
     returns the max abs error. `empty_ok`: as in `compare`."""
-    fn, _ = wrapper(name)
+    fn = wrapper(name)
     ref = getattr(sys.modules[fn.__module__], f"{KERNELS[name][2]}_reference")
     if name == "raster_interp":   # the plain version gives the untiled outputs
         kw = {k: v for k, v in kw.items() if k != "return_tiled"}

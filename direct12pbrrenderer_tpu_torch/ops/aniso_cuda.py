@@ -15,9 +15,10 @@ import ctypes
 
 import torch
 
+from ..kernels.launch import Entry
 from ..utils import trace
 
-_KERNEL = "aniso_sample"
+_LAUNCH = Entry("aniso_sample", "aniso_sample_launch", "ppipppippppppppiip")
 
 
 def aniso_sample(atlas, uv, mask, use, tex):
@@ -40,21 +41,12 @@ def aniso_sample(atlas, uv, mask, use, tex):
         data, page_base, base_size, n_mips, srgb = (x.contiguous() for x in atlas)
         dev = uv.device
         out = torch.empty((h, w, 5, 4), dtype=torch.float32, device=dev)
-        lib = _library()
-    with trace.span("gbuffer.aniso_taps"), torch.cuda.device(dev):
-        err = lib.aniso_sample_launch(
-            data.data_ptr(), page_base.data_ptr(), page_base.shape[1], base_size.data_ptr(),
-            n_mips.data_ptr(), srgb.data_ptr(), n_mips.shape[0], uv.data_ptr(),
-            _strides(uv), mask.data_ptr(), _strides(mask), use.data_ptr(), _strides(use),
-            tex.data_ptr(), _strides(tex), h, w, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"aniso_sample kernel launch failed: CUDA error {err}")
-        aniso_sample.launches += 1
+    with trace.span("gbuffer.aniso_taps"):
+        _LAUNCH(dev, data.data_ptr(), page_base.data_ptr(), page_base.shape[1],
+                base_size.data_ptr(), n_mips.data_ptr(), srgb.data_ptr(), n_mips.shape[0],
+                uv.data_ptr(), _strides(uv), mask.data_ptr(), _strides(mask), use.data_ptr(),
+                _strides(use), tex.data_ptr(), _strides(tex), h, w, out.data_ptr())
     return out
-
-
-aniso_sample.launches = 0  # kernel launches in this process (reset by callers)
 
 
 def _check(atlas, uv, mask, use, tex) -> tuple[int, int]:
@@ -79,18 +71,6 @@ def _check(atlas, uv, mask, use, tex) -> tuple[int, int]:
 
 def _strides(x):
     return (ctypes.c_longlong * x.dim())(*x.stride())
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.aniso_sample_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, i, p, p, p, p, p, p, p, p, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def aniso_sample_reference(atlas, uv, mask, use, tex):

@@ -11,13 +11,12 @@ plain `resolve_shade_cuda.resolve_slot`).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import Entry
 from .resolve_shade_cuda import check_taps, resolve_slot
 
-_KERNEL = "atlas_resolve"
+_LAUNCH = Entry("atlas_resolve", "atlas_resolve_launch", "ppipipppppiiiip")
 
 
 def atlas_resolve(off, cnts, staged, rec, fx, fy, tl, sel=None, *, trilinear: bool):
@@ -42,32 +41,11 @@ def atlas_resolve(off, cnts, staged, rec, fx, fy, tl, sel=None, *, trilinear: bo
     sel = sel.contiguous() if sel is not None else None
     dev = rec.device
     out = torch.empty((tiles, 5, 4, blocks, 128), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.atlas_resolve_launch(
-            off.data_ptr(), cnts.data_ptr(), cnts.shape[1], staged.data_ptr(),
+    _LAUNCH(dev, off.data_ptr(), cnts.data_ptr(), cnts.shape[1], staged.data_ptr(),
             staged.shape[1] // 4, rec.data_ptr(), fx.data_ptr(), fy.data_ptr(), tl.data_ptr(),
             sel.data_ptr() if sel is not None else None, tiles, n_groups, blocks,
-            int(trilinear), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"atlas_resolve kernel launch failed: CUDA error {err}")
-        atlas_resolve.launches += 1
+            int(trilinear), out.data_ptr())
     return out
-
-
-atlas_resolve.launches = 0  # kernel launches in this process (reset by callers)
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.atlas_resolve_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, p, p, p, p, p, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def atlas_resolve_reference(off, cnts, staged, rec, fx, fy, tl, sel=None, *,

@@ -29,14 +29,19 @@ import ctypes
 
 import torch
 
+from ..kernels.launch import Entry
+
 SENTINEL = 2**31 - 1
 WIDE_CAP = 128       # a launch with a larger cap stands for kernel I
+WIDE = "cover_wide"  # the launch counter's name for kernel I (counted in B's too)
 MAX_GROUPS = 16      # group caps ride the launch as a fixed-size struct
-_KERNEL = "fused_cover"
 
 
 class _Caps(ctypes.Structure):
     _fields_ = [("v", ctypes.c_int * MAX_GROUPS)]
+
+
+_LAUNCH = Entry("fused_cover", "fused_cover_launch", (*"psps", *"iiiii", _Caps, *"pppp"))
 
 
 def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: int):
@@ -71,34 +76,10 @@ def fused_cover(pages: torch.Tensor, act: torch.Tensor, caps: tuple, block_cap: 
     cap_struct = _Caps()
     for i, c in enumerate(caps):
         cap_struct.v[i] = c
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.fused_cover_launch(
-            pages.data_ptr(), strides[0], act.data_ptr(), strides[1], tiles, g, blocks,
+    _LAUNCH(dev, pages.data_ptr(), strides[0], act.data_ptr(), strides[1], tiles, g, blocks,
             block_cap, cap_max, cap_struct, page_list.data_ptr(), count.data_ptr(),
-            slot.data_ptr(), cov.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fused_cover kernel launch failed: CUDA error {err}")
-        fused_cover.launches += 1
-        if cap_max > WIDE_CAP:
-            fused_cover.wide_launches += 1
+            slot.data_ptr(), cov.data_ptr(), also=(WIDE,) if cap_max > WIDE_CAP else ())
     return page_list, count, slot, cov
-
-
-fused_cover.launches = 0  # kernel launches in this process (reset by callers)
-fused_cover.wide_launches = 0  # of them, those at a cap above WIDE_CAP (kernel I)
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.fused_cover_launch
-    if fn.argtypes is None:
-        p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [p, s, p, s, i, i, i, i, i, _Caps, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def fused_cover_reference(pages: torch.Tensor, act: torch.Tensor, caps: tuple,

@@ -11,14 +11,13 @@ the CUDA body `csrc/env_resolve.cuh` is shared by kernels F and D.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import Entry
 from .resolve_shade_cuda import staged_rows
 
 REC_I32 = 8   # staged rows per page record: the 16 bf16 values packed in pairs
-_KERNEL = "env_resolve"
+_LAUNCH = Entry("env_resolve", "env_resolve_launch", "pppipppiiip")
 
 
 def env_resolve(off, cnts, staged, rec, fx, fy):
@@ -53,31 +52,10 @@ def env_resolve(off, cnts, staged, rec, fx, fy):
     c = [x.contiguous() for x in (off, cnts, staged, rec, fx, fy)]
     dev = rec.device
     out = torch.empty((tiles, n_groups, 4, blocks, 128), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.env_resolve_launch(
-            c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), staged.shape[1] // REC_I32,
+    _LAUNCH(dev, c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), staged.shape[1] // REC_I32,
             c[3].data_ptr(), c[4].data_ptr(), c[5].data_ptr(), tiles, n_groups, blocks,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"env_resolve kernel launch failed: CUDA error {err}")
-        env_resolve.launches += 1
+            out.data_ptr())
     return out
-
-
-env_resolve.launches = 0  # kernel launches in this process (reset by callers)
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.env_resolve_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 # ------------------------------------------------------- plain version ----

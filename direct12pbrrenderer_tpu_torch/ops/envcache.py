@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import PREFILTER_ENVMAP_MIP_LEVELS
+from ..kernels.launch import Entry
 from ..utils import trace
 from . import cover_cuda, env_resolve_cuda
 from .cover_two import SENTINEL
@@ -52,7 +53,11 @@ PAGE_RECORDS = PAGE_W * PAGE_H
 REC_F32 = 16  # 4 clamp-quad corners x 4 channels
 CAP_FB = 8    # fallback-page slots per group (a SEG_CHUNK-aligned static list)
 MAX_GROUPS = 5   # the deferred pass's tap groups: 4, or 5 with env content
-_KERNEL = "env_plan"
+# csrc/env_plan.cu's two kernels, each counted as a launch of env_plan; both
+# take the fields' arguments first
+_FIELDS = "pppppsiiiipin"
+_TAPS = Entry("env_plan", "env_plan_taps_launch", _FIELDS + "pp")
+_SELECT = Entry("env_plan", "env_plan_select_launch", _FIELDS + "pppippi" + "p" * 8)
 
 
 class FloatAtlas(NamedTuple):
@@ -415,52 +420,24 @@ def env_plan(atlas: FloatAtlas, refl, ray, roughness, n_dot_v, mask, env_ids: tu
     plane_shape = (tiles, g, blocks, 128)
     pages = torch.empty(plane_shape, dtype=torch.int32, device=dev)
     act = torch.empty(plane_shape, dtype=torch.bool, device=dev)
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.env_plan_taps_launch(*fields_args, pages.data_ptr(), act.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"env_plan tap kernel launch failed: CUDA error {err}")
-        page_list, count, slot, found = cover_cuda.fused_cover(pages, act, caps, 8)
-        off_arr = torch.empty((tiles, g), dtype=torch.int32, device=dev)
-        cnts = torch.empty((tiles, g), dtype=torch.int32, device=dev)
-        staged = torch.empty((tiles, budget * REC_I32, PAGE_RECORDS), dtype=torch.int32,
-                             device=dev)
-        rec_t = torch.empty(plane_shape, dtype=torch.int32, device=dev)
-        fx_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
-        fy_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
-        covered_t = torch.empty(plane_shape, dtype=torch.bool, device=dev)
-        env_approx = torch.zeros((), dtype=torch.int32, device=dev)
-        err = lib.env_plan_select_launch(
-            *fields_args, data.data_ptr(), count.data_ptr(), page_list.data_ptr(),
+    _TAPS(dev, *fields_args, pages.data_ptr(), act.data_ptr())
+    page_list, count, slot, found = cover_cuda.fused_cover(pages, act, caps, 8)
+    off_arr = torch.empty((tiles, g), dtype=torch.int32, device=dev)
+    cnts = torch.empty((tiles, g), dtype=torch.int32, device=dev)
+    staged = torch.empty((tiles, budget * REC_I32, PAGE_RECORDS), dtype=torch.int32, device=dev)
+    rec_t = torch.empty(plane_shape, dtype=torch.int32, device=dev)
+    fx_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
+    fy_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
+    covered_t = torch.empty(plane_shape, dtype=torch.bool, device=dev)
+    env_approx = torch.zeros((), dtype=torch.int32, device=dev)
+    _SELECT(dev, *fields_args, data.data_ptr(), count.data_ptr(), page_list.data_ptr(),
             page_list.shape[-1], slot.data_ptr(), found.data_ptr(), budget, off_arr.data_ptr(),
             cnts.data_ptr(), staged.data_ptr(), rec_t.data_ptr(), fx_t.data_ptr(),
-            fy_t.data_ptr(), covered_t.data_ptr(), env_approx.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"env_plan select kernel launch failed: CUDA error {err}")
-        env_plan.launches += 2
+            fy_t.data_ptr(), covered_t.data_ptr(), env_approx.data_ptr())
     trace.count("env_taps", act)
     trace.count("env_pages_staged", cnts)
     fracm = env_mip_level(roughness, env_mips)[1]
     return off_arr, cnts, staged, rec_t, fx_t, fy_t, covered_t, env_approx, fracm, has_env
-
-
-env_plan.launches = 0  # kernel launches in this process (reset by callers)
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    if lib.env_plan_taps_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fields = [p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, p, i,
-                  ctypes.POINTER(ctypes.c_int)]
-        lib.env_plan_taps_launch.argtypes = fields + [p, p, p]
-        lib.env_plan_taps_launch.restype = ctypes.c_int
-        lib.env_plan_select_launch.argtypes = fields + [p, p, p, i, p, p, i] + [p] * 9
-        lib.env_plan_select_launch.restype = ctypes.c_int
-    return lib
 
 
 def env_plan_reference(atlas: FloatAtlas, refl, ray, roughness, n_dot_v, mask, env_ids: tuple,

@@ -27,7 +27,6 @@ version of those lists (the tests and `chip_smoke.py`'s census use it).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from types import SimpleNamespace
@@ -35,6 +34,7 @@ from types import SimpleNamespace
 import torch
 
 from ..config import CLUSTER_X, CLUSTER_Y, CLUSTER_Z, MAX_LIGHTS_PER_CLUSTER
+from ..kernels.launch import Entry
 
 CHUNK = 128      # lights per staged chunk (the TPU kernel's lane width)
 ROW_LEN = 16     # staged light row: the 14 active-light columns + 2 zero
@@ -44,7 +44,7 @@ MAX_CAP = 65536  # the kernel keeps admitted list positions as uint16
 _EPS = 1e-6
 _INV_PI = 0.31830988618
 _PI = 3.14159265359
-_KERNEL = "point_lights"
+_LAUNCH = Entry("point_lights", "point_lights_launch", "ppppiiiiip")
 
 
 def tile_light_lists(rows, tiles_y: int, tiles_x: int, tile_h: int, tile_w: int,
@@ -144,30 +144,9 @@ def point_lights_kernel(counts, const, rows_t, gb_t, *, tile_h: int, tile_w: int
         c[3] = c[3].clone()
     dev = gb_t.device
     out = torch.empty((tiles, p, 4), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.point_lights_launch(
-            c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), c[3].data_ptr(), tiles, cap,
-            tile_h, tile_w, tiles_x, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"point_lights kernel launch failed: CUDA error {err}")
-        point_lights_kernel.launches += 1
+    _LAUNCH(dev, c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), c[3].data_ptr(), tiles, cap,
+            tile_h, tile_w, tiles_x, out.data_ptr())
     return out
-
-
-point_lights_kernel.launches = 0  # kernel launches in this process (reset by callers)
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.point_lights_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 # ------------------------------------------------------- plain version ----

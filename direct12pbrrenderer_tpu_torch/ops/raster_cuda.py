@@ -18,14 +18,15 @@ themselves); ties go to the lower tile index exactly like `lax.top_k`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import Entry
 from . import gbuffer, raster
 
 CHUNK = 128  # candidates per staged chunk (the TPU kernel's lane width)
 SLICE = 4 * CHUNK  # list entries one kernel block folds at most (raster_fold::kSlice)
+_INTERP = Entry("raster_interp", "raster_interp_launch", "ppipiiiiiiifppppp")
+_DEPTH = Entry("raster_depth", "raster_depth_launch", "ppipiiiiiifpppp")
 
 
 def split_caps(cap: int, num_tiles: int) -> tuple[int, int]:
@@ -142,9 +143,6 @@ def rasterize_interp(setup: raster.TriangleSetup, bins: raster.Bins, rows64: tor
     return tri_id, z, tiles(planes), tiles(tri_id[None]), tiles(z_bg[None])
 
 
-rasterize_interp.launches = 0  # kernel launches in this process (reset by callers)
-
-
 def _check_raster_args(rows, width, height, tile_h, tile_w, bins, row_cols):
     """Validate a raster kernel's inputs; -> (num_tiles, cap)."""
     tiles_y, tiles_x = height // tile_h, width // tile_w
@@ -238,17 +236,10 @@ def _launch(setup, bins, rows64, width, height, tile_h, tile_w, y_offset, cap_sm
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     planes = torch.empty((24, height, width), dtype=torch.float32, device=dev)
-    lib = _library("raster_interp")
-    with torch.cuda.device(dev):
-        err = lib.raster_interp_launch(
-            rows64.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
+    _INTERP(dev, rows64.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
             num_tiles, width, height, tile_h, tile_w, float(y_offset), scratch.data_ptr(),
             scratch[height * width:].data_ptr(), tri_id.data_ptr(), z.data_ptr(),
-            planes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"raster_interp kernel launch failed: CUDA error {err}")
-        rasterize_interp.launches += 1
+            planes.data_ptr())
     return tri_id, z, planes
 
 
@@ -277,37 +268,10 @@ def rasterize_depth(setup: raster.TriangleSetup, bins: raster.Bins, width: int, 
                           tile_h)
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
-    lib = _library("raster_depth")
-    with torch.cuda.device(dev):
-        err = lib.raster_depth_launch(
-            rows.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
-            num_tiles, width, tile_h, tile_w, float(y_offset), scratch.data_ptr(),
-            scratch[height * width:].data_ptr(), tri_id.data_ptr(), z.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"raster_depth kernel launch failed: CUDA error {err}")
-        rasterize_depth.launches += 1
+    _DEPTH(dev, rows.data_ptr(), ids.data_ptr(), cap, counts.data_ptr(), cap_small, hot_k,
+           num_tiles, width, tile_h, tile_w, float(y_offset), scratch.data_ptr(),
+           scratch[height * width:].data_ptr(), tri_id.data_ptr(), z.data_ptr())
     return tri_id, z
-
-
-rasterize_depth.launches = 0  # kernel launches in this process (reset by callers)
-
-_ARGTYPES = {  # the launch functions' C arguments: pointer, int, float
-    "raster_interp": "ppipiiiiiiifpppppp",
-    "raster_depth": "ppipiiiiiifppppp",
-}
-
-
-def _library(name: str) -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    if fn.argtypes is None:
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-        fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def rasterize_depth_reference(setup: raster.TriangleSetup, bins: raster.Bins, width: int,

@@ -11,13 +11,12 @@ the two: a CUDA input either launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..kernels.launch import Entry
 from . import tap_planes
 
-_KERNEL = "resolve_shade"
+_LAUNCH = Entry("resolve_shade", "resolve_shade_launch", "ppipiPsiiiip")
 
 
 def resolve_shade(off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel=None, *,
@@ -56,19 +55,10 @@ def resolve_shade(off, cnts, staged, rec, fx, fy, tl, attrs, flags, sel=None, *,
             raise ValueError(f"{name} must be contiguous, got strides {x.stride()}")
     dev = rec.device
     out = torch.empty((tiles, 9, blocks, 128), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.resolve_shade_launch(
-            off.data_ptr(), cnts.data_ptr(), cnt_cols, staged.data_ptr(), staged.shape[1] // 4,
-            ptrs, strides, tiles, n_groups, blocks, int(trilinear), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"resolve_shade kernel launch failed: CUDA error {err}")
-        resolve_shade.launches += 1
+    _LAUNCH(dev, off.data_ptr(), cnts.data_ptr(), cnt_cols, staged.data_ptr(),
+            staged.shape[1] // 4, ptrs, strides, tiles, n_groups, blocks, int(trilinear),
+            out.data_ptr())
     return out
-
-
-resolve_shade.launches = 0  # kernel launches in this process (reset by callers)
 
 
 def check_taps(off, cnts, staged, rec, fx, fy, tl, sel, trilinear: bool):
@@ -96,19 +86,6 @@ def check_taps(off, cnts, staged, rec, fx, fy, tl, sel, trilinear: bool):
         raise ValueError(f"rec must be int32 and staged (tiles, B*4, 128) int32 on "
                          f"{rec.device}, got {rec.dtype} and {tuple(staged.shape)} "
                          f"{staged.dtype} on {staged.device}")
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.resolve_shade_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
-                       i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 # ------------------------------------------------------- plain version ----

@@ -30,7 +30,6 @@ stays in float32 and each channel's contribution is accumulated in float32.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -43,6 +42,7 @@ from ..config import (
     MAX_LIGHTS_PER_CLUSTER,
 )
 
+from ..kernels.launch import Entry
 from ..utils import trace
 from . import common, envcache, tap_planes
 from .env_resolve_cuda import resolve_env_group
@@ -55,7 +55,7 @@ GB_CH = 14    # kernel gb channels [albedo(3), emission, normal(3), roughness,
               # metallic, z_view, mask, fracm, cov0, cov4]
 CONST_LEN = 64
 MAX_LIGHTS = 64
-_KERNEL = "deferred_shade"
+_LAUNCH = Entry("deferred_shade", "deferred_shade_launch", "ppipppiPsiiiiiiiip")
 # the light loop's instances: None (float32, division) and the TPU kernel's
 # light_dtype values, with the code deferred_shade_launch selects them by
 LIGHT_DTYPES = {None: (torch.float32, 0), "float32": (torch.float32, 1),
@@ -119,41 +119,13 @@ def deferred_kernel(const, lights, off, cnts, staged, rec, fx, fy, gb, *, has_en
             raise ValueError(f"{name} must be contiguous, got strides {x.stride()}")
     dev = rec.device
     out = torch.empty((tiles, 4, blocks, 128), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.deferred_shade_launch(
-            const.data_ptr(), lights.data_ptr(), lights.shape[0], off.data_ptr(),
+    # a light_dtype's launches also count under the instance's own name
+    _LAUNCH(dev, const.data_ptr(), lights.data_ptr(), lights.shape[0], off.data_ptr(),
             cnts.data_ptr(), staged.data_ptr(), staged.shape[1] // envcache.REC_I32, ptrs,
             strides, tiles, n_groups, blocks, int(has_env), tile_h, tile_w, tiles_x,
             LIGHT_DTYPES[light_dtype][1], out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"deferred_shade kernel launch failed: CUDA error {err}")
-        deferred_kernel.launches += 1
-        if light_dtype is not None:
-            counter = f"{light_dtype}_launches"
-            setattr(deferred_kernel, counter, getattr(deferred_kernel, counter) + 1)
+            also=(f"deferred_shade_{light_dtype}",) if light_dtype is not None else ())
     return out
-
-
-deferred_kernel.launches = 0  # kernel launches in this process (reset by callers)
-# of them, those of each light_dtype instance
-deferred_kernel.float32_launches = 0
-deferred_kernel.bfloat16_launches = 0
-deferred_kernel.float16_launches = 0
-
-
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    fn = lib.deferred_shade_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, p, i, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_longlong),
-                       i, i, i, i, i, i, i, i, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 # ------------------------------------------------------- plain version ----

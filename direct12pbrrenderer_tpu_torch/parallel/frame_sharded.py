@@ -19,9 +19,11 @@ with `all_reduce` only:
 * tone mapping and quantization per band.
 
 `build_sharded_frame(mesh, pipe)` reads every knob off the pipeline it
-shards and calls the same `pipeline.stages` entry points, so the band frame
-runs the kernels of the pipeline's path (on the card: A, B, C, D by default;
-A, B, C, F, G with more than 64 lights) at the band's offset. Each rank
+shards, takes the pipeline's route on its band's canvas
+(`DeferredRenderPipeline.route`) and runs the pipeline's own passes
+(`pipeline.stages`: `cull`, `gbuffer_pass`, `deferred_shading`), so the band
+frame runs the kernels of the pipeline's path (on the card: A, B, C, D by
+default; A, B, C, F, G with more than 64 lights) at the band's offset. Each rank
 builds its own pipeline from the same scene: scene buffers and lights are
 replicated. The collectives run on the rank's device tensors; with the gloo
 backend on CUDA tensors the copies to host memory are gloo's own.
@@ -60,7 +62,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from ..ops import bloom as bloom_ops
-from ..ops import common, postprocess, texcache
+from ..ops import postprocess
 from ..pipeline import stages
 from ..pipeline.deferred import CapturedGraph, _replays, _tensors, capture
 from ..utils import trace
@@ -237,66 +239,35 @@ def build_sharded_frame(mesh: BandMesh, pipe, collect_stats: bool = False) -> Ba
     band_h = h // n
     band_rh = -(-band_h // tile_h) * tile_h   # the band's pad-to-tile canvas
     rw = -(-w // tile_w) * tile_w
-    band_tile = texcache.pick_tile(band_rh, rw)
-    use_tex_kernel = pipe.use_tex_kernel and band_tile is not None
-    use_fused = (pipe.use_fused_gbuffer and use_tex_kernel and tile_w % 128 == 0
-                 and tile_h % 2 == 0)
-    env_ids = pipe.env_ids if band_tile is not None else None
-    # the fused deferred pass follows the pipeline's own gate (<= 64 lights,
-    # no light tile), band-gated on the env cache like the rest
-    use_fused_deferred = use_fused and pipe.use_fused_deferred and env_ids is not None
+    route = pipe.route(band_rh, rw)
     y0 = mesh.rank * band_h
-    viewport = (w, h)
 
     def band_render(buffers, model_mats, normal_mats, instance_bounds, light_bounds,
                     frustum_planes, view, inv_view, view_proj, camera_pos):
-        # the Cull pass on the device; the pool's padding rows (zero AABBs
-        # at the origin) are masked off by index
         trace.begin_frame(pipe.tracer)
         trace.stage("Cull", 1)
-        dev = instance_bounds.device
-        n_inst, n_lgt = pipe.packed.instance_count, pipe.packed.light_count
-        instance_visible = common.frustum_cull_aabbs(
-            frustum_planes, instance_bounds[:, 0], instance_bounds[:, 1]
-        ) & (torch.arange(instance_bounds.shape[0], device=dev) < n_inst)
-        light_valid = common.frustum_cull_aabbs(
-            frustum_planes, light_bounds[:, 0], light_bounds[:, 1]
-        ) & (torch.arange(light_bounds.shape[0], device=dev) < n_lgt)
-
+        instance_visible, light_valid, _ = stages.cull(
+            frustum_planes, instance_bounds, light_bounds, pipe.packed.instance_count,
+            pipe.packed.light_count)
         trace.stage("GBuffer", 1)
         gb, bins, tiles = stages.gbuffer_pass(
             buffers, model_mats, normal_mats, instance_visible, view_proj, w, h, rw, band_rh,
-            tile_h, tile_w, bin_cap, use_pallas=pipe.use_pallas, use_fused=use_fused,
-            use_tex_kernel=use_tex_kernel, texture_filter=pipe.texture_filter,
-            tex_caps=pipe.tex_caps, tex_cascade=pipe.tex_cascade, raster_caps=pipe.raster_caps,
-            return_tiled=use_fused_deferred, y_offset=y0)
+            tile_h, tile_w, bin_cap, route, use_pallas=pipe.use_pallas,
+            texture_filter=pipe.texture_filter, tex_caps=pipe.tex_caps,
+            tex_cascade=pipe.tex_cascade, raster_caps=pipe.raster_caps, y_offset=y0)
         trace.stage("Clustered", 1)
         active = stages.active_lights(buffers, light_valid, view, pipe.max_active_lights)
         trace.stage("DeferredShading", 1)
-        light_counts = None
-        if use_fused_deferred:
-            # kernel D: the pixel coordinates ride y_offset / full_height. Its
-            # light loop stays float32 whatever pipe.fused_light_dtype says:
-            # the JAX band frame does not pass its light_dtype either
-            gb_tiles, z_tiles, id_tiles = tiles
-            rt, env_approx = stages.deferred_shade_fused(
-                gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos, cfg, rw,
-                band_rh, tile_h, tile_w, env_ids, y_offset=y0, full_height=h, full_width=w,
-                env_budget=pipe.env_budget)
-        else:
-            # with a light tile the counts are those of the pass's own
-            # lights_cuda.tile_light_lists(..., y_offset=y0) call
-            rt, env_approx, light_counts = stages.deferred_shade(
-                gb, buffers, active, inv_view, camera_pos, cfg, rw, band_rh, y_offset=y0,
-                full_height=h, full_width=w, env_ids=env_ids,
-                env_tile=band_tile if env_ids is not None else None,
-                env_budget=pipe.env_budget, return_env_approx=True,
-                light_tile=pipe.light_tile, light_cap=pipe.light_cap,
-                return_light_counts=True, light_count=pipe.packed.light_count)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        tex_approx = gb.tex_approx if gb.tex_approx is not None else zero
-        trunc = (zero if light_counts is None
-                 else torch.clamp(light_counts - pipe.light_cap, min=0).max())
+        # the band frame's one difference from the pipeline's pass: kernel D's
+        # light loop stays float32 whatever pipe.fused_light_dtype says, as
+        # the JAX band frame passes no light_dtype either
+        rt, env_approx, trunc = stages.deferred_shading(
+            route, gb, tiles, buffers, active, inv_view, camera_pos, cfg, rw, band_rh, tile_h,
+            tile_w, full_width=w, full_height=h, y_offset=y0, env_budget=pipe.env_budget,
+            light_dtype=None, light_tile=pipe.light_tile, light_cap=pipe.light_cap,
+            light_count=pipe.packed.light_count)
+        tex_approx = (gb.tex_approx if gb.tex_approx is not None
+                      else torch.zeros((), dtype=torch.int32, device=rt.device))
         return rt[:band_h, :w], (bins.counts, tex_approx, env_approx, trunc)
 
     def post(rt, stats, prev_avg_lum, delta_time):

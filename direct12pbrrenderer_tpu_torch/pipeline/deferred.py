@@ -62,6 +62,7 @@ as well as the port's own.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import gc
@@ -80,10 +81,10 @@ from ..config import (
     RenderConfig,
 )
 from ..graph import frame_graph as fg
+from ..kernels.launch import LAUNCHES
 from ..ops import bloom as bloom_ops
-from ..ops import (aniso_cuda, atlas_resolve_cuda, clustered, common, cover_cuda,
-                   env_resolve_cuda, envcache, gbuffer, ibl, lights_cuda, postprocess, raster_cuda,
-                   resolve_shade_cuda, shade_fused, texcache)
+from ..ops import (clustered, common, envcache, gbuffer, ibl, postprocess, raster_cuda, shade_fused,
+                   texcache)
 from ..scene.camera import Camera
 from ..scene.scene import Scene
 from ..tools import tap_census
@@ -100,8 +101,6 @@ _GRAPH_KNOBS = ("tex_caps", "env_budget", "tex_cascade", "fused_light_dtype", "t
                 "max_active_lights", "raster_caps", "bin_cap", "tile_h", "tile_w",
                 "render_w", "render_h", "use_pallas", "use_tex_kernel", "use_fused_gbuffer",
                 "use_fused_deferred", "light_tile", "light_cap", "env_ids", "env_tile")
-_KERNEL_MODULES = (raster_cuda, cover_cuda, resolve_shade_cuda, shade_fused, atlas_resolve_cuda,
-                   env_resolve_cuda, lights_cuda, envcache, aniso_cuda)
 _EAGER = threading.local()   # `depth`: the thread's open `eager()` blocks
 
 
@@ -121,24 +120,6 @@ def eager():
 
 def _replays() -> bool:
     return not getattr(_EAGER, "depth", 0)
-
-
-def _launch_counters() -> dict[tuple, int]:
-    """{(module, wrapper, counter): count} of every kernel wrapper's launch
-    counters (its `*launches` attributes)."""
-    out = {}
-    for mod in _KERNEL_MODULES:
-        for name, fn in vars(mod).items():
-            if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
-                out.update({(mod, name, attr): n for attr, n in vars(fn).items()
-                            if attr.endswith("launches") and isinstance(n, int)})
-    return out
-
-
-def _add_launches(counts: dict[tuple, int]) -> None:
-    for (mod, name, attr), n in counts.items():
-        fn = getattr(mod, name)
-        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def _tensors(x):
@@ -179,19 +160,20 @@ class CapturedGraph:
     every replay overwrites."""
     graph: torch.cuda.CUDAGraph
     outputs: object
-    launches: dict = field(repr=False)   # kernel launches a replay makes
+    launches: collections.Counter = field(repr=False)   # kernel name -> launches a replay makes
     capture_s: float = 0.0               # host seconds of the capture
     pool_bytes: int = 0                  # device memory the capture reserved
     trace_state: tuple | None = field(default=None, repr=False)   # `trace.snapshot()`
 
     def replay(self) -> None:
-        """Replay the graph on the current stream; each wrapper's launch
-        counter gains the launches the capture recorded. A graph captured
-        with its frame traced (`trace_state`) has begun a frame on the
-        device, and this thread's later marks continue its row."""
+        """Replay the graph on the current stream; the launch counter
+        (`kernels.launch.LAUNCHES`) gains the launches the capture recorded.
+        A graph captured with its frame traced (`trace_state`) has begun a
+        frame on the device, and this thread's later marks continue its
+        row."""
         self.graph.replay()
         trace.resume(self.trace_state)
-        _add_launches(self.launches)
+        LAUNCHES.update(self.launches)
 
 
 def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
@@ -201,8 +183,8 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
     scratch of that stream, cuBLAS's workspace, the device constants and,
     for a call with NCCL collectives, the communicator). The capture is
     thread-local: other threads' CUDA calls go on. A capture launches
-    nothing, so the wrappers' launch counts are left as they were before
-    it; a failed capture raises. Where `fn` traces its frame
+    nothing, so the launch counter is left as it was before it; a failed
+    capture raises. Where `fn` traces its frame
     (`utils/trace.py`), the graph holds the marks and `trace_state` the
     recording as the capture left it."""
     dev = stream.device
@@ -214,7 +196,7 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
     gc.collect()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
-    counts = _launch_counters()
+    before = LAUNCHES.copy()
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
     trace.clear()
@@ -223,13 +205,10 @@ def capture(fn, stream: torch.cuda.Stream) -> CapturedGraph:
             outputs = fn()
         state = trace.snapshot()
     finally:
-        after = _launch_counters()
-        for (mod, name, attr), n in counts.items():
-            setattr(getattr(mod, name), attr, n)
+        launches = LAUNCHES - before
+        LAUNCHES.subtract(launches)
     torch.cuda.synchronize(dev)
-    return CapturedGraph(graph, outputs,
-                         launches={k: n - counts.get(k, 0) for k, n in after.items()
-                                   if n != counts.get(k, 0)},
+    return CapturedGraph(graph, outputs, launches=launches,
                          capture_s=time.perf_counter() - t0,
                          pool_bytes=torch.cuda.memory_reserved(dev) - reserved, trace_state=state)
 
@@ -371,8 +350,7 @@ class DeferredRenderPipeline:
         self.use_pallas = use_pallas
         if use_tex_kernel is None:
             use_tex_kernel = on_gpu
-        self.use_tex_kernel = (bool(use_tex_kernel)
-                               and texcache.pick_tile(self.render_h, self.render_w) is not None)
+        self.use_tex_kernel = bool(use_tex_kernel)
         # the fused G-buffer needs the raster tile to be the cache tile
         # (128-pixel lane rows, even height for the 2x2 quads); anisotropic
         # filtering stays on the planar path (the multi-tap sampler)
@@ -384,6 +362,12 @@ class DeferredRenderPipeline:
         self.use_fused_deferred = (self.use_fused_gbuffer and self.light_tile is None
                                    and max_active_lights <= 64
                                    and tile_h * tile_w <= 4096)
+        # the caches need a tiling of the canvas: the route on the full one
+        self.env_ids = None
+        route = self.route(self.render_h, self.render_w)
+        self.use_tex_kernel, self.env_tile = route.use_tex_kernel, route.env_tile
+        self.use_fused_gbuffer = route.use_fused_gbuffer
+        self.use_fused_deferred = route.use_fused_deferred
 
         self.scene = scene
         self.packed: PackedScene = pack_scene(scene, cfg, atlas_max_dim)
@@ -444,7 +428,6 @@ class DeferredRenderPipeline:
         # float page cache for the deferred taps (env cube trilinear halves,
         # BRDF LUT, skybox): the texture-cache path's env atlas, read by
         # kernel D (fused pass) or kernel F (unfused pass)
-        self.env_ids = self.env_tile = None
         if self.use_tex_kernel:
             b = envcache.FloatAtlasBuilder()
             pf_np = [m.cpu().numpy() for m in pf]
@@ -455,7 +438,6 @@ class DeferredRenderPipeline:
             self.buffers["EnvCache"] = b.build(device)
             has_env = scene.skybox is not None and scene.skybox.cubemap is not None
             self.env_ids = (env_base, sky_base, lut_tid, len(pf_np), has_env)
-            self.env_tile = texcache.pick_tile(self.render_h, self.render_w)
         self.graph = self._build_graph()
         self.avg_luminance = torch.zeros((), dtype=torch.float32, device=device)
         self.last_stats: FrameStats | None = None
@@ -477,6 +459,21 @@ class DeferredRenderPipeline:
         self.buffers = state
         self.avg_luminance = avg.to(self.device)
 
+    def route(self, canvas_h: int, canvas_w: int) -> stages.Route:
+        """The path of a frame on a (canvas_h, canvas_w) canvas: the
+        pipeline's own (`use_tex_kernel`, `use_fused_gbuffer`,
+        `use_fused_deferred`, as the knobs set them) where the texture and
+        env caches can tile the canvas (`texcache.pick_tile`), else the
+        direct-atlas samplers and the unfused pass without the env cache.
+        The pipeline takes it on its full canvas, the band frame on its
+        band's; so a band's path is never wider than the pipeline's, whose
+        `env_ids` and EnvCache buffer exist only where its caches are on."""
+        tile = texcache.pick_tile(canvas_h, canvas_w) if self.use_tex_kernel else None
+        fused = self.use_fused_gbuffer and tile is not None
+        return stages.Route(use_tex_kernel=tile is not None, use_fused_gbuffer=fused,
+                            use_fused_deferred=fused and self.use_fused_deferred,
+                            env_ids=self.env_ids if tile is not None else None, env_tile=tile)
+
     # ------------------------------------------------------------------
     def _build_graph(self) -> fg.CompiledGraph:
         cfg = self.config
@@ -484,19 +481,9 @@ class DeferredRenderPipeline:
         rw, rh = self.render_w, self.render_h  # padded raster canvas
 
         def cull_pass(env):
-            p = self.packed
-            n_inst, n_lgt = p.instance_count, p.light_count
-            vis = torch.zeros((p.model_mats.shape[0],), dtype=torch.bool, device=self.device)
-            if n_inst:
-                vis[:n_inst] = common.frustum_cull_aabbs(
-                    env["FrustumPlanes"], env["InstanceBounds"][:n_inst, 0],
-                    env["InstanceBounds"][:n_inst, 1])
-            lv = torch.zeros((p.light_pos.shape[0],), dtype=torch.bool, device=self.device)
-            if n_lgt:
-                lv[:n_lgt] = common.frustum_cull_aabbs(
-                    env["FrustumPlanes"], env["LightBounds"][:n_lgt, 0],
-                    env["LightBounds"][:n_lgt, 1])
-            counts = torch.stack([vis.sum(), lv.sum()]).to(torch.int32)
+            vis, lv, counts = stages.cull(env["FrustumPlanes"], env["InstanceBounds"],
+                                          env["LightBounds"], self.packed.instance_count,
+                                          self.packed.light_count)
             return {"InstanceVisible": vis, "LightValid": lv, "VisibleCounts": counts}
 
         def clustered_pass(env):
@@ -512,10 +499,9 @@ class DeferredRenderPipeline:
             gb, bins, tiles = stages.gbuffer_pass(
                 env, env["ModelMats"], env["NormalMats"], env["InstanceVisible"],
                 env["ViewProj"], w, h, rw, rh, self.tile_h, self.tile_w, self.bin_cap,
-                use_pallas=self.use_pallas, use_fused=self.use_fused_gbuffer,
-                use_tex_kernel=self.use_tex_kernel, texture_filter=self.texture_filter,
-                tex_caps=self.tex_caps, tex_cascade=self.tex_cascade,
-                raster_caps=self.raster_caps, return_tiled=self.use_fused_deferred)
+                self.route(rh, rw), use_pallas=self.use_pallas,
+                texture_filter=self.texture_filter, tex_caps=self.tex_caps,
+                tex_cascade=self.tex_cascade, raster_caps=self.raster_caps)
             return {
                 **({"GBufferTiles": tiles} if tiles is not None else {}),
                 "GBufferA": gb.albedo_emission,
@@ -528,35 +514,16 @@ class DeferredRenderPipeline:
             }
 
         def deferred_pass(env):
-            depth, mask = env["GBufferDepthStencil"]
-            _bounds, active = env["FrustumCluster"]
-            zero = torch.zeros((), dtype=torch.int32, device=self.device)
-            if self.use_fused_deferred:
-                # env resolve + SH + split-sum + clustered lights + sky in
-                # kernel D, on the G-buffer tile blocks
-                gb_tiles, z_tiles, id_tiles = env["GBufferTiles"]
-                rt, env_approx = stages.deferred_shade_fused(
-                    gb_tiles, z_tiles, id_tiles, env, active, env["InvView"],
-                    env["CameraPos"], cfg, rw, rh, self.tile_h, self.tile_w, self.env_ids,
-                    full_height=h, full_width=w, env_budget=self.env_budget,
-                    light_dtype=self.fused_light_dtype)
-                if (rw, rh) != (w, h):
-                    rt = rt[:h, :w].contiguous()
-                return {"DeferredShadingRT": rt, "LightTruncCount": zero,
-                        "EnvApproxCount": env_approx}
             gb = gbuffer.GBuffer(env["GBufferA"], env["GBufferB"], env["GBufferC"],
-                                 depth, mask)
-            rt, env_approx, light_counts = stages.deferred_shade(
-                gb, env, active, env["InvView"], env["CameraPos"], cfg, rw, rh,
-                full_height=h, full_width=w, env_ids=self.env_ids, env_tile=self.env_tile,
-                env_budget=self.env_budget, return_env_approx=True,
-                light_tile=self.light_tile, light_cap=self.light_cap,
-                return_light_counts=True, light_count=self.packed.light_count)
+                                 *env["GBufferDepthStencil"])
+            rt, env_approx, trunc = stages.deferred_shading(
+                self.route(rh, rw), gb, env.get("GBufferTiles"), env, env["FrustumCluster"][1],
+                env["InvView"], env["CameraPos"], cfg, rw, rh, self.tile_h, self.tile_w,
+                full_width=w, full_height=h, env_budget=self.env_budget,
+                light_dtype=self.fused_light_dtype, light_tile=self.light_tile,
+                light_cap=self.light_cap, light_count=self.packed.light_count)
             if (rw, rh) != (w, h):
                 rt = rt[:h, :w].contiguous()  # crop the pad-to-tile canvas
-            # per-tile culled-light counts beyond the cap: truncation
-            trunc = (zero if light_counts is None
-                     else torch.clamp(light_counts - self.light_cap, min=0).max())
             return {"DeferredShadingRT": rt, "LightTruncCount": trunc,
                     "EnvApproxCount": env_approx}
 

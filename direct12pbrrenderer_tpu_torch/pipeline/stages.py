@@ -2,8 +2,10 @@
 
 One implementation of the heavy frame stages, shared by the pipeline (a
 full frame is one band at y_offset 0) and by the band frame
-(`parallel/frame_sharded.py`). `gbuffer_pass` is the GBuffer pass of both, and
-marks its stages for the tracer (`utils/trace.py`): gbuffer.geometry,
+(`parallel/frame_sharded.py`). `cull`, `gbuffer_pass` and `deferred_shading`
+are the Cull, GBuffer and DeferredShading passes of both, on the path a
+`Route` names (`DeferredRenderPipeline.route`). `gbuffer_pass` marks its
+stages for the tracer (`utils/trace.py`): gbuffer.geometry,
 gbuffer.binning, gbuffer.raster, gbuffer.tex_plan (the taps' setup and the
 texture plan) and gbuffer.tex_resolve (from the end of the plan, which
 `ops/texcache.py` marks, or where `ops/gbuffer.py` starts a sampler that
@@ -12,10 +14,42 @@ needs no plan).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from ..ops import clustered, gbuffer, raster, raster_cuda, shade_fused, shading
+from ..ops import clustered, common, gbuffer, raster, raster_cuda, shade_fused, shading
 from ..utils import trace
+
+
+@dataclass(frozen=True)
+class Route:
+    """The path of a frame on one canvas (`DeferredRenderPipeline.route`):
+    the texture and env caches where `use_tex_kernel` (`env_tile`, the
+    canvas's cache tiling, and `env_ids`, the env atlas's ids, are None
+    otherwise), the fused G-buffer and the fused deferred pass."""
+    use_tex_kernel: bool
+    use_fused_gbuffer: bool
+    use_fused_deferred: bool
+    env_ids: tuple | None
+    env_tile: tuple | None
+
+
+def cull(frustum_planes, instance_bounds, light_bounds, n_instances: int, n_lights: int):
+    """The Cull pass: the frustum test of the first `n_instances` instance
+    and `n_lights` light AABBs of the pools (the padding rows past them are
+    not visible) -> (instance_visible, light_valid, visible_counts (2,)
+    int32)."""
+    dev = instance_bounds.device
+    vis = torch.zeros((instance_bounds.shape[0],), dtype=torch.bool, device=dev)
+    if n_instances:
+        vis[:n_instances] = common.frustum_cull_aabbs(
+            frustum_planes, instance_bounds[:n_instances, 0], instance_bounds[:n_instances, 1])
+    lv = torch.zeros((light_bounds.shape[0],), dtype=torch.bool, device=dev)
+    if n_lights:
+        lv[:n_lights] = common.frustum_cull_aabbs(
+            frustum_planes, light_bounds[:n_lights, 0], light_bounds[:n_lights, 1])
+    return vis, lv, torch.stack([vis.sum(), lv.sum()]).to(torch.int32)
 
 
 def geometry(buffers, model_mats, normal_mats, instance_visible, view_proj,
@@ -100,18 +134,16 @@ def gbuffer_shade(tri_id, depth, setup, buffers, vattrs, width: int, band_h: int
 
 def gbuffer_pass(buffers, model_mats, normal_mats, instance_visible, view_proj, width: int,
                  height: int, canvas_w: int, canvas_h: int, tile_h: int, tile_w: int,
-                 bin_cap: int, *, use_pallas: bool, use_fused: bool, use_tex_kernel: bool,
-                 texture_filter: str, tex_caps, tex_cascade, raster_caps, return_tiled: bool,
-                 y_offset=0):
+                 bin_cap: int, route: Route, *, use_pallas: bool, texture_filter: str, tex_caps,
+                 tex_cascade, raster_caps, y_offset=0):
     """The GBuffer pass of a frame, or of the band at `y_offset` on its
     (canvas_w, canvas_h) pad-to-tile canvas: geometry at the (width,
     height) viewport, binning, then the raster and the G-buffer shade of
-    the path. With `use_fused`, kernel A's tile blocks feed the fused
-    G-buffer (plan, kernels B and C); with `use_pallas`, kernel A's (H, W)
-    planes feed the planar G-buffer; otherwise the plain depth fold feeds
-    the row gather. Returns (GBuffer, bins, tiles):
-    tiles (gb_tiles, z_tiles, id_tiles) for the fused deferred pass with
-    `return_tiled` on the fused path, else None."""
+    the route's path. On the fused G-buffer, kernel A's tile blocks feed
+    the plan (kernels B and C); with `use_pallas`, kernel A's (H, W) planes
+    feed the planar G-buffer; otherwise the plain depth fold feeds the row
+    gather. Returns (GBuffer, bins, tiles): tiles (gb_tiles, z_tiles,
+    id_tiles) for the fused deferred pass, else None."""
     viewport = (width, height)
     trace.stage("gbuffer.geometry", 2)
     setup, vattrs = geometry(buffers, model_mats, normal_mats, instance_visible, view_proj,
@@ -119,7 +151,7 @@ def gbuffer_pass(buffers, model_mats, normal_mats, instance_visible, view_proj, 
     trace.stage("gbuffer.binning", 2)
     bins = binning(setup, canvas_w, canvas_h, tile_h, tile_w, bin_cap, y_offset=y_offset)
     trace.stage("gbuffer.raster", 2)
-    if use_fused:
+    if route.use_fused_gbuffer:
         tri_id, depth, pl_tiles, id_tiles, z_tiles = rasterize_interp(
             setup, bins, buffers, vattrs, canvas_w, canvas_h, tile_h, tile_w, y_offset=y_offset,
             return_tiled=True, raster_caps=raster_caps, viewport=viewport)
@@ -127,8 +159,8 @@ def gbuffer_pass(buffers, model_mats, normal_mats, instance_visible, view_proj, 
         out = gbuffer.gbuffer_shade_fused(
             tri_id, depth, pl_tiles, id_tiles, buffers["atlas"], canvas_h, canvas_w, tile_h,
             tile_w, texture_filter, tex_caps=tex_caps, tex_cascade=tex_cascade,
-            return_tiled=return_tiled)
-        if return_tiled:
+            return_tiled=route.use_fused_deferred)
+        if route.use_fused_deferred:
             gb, gb_tiles = out
             return gb, bins, (gb_tiles, z_tiles, id_tiles)
         return out, bins, None
@@ -139,14 +171,14 @@ def gbuffer_pass(buffers, model_mats, normal_mats, instance_visible, view_proj, 
         trace.stage("gbuffer.tex_plan", 2)
         gb = gbuffer.gbuffer_shade_planar(
             tri_id, depth, planes, buffers["atlas"], texture_filter,
-            use_tex_kernel=use_tex_kernel, tex_caps=tex_caps, tex_cascade=tex_cascade)
+            use_tex_kernel=route.use_tex_kernel, tex_caps=tex_caps, tex_cascade=tex_cascade)
     else:
         tri_id, depth = rasterize(setup, bins, canvas_w, canvas_h, tile_h, tile_w, False,
                                   y_offset=y_offset, raster_caps=raster_caps, viewport=viewport)
         trace.stage("gbuffer.tex_plan", 2)
         gb = gbuffer_shade(tri_id, depth, setup, buffers, vattrs, canvas_w, canvas_h,
                            texture_filter=texture_filter, y_offset=y_offset,
-                           use_tex_kernel=use_tex_kernel, tex_caps=tex_caps,
+                           use_tex_kernel=route.use_tex_kernel, tex_caps=tex_caps,
                            tex_cascade=tex_cascade)
     return gb, bins, None
 
@@ -196,3 +228,38 @@ def deferred_shade(gb: gbuffer.GBuffer, buffers, active, inv_view, camera_pos, c
         return_env_approx=return_env_approx, light_tile=light_tile, light_cap=light_cap,
         return_light_counts=return_light_counts, light_count=light_count,
     )
+
+
+def deferred_shading(route: Route, gb: gbuffer.GBuffer, tiles, buffers, active, inv_view,
+                     camera_pos, config, canvas_w: int, canvas_h: int, tile_h: int, tile_w: int,
+                     *, full_width: int, full_height: int, y_offset=0, env_budget: int | None,
+                     light_dtype: str | None, light_tile: tuple | None, light_cap: int,
+                     light_count: int):
+    """The DeferredShading pass of a frame, or of the band at `y_offset`, on
+    its (canvas_w, canvas_h) canvas: the fused pass (kernel D, its light
+    loop in `light_dtype`) from `gbuffer_pass`'s tile blocks where the route
+    takes it, else the unfused pass on the G-buffer planes (`deferred_shade`).
+    Returns (RT (canvas_h, canvas_w, 3), env_approx, light_trunc): the env
+    taps left to the fallback and the most culled lights any light tile
+    held beyond `light_cap` (0 on the fused pass)."""
+    zero = torch.zeros((), dtype=torch.int32, device=active.device)
+    if route.use_fused_deferred:
+        # env resolve + SH + split-sum + clustered lights + sky in kernel D,
+        # on the G-buffer tile blocks; the pixel coordinates ride y_offset
+        gb_tiles, z_tiles, id_tiles = tiles
+        rt, env_approx = deferred_shade_fused(
+            gb_tiles, z_tiles, id_tiles, buffers, active, inv_view, camera_pos, config, canvas_w,
+            canvas_h, tile_h, tile_w, route.env_ids, y_offset=y_offset, full_height=full_height,
+            full_width=full_width, env_budget=env_budget, light_dtype=light_dtype)
+        return rt, env_approx, zero
+    # with a light tile the counts are those of the pass's own
+    # lights_cuda.tile_light_lists(..., y_offset) call
+    rt, env_approx, light_counts = deferred_shade(
+        gb, buffers, active, inv_view, camera_pos, config, canvas_w, canvas_h, y_offset=y_offset,
+        full_height=full_height, full_width=full_width, env_ids=route.env_ids,
+        env_tile=route.env_tile, env_budget=env_budget, return_env_approx=True,
+        light_tile=light_tile, light_cap=light_cap, return_light_counts=True,
+        light_count=light_count)
+    # per-tile culled-light counts beyond the cap: truncation
+    trunc = zero if light_counts is None else torch.clamp(light_counts - light_cap, min=0).max()
+    return rt, env_approx, trunc

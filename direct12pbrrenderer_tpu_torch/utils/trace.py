@@ -52,7 +52,6 @@ time.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import itertools
 import json
 import threading
@@ -62,11 +61,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.launch import Entry
+
 MAX_MARKS = 96          # marks a frame's row holds
 CALIBRATION_TRIES = 16  # timer readings of a calibration; the tightest is kept
 PLAN_COUNTERS = ("tex_taps", "tex_pages_staged", "env_taps", "env_pages_staged")
 CALLER = "caller"       # a seam's name where no span of the program was open
-_KERNEL = "trace_mark"
+# csrc/trace_mark.cu's kernels, not counted as launches: a mark, one timer
+# read, the timer's step
+_MARK = Entry("trace_mark", "trace_mark_launch", "ppiiiii", counted=False)
+_NOW = Entry("trace_mark", "trace_now_launch", "p", counted=False)
+_STEP = Entry("trace_mark", "trace_step_launch", "pi", counted=False)
 _SERIAL = itertools.count(1)
 _LOCAL = threading.local()   # .rec: this thread's recorder; .counts: its frame's counters
 NO_SPAN = contextlib.nullcontext()
@@ -244,34 +249,12 @@ def count(name: str, x: torch.Tensor) -> None:
         torch.sum(x, dim=tuple(range(x.dim())), out=counts[PLAN_COUNTERS.index(name)])
 
 
-def _library() -> ctypes.CDLL:
-    from ..kernels import build
-
-    lib = build.load(_KERNEL)
-    if lib.trace_mark_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.trace_mark_launch.argtypes = [p, p, i, i, i, i, i, p]
-        lib.trace_now_launch.argtypes = [p, p]
-        lib.trace_step_launch.argtypes = [p, i, p]
-        for fn in (lib.trace_mark_launch, lib.trace_now_launch, lib.trace_step_launch):
-            fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def timer_step_ns(device, iters: int = 200_000) -> int:
     """The smallest nonzero step of the card's `%globaltimer` (its
     resolution) over `iters` reads by one thread."""
     device = torch.device(device)
     out = torch.zeros(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        _check(_library().trace_step_launch(out.data_ptr(), iters,
-                                            torch.cuda.current_stream(device).cuda_stream),
-               "trace_step")
+    _STEP(device, out.data_ptr(), iters)
     return int(out.item())
 
 
@@ -302,11 +285,8 @@ class Tracer:
         """One mark: on a card a kernel on the current stream, on the CPU the
         host clock now."""
         if self.cuda:
-            with torch.cuda.device(self.device):
-                _check(_library().trace_mark_launch(
-                    self.ring.data_ptr(), self.counter.data_ptr(), self.ring_frames, self.width,
-                    col, int(begin), layout_id, torch.cuda.current_stream(self.device).cuda_stream),
-                    "trace_mark")
+            _MARK(self.device, self.ring.data_ptr(), self.counter.data_ptr(), self.ring_frames,
+                  self.width, col, int(begin), layout_id)
             return
         t = time.perf_counter_ns()
         if begin:
@@ -341,13 +321,13 @@ class Tracer:
         if not self.cuda:
             return 0, 0
         out = torch.zeros(1, dtype=torch.int64, device=self.device)
-        lib, best = _library(), None
+        best = None
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device)
             for _ in range(CALIBRATION_TRIES):
                 stream.synchronize()
                 t0 = time.perf_counter_ns()
-                _check(lib.trace_now_launch(out.data_ptr(), stream.cuda_stream), "trace_now")
+                _NOW(self.device, out.data_ptr())
                 stream.synchronize()
                 t1 = time.perf_counter_ns()
                 g = int(out.item())

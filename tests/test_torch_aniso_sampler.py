@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from chip_smoke import stub_atlas
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import aniso_cuda, gbuffer
 
 torch.set_num_threads(2)
@@ -123,9 +124,9 @@ def test_cpu_route_is_the_filter_at_active_pairs(seed):
     atlas, tri_id, _, planes = synthetic_frame(seed)
     uv, mask, use, tex = sampler_inputs(tri_id, planes)
     check_census(census(atlas, uv, mask, use, tex))
-    launches = aniso_cuda.aniso_sample.launches
+    launches = LAUNCHES["aniso_sample"]
     got = aniso_cuda.aniso_sample(atlas, uv, mask, use, tex)
-    assert aniso_cuda.aniso_sample.launches == launches
+    assert LAUNCHES["aniso_sample"] == launches
     assert got.shape == (H, W, 5, 4) and got.dtype == torch.float32
     act = use & mask[..., None]
     want = old_route(atlas, uv, mask, use, tex, use_tex_kernel=False)

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from chip_smoke import recording
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import aniso_cuda, gbuffer
 from test_torch_aniso_sampler import SEEDS, census, check_census, sampler_inputs, \
     synthetic_frame
@@ -48,9 +49,9 @@ def _gbuffers(monkeypatch, args, kw):
     def shade():
         return gbuffer.gbuffer_shade_planar(*args, **kw)
 
-    launches = aniso_cuda.aniso_sample.launches
+    launches = LAUNCHES["aniso_sample"]
     got = shade()
-    assert aniso_cuda.aniso_sample.launches == launches + 1
+    assert LAUNCHES["aniso_sample"] == launches + 1
     with monkeypatch.context() as m:
         m.setattr(aniso_cuda, "aniso_sample", aniso_cuda.aniso_sample_reference)
         want = shade()
@@ -123,10 +124,10 @@ def test_captured_frames_launch_the_kernel_once_and_equal_the_plain_route(device
     render_plain(cams[0])
     plain.avg_luminance = kern.avg_luminance.clone()
     for c in cams:
-        before = aniso_cuda.aniso_sample.launches
+        before = LAUNCHES["aniso_sample"]
         got = kern.render(c, dt)
         torch.cuda.synchronize()
-        assert aniso_cuda.aniso_sample.launches - before == 1
+        assert LAUNCHES["aniso_sample"] - before == 1
         want = render_plain(c)
         assert torch.equal(got, want)
         assert kern.last_stats == plain.last_stats

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from chip_smoke import recording, stub_atlas
-from direct12pbrrenderer_tpu_torch.ops import (atlas_resolve_cuda, cover_cuda, env_resolve_cuda,
-                                               raster_cuda, texcache)
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import atlas_resolve_cuda, texcache
 
 pytestmark = pytest.mark.cuda
 
@@ -62,10 +62,10 @@ def test_resolve_kernel_matches_plain_version(device, name):
                        lod, act)]
     plan = texcache._plan_and_stage(atlas, *tiled, **kw)
     args = (*plan[:7], plan[8])
-    before = atlas_resolve_cuda.atlas_resolve.launches
+    before = LAUNCHES["atlas_resolve"]
     got = atlas_resolve_cuda.atlas_resolve(*args, trilinear=kw["trilinear"])
     torch.cuda.synchronize()
-    assert atlas_resolve_cuda.atlas_resolve.launches == before + 1
+    assert LAUNCHES["atlas_resolve"] == before + 1
     want = atlas_resolve_cuda.atlas_resolve_reference(*args, trilinear=kw["trilinear"])
     assert got.shape == want.shape == (plan[3].shape[0], 5, 4, th * tw // 128, 128)
     assert torch.isfinite(got).all() and torch.equal(got, want)
@@ -89,15 +89,15 @@ def test_planar_tex_frame_on_the_card_matches_the_cpu_frame(device):
     card = DeferredRenderPipeline(scene, cfg, device=device, **knobs)
     assert card.use_tex_kernel and not card.use_fused_gbuffer
     cpu = DeferredRenderPipeline(scene, cfg, device="cpu", **knobs)
-    before = (raster_cuda.rasterize_interp.launches, cover_cuda.fused_cover.launches,
-              env_resolve_cuda.env_resolve.launches)
+    before = (LAUNCHES["raster_interp"], LAUNCHES["fused_cover"],
+              LAUNCHES["env_resolve"])
     with recording(atlas_resolve_cuda, "atlas_resolve") as calls:
         a = card.render(cam).cpu().numpy().astype(np.float64) / 255.0
     torch.cuda.synchronize()
-    after = (raster_cuda.rasterize_interp.launches, cover_cuda.fused_cover.launches,
-             env_resolve_cuda.env_resolve.launches)
+    after = (LAUNCHES["raster_interp"], LAUNCHES["fused_cover"],
+             LAUNCHES["env_resolve"])
     # kernel E's launch went through the recorder; A, B (3 texture + 1 env)
-    # and F counted on their wrappers
+    # and F counted
     assert [y - x for x, y in zip(before, after)] == [1, 4, 1] and len(calls) == 1
     b = cpu.render(cam).numpy().astype(np.float64) / 255.0
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3

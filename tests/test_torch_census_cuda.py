@@ -19,7 +19,8 @@ import torch
 
 from chip_smoke import recording, stress_scene
 from direct12pbrrenderer_tpu_torch.config import RenderConfig
-from direct12pbrrenderer_tpu_torch.ops import cover_cuda, raster_cuda, resolve_shade_cuda
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import cover_cuda, resolve_shade_cuda
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline
 from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 from direct12pbrrenderer_tpu_torch.tools import tap_census
@@ -49,13 +50,13 @@ def _auto_pipeline(device):
 def test_census_with_kernel_h_equals_plain_fold(device):
     pipe, cam = _auto_pipeline(device)
     assert pipe.use_pallas and pipe.use_tex_kernel and pipe.env_ids is not None
-    before = raster_cuda.rasterize_depth.launches
+    before = LAUNCHES["raster_depth"]
     with_h = (tap_census.census_for_pose(pipe, cam), tap_census.env_census_for_pose(pipe, cam))
     torch.cuda.synchronize()
-    assert raster_cuda.rasterize_depth.launches == before + 2
+    assert LAUNCHES["raster_depth"] == before + 2
     pipe.use_pallas = False
     plain = (tap_census.census_for_pose(pipe, cam), tap_census.env_census_for_pose(pipe, cam))
-    assert raster_cuda.rasterize_depth.launches == before + 2
+    assert LAUNCHES["raster_depth"] == before + 2
     assert with_h == plain
     assert with_h[0]["lo"]["max"] > 0 and with_h[1]["group"]["max"] > 0
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import cover_cuda
 
 pytestmark = pytest.mark.cuda
@@ -92,10 +93,10 @@ def test_cover_kernel_matches_plain_version(device, name):
     pages, act, caps, block_cap = _case(name)
     p = torch.as_tensor(pages.astype(np.int32), device=device)
     a = torch.as_tensor(act, device=device)
-    before = cover_cuda.fused_cover.launches
+    before = LAUNCHES["fused_cover"]
     got = cover_cuda.fused_cover(p, a, caps, block_cap)
     torch.cuda.synchronize()
-    assert cover_cuda.fused_cover.launches == before + 1
+    assert LAUNCHES["fused_cover"] == before + 1
     want = cover_cuda.fused_cover_reference(p, a, caps, block_cap)
     for g, w, what in zip(got, want, ("list", "count", "slot", "covered")):
         assert g.dtype == w.dtype and g.shape == w.shape, what
@@ -134,10 +135,10 @@ def test_cover_kernel_reads_strided_and_misaligned_views(device, layout):
     else:
         p = torch.cat([pages, pages], 2)[:, :, ::2]
         a = torch.cat([act, act], 2)[:, :, ::2]
-    before = cover_cuda.fused_cover.launches
+    before = LAUNCHES["fused_cover"]
     got = cover_cuda.fused_cover(p, a, caps, block_cap)
     torch.cuda.synchronize()
-    assert cover_cuda.fused_cover.launches == before + 1
+    assert LAUNCHES["fused_cover"] == before + 1
     for g, w in zip(got, cover_cuda.fused_cover_reference(p, a, caps, block_cap)):
         assert torch.equal(g, w)
 

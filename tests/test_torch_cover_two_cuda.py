@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import cover_cuda, texcache
 
 pytestmark = pytest.mark.cuda
@@ -72,7 +73,7 @@ def _on_card(x, device, layout):
 
 
 def _counts():
-    return cover_cuda.fused_cover.launches, cover_cuda.fused_cover.wide_launches
+    return LAUNCHES["fused_cover"], LAUNCHES["cover_wide"]
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "group_innermost"])

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import envcache, shading
 from direct12pbrrenderer_tpu_torch.ops.texcache import _tile
 
@@ -79,9 +80,9 @@ def test_env_plan_equals_tap_groups_and_plan(layout, case):
     n_groups = 4 + (case != "no_env")
     budget = 8 * n_groups + 16 if case == "budget" else None
     want, act = _want(atlas, fields, env_ids, tile, budget)
-    launches = envcache.env_plan.launches
+    launches = LAUNCHES["env_plan"]
     got = envcache.env_plan(atlas, *fields, env_ids, tile=tile, stage_budget=budget)
-    assert envcache.env_plan.launches == launches   # CPU: the plain version
+    assert LAUNCHES["env_plan"] == launches   # CPU: the plain version
     names = ("off", "cnts", "staged", "rec", "fx", "fy", "covered", "env_approx", "fracm")
     assert len(got) == len(names) + 1 and got[-1] == want[-1] == (case != "no_env")
     for g, w, name in zip(got, want, names):

@@ -23,7 +23,8 @@ import torch
 
 from chip_smoke import (BASE_KNOBS, BRDF_LUT, ENV_PLAN_OUTPUTS, camera_path, cell_camera,
                         lights1k_cell, recording, textured_cell)
-from direct12pbrrenderer_tpu_torch.ops import cover_cuda, envcache
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import envcache
 
 pytestmark = pytest.mark.cuda
 CELLS = ("terrain262k", "lights1k")
@@ -70,9 +71,9 @@ def test_env_plan_kernels_equal_the_plain_version(device, cell):
              "budget": (args[:6] + (env_ids,), dict(kw, stage_budget=TRUNCATING_BUDGET)),
              "no_env": (args[:6] + ((*env_ids[:4], False),), kw)}
     for case, (a, k) in cases.items():
-        launches = envcache.env_plan.launches
+        launches = LAUNCHES["env_plan"]
         got = envcache.env_plan(*a, **k)
-        assert envcache.env_plan.launches == launches + 2, case
+        assert LAUNCHES["env_plan"] == launches + 2, case
         want = envcache.env_plan_reference(*a, **k)
         _equal(got, want)
         assert got[3].shape[1] == (4 if case == "no_env" else 5), case
@@ -96,11 +97,11 @@ def test_captured_frames_equal_frames_of_the_plain_plan(device, cell, monkeypatc
     render_plain(cam)
     plain.avg_luminance = kern.avg_luminance.clone()
     for c in camera_path(cam, 3):
-        before = (envcache.env_plan.launches, cover_cuda.fused_cover.launches)
+        before = (LAUNCHES["env_plan"], LAUNCHES["fused_cover"])
         got = kern.render(c)
         torch.cuda.synchronize()
-        assert (envcache.env_plan.launches - before[0],
-                cover_cuda.fused_cover.launches - before[1]) == (2, 4)
+        assert (LAUNCHES["env_plan"] - before[0],
+                LAUNCHES["fused_cover"] - before[1]) == (2, 4)
         want = render_plain(c)
         assert torch.equal(got, want)
         assert kern.last_stats == plain.last_stats

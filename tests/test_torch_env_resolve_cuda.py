@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from chip_smoke import recording
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import common, env_resolve_cuda, envcache
 
 pytestmark = pytest.mark.cuda
@@ -40,10 +41,10 @@ def test_kernel_matches_plain_version_on_random_pages(device):
     fx, fy = (torch.as_tensor(rng.random(seg.shape).astype(np.float32)) for _ in range(2))
     args = (off, cnts, staged, rec, fx, fy)
     want = env_resolve_cuda.env_resolve_reference(*args)
-    before = env_resolve_cuda.env_resolve.launches
+    before = LAUNCHES["env_resolve"]
     got = env_resolve_cuda.env_resolve(*(x.to(device) for x in args))
     torch.cuda.synchronize()
-    assert env_resolve_cuda.env_resolve.launches == before + 1
+    assert LAUNCHES["env_resolve"] == before + 1
     got = got.cpu()
     assert (want == 0).any() and (want != 0).any()
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)

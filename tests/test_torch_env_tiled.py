@@ -18,7 +18,8 @@ import torch
 
 from direct12pbrrenderer_tpu.ops import common as jcommon
 from direct12pbrrenderer_tpu.ops import envcache as jenv
-from direct12pbrrenderer_tpu_torch.ops import env_resolve_cuda, envcache
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import envcache
 
 torch.set_num_threads(2)
 H, W = 24, 128
@@ -98,9 +99,9 @@ def _case(name):
 def test_sample_env_tiled_matches_jax(name):
     ta, ja, stacks, kw = _case(name)
     want = jenv.sample_env_tiled(ja, *(jnp.asarray(a) for a in stacks), interpret=True, **kw)
-    launches = env_resolve_cuda.env_resolve.launches
+    launches = LAUNCHES["env_resolve"]
     got = envcache.sample_env_tiled(ta, *(torch.as_tensor(a) for a in stacks), **kw)
-    assert env_resolve_cuda.env_resolve.launches == launches  # CPU: the plain version
+    assert LAUNCHES["env_resolve"] == launches  # CPU: the plain version
     rgba, covered, approx = (np.asarray(x) for x in want)
     np.testing.assert_array_equal(got[1].numpy(), covered)
     np.testing.assert_array_equal(got[2].numpy(), approx)

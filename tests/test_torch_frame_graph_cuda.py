@@ -11,7 +11,7 @@ sampler, the dense light sweep) and all-plain (no kernel).
   calls and one `render_sequence` raise nothing (no host sync), on each path.
 * Captured frames are bit-equal to eager ones (`eager()`) over a yaw path,
   with equal FrameStats and exposure carry, and a replay adds the launches
-  of one eager frame to the wrappers' counters, on each path.
+  of one eager frame to the launch counter, on each path.
 * `render_sequence` is bit-equal to as many `render` calls, with the same
   carry, on each path.
 * Changing `fused_light_dtype` or `tex_caps` captures the frame again, and
@@ -27,8 +27,9 @@ import math
 import pytest
 import torch
 
-from chip_smoke import read_launches, stress_scene
+from chip_smoke import stress_scene
 from direct12pbrrenderer_tpu_torch.config import RenderConfig
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, eager
 from direct12pbrrenderer_tpu_torch.scene.camera import Camera
 
@@ -98,10 +99,6 @@ def _eager_frame(pipe, cam):
     return out
 
 
-def _launched(counts) -> dict[str, int]:
-    return {k: n for k, n in counts.items() if n}
-
-
 def test_every_cuda_pipeline_is_captured(device):
     for path, (knobs, _) in PATHS.items():
         assert _pipe(device, **knobs)[0].captured, path
@@ -134,12 +131,12 @@ def test_captured_frames_equal_eager_frames(device, path):
     pipe, cam = _pipe(device, **knobs)
     pipe.render(cam)   # the capture: its warm-up frames launch too
     for c in _path(cam, 3):
-        before = read_launches()
+        before = LAUNCHES.copy()
         want, want_stats, want_avg = _eager_frame(pipe, c)
-        mid = read_launches()
+        mid = LAUNCHES.copy()
         got = pipe.render(c)
-        eager_counts = _launched({k: n - before[k] for k, n in mid.items()})
-        counts = _launched({k: n - mid[k] for k, n in read_launches().items()})
+        eager_counts = dict(mid - before)
+        counts = dict(LAUNCHES - mid)
         assert torch.equal(got, want)
         assert pipe.last_stats == want_stats
         assert torch.equal(pipe.avg_luminance, want_avg)

@@ -4,14 +4,23 @@ transitively, so an edit to a shared header rebuilds exactly the kernels
 that use it. No CUDA compiler is run: the first-use test stands a script
 that links an empty library with g++ in for nvcc, and checks that a first
 use from many threads at once (the viewer renders on its HTTP handler
-threads) builds once and hands every thread the same library."""
+threads) builds once and hands every thread the same library.
 
+The kernel seam (`kernels/launch.py`), with every module of the package
+imported: each source is declared by at least one entry and each entry
+names a source; no module under ops/, pipeline/, parallel/ or utils/ loads
+a library itself; no module keeps a launch counter of its own."""
+
+import ast
+import importlib
+import pkgutil
 import shutil
 import threading
 
 import pytest
 
-from direct12pbrrenderer_tpu_torch.kernels import build
+import direct12pbrrenderer_tpu_torch as port
+from direct12pbrrenderer_tpu_torch.kernels import build, launch
 
 SOURCES = sorted(p.stem for p in build.CSRC_DIR.glob("*.cu"))
 # the kernels launched on a persistent grid (csrc/persistent_grid.cuh):
@@ -98,3 +107,52 @@ exec g++ -shared -fPIC -x c /dev/null -o "$2"
     assert all(lib is libs[0] for lib in libs)
     assert len(calls.read_text().splitlines()) == 1
     assert sorted(build.BUILD_DIR.iterdir()) == [build.library_path("fused_cover")]
+
+
+def _declared_sources(modules):
+    declared = {entry.name for entry in launch.ENTRIES}
+    assert declared >= set(SOURCES), f"sources no entry declares: {set(SOURCES) - declared}"
+    assert declared <= set(SOURCES), f"entries of no source: {declared - set(SOURCES)}"
+
+
+def _no_loading_outside_kernels(modules):
+    """No `build.load`, no import of `kernels.build` and no `CDLL` in the
+    modules that launch kernels: they go through `kernels.launch.Entry`."""
+    found = []
+    for sub in ("ops", "pipeline", "parallel", "utils"):
+        for path in sorted((build.PACKAGE_DIR / sub).rglob("*.py")):
+            for node in ast.walk(ast.parse(path.read_text())):
+                if ((isinstance(node, ast.Attribute) and node.attr in ("load", "CDLL")
+                     and isinstance(node.value, ast.Name) and node.value.id in ("build", "ctypes"))
+                        or (isinstance(node, ast.Name) and node.id == "CDLL")
+                        or (isinstance(node, ast.ImportFrom) and (node.module or "").endswith(
+                            ("kernels", "kernels.build"))
+                            and {a.name for a in node.names} & {"build", "load"})):
+                    found.append(f"{path.relative_to(build.PACKAGE_DIR)}:{node.lineno}")
+    assert found == []
+
+
+def _no_launches_attributes(modules):
+    """The one launch counter is `kernels.launch.LAUNCHES`: no function
+    carries a `*launches` attribute and no module a `*launches` count."""
+    found = [f"{mod.__name__}.{name}.{attr}" for mod in modules
+             for name, obj in vars(mod).items() if callable(obj)
+             for attr in getattr(obj, "__dict__", {}) if attr.endswith("launches")]
+    found += [f"{mod.__name__}.{name}" for mod in modules
+              for name, obj in vars(mod).items() if name.endswith("launches")]
+    assert found == []
+
+
+@pytest.fixture(scope="module")
+def package_modules():
+    """Every module of the package (its entries declared), but the command
+    line entry points."""
+    return [importlib.import_module(m.name)
+            for m in pkgutil.walk_packages(port.__path__, f"{port.__name__}.")
+            if not m.name.endswith("__main__")]
+
+
+@pytest.mark.parametrize("check", [_declared_sources, _no_loading_outside_kernels,
+                                   _no_launches_attributes])
+def test_kernel_seam(package_modules, check):
+    check(package_modules)

@@ -33,6 +33,7 @@ from jax.experimental.pallas import tpu as pltpu
 from chip_smoke import recording
 from direct12pbrrenderer_tpu.ops import common as jcommon
 from direct12pbrrenderer_tpu.ops import lights_pallas
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import common, lights_cuda, shading
 from test_lights_pallas import FAR, FOV, H, NEAR, RATIO, TILE, W, _gbuffer, _light_rows
 
@@ -101,12 +102,12 @@ def _assert_rgb_close(got, want):
 def test_point_lights_plain_matches_tpu_kernel(scenario):
     rows, gb, cap = _scenario(scenario)
     arrays = [torch.as_tensor(np.ascontiguousarray(a)) for a in _pass_inputs(gb)]
-    launches = lights_cuda.point_lights_kernel.launches
+    launches = LAUNCHES["point_lights"]
     with recording(lights_cuda, "point_lights_kernel") as calls:
         rgb, counts = lights_cuda.point_lights_tiled(
             torch.as_tensor(rows), *arrays, torch.eye(4), torch.zeros(3), FOV, RATIO, NEAR, FAR,
             W, H, tile_h=TILE[0], tile_w=TILE[1], cap=cap)
-    assert lights_cuda.point_lights_kernel.launches == launches  # CPU: the plain version
+    assert LAUNCHES["point_lights"] == launches  # CPU: the plain version
     (kargs, kw), = calls
     got = lights_cuda.point_lights_kernel_reference(*kargs, **kw).numpy()
     want = _jax_kernel(*kargs, cap)

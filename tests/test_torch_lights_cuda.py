@@ -23,14 +23,8 @@ import torch
 
 from chip_smoke import recording
 from direct12pbrrenderer_tpu_torch.config import CLUSTER_X, CLUSTER_Y
-from direct12pbrrenderer_tpu_torch.ops import (
-    cover_cuda,
-    env_resolve_cuda,
-    lights_cuda,
-    raster_cuda,
-    resolve_shade_cuda,
-    shade_fused,
-)
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import lights_cuda
 
 pytestmark = pytest.mark.cuda
 H, W, TILE = 96, 256, (24, 128)
@@ -71,9 +65,9 @@ def _inputs(seed, n, pool, covering):
 def _check_kernel(kargs, kw):
     """Kernel G against its plain version on the same inputs, at the bar of
     the module docstring. -> (kernel output, plain output) as numpy."""
-    before = lights_cuda.point_lights_kernel.launches
+    before = LAUNCHES["point_lights"]
     got = lights_cuda.point_lights_kernel(*kargs, **kw)
-    assert lights_cuda.point_lights_kernel.launches == before + 1
+    assert LAUNCHES["point_lights"] == before + 1
     want = lights_cuda.point_lights_kernel_reference(*kargs, **kw)
     torch.cuda.synchronize()
     got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -203,9 +197,9 @@ def test_kernel_on_a_small_frame_with_hundreds_of_clusters_per_tile(device):
 
 
 def _launches():
-    return (raster_cuda.rasterize_interp.launches, cover_cuda.fused_cover.launches,
-            resolve_shade_cuda.resolve_shade.launches, shade_fused.deferred_kernel.launches,
-            env_resolve_cuda.env_resolve.launches, lights_cuda.point_lights_kernel.launches)
+    return (LAUNCHES["raster_interp"], LAUNCHES["fused_cover"],
+            LAUNCHES["resolve_shade"], LAUNCHES["deferred_shade"],
+            LAUNCHES["env_resolve"], LAUNCHES["point_lights"])
 
 
 def test_light_tile_frame_on_the_card_matches_the_cpu_frame(device):

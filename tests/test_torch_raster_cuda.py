@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from chip_smoke import random_triangles
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import raster, raster_cuda
 
 pytestmark = pytest.mark.cuda
@@ -42,11 +43,11 @@ def test_kernel_matches_plain_version(device, n, seed, cap, caps, shape):
                                    w, h)
     bins = raster.bin_triangles(setup, h // th, w // tw, th, tw, cap)
     rows64 = raster_cuda.pack_rows64(setup, payload)
-    before = raster_cuda.rasterize_interp.launches
+    before = LAUNCHES["raster_interp"]
     ids_k, z_k, pl_k = (t.cpu().numpy() for t in raster_cuda.rasterize_interp(
         setup, bins, rows64, w, h, th, tw, **caps))
     torch.cuda.synchronize()
-    assert raster_cuda.rasterize_interp.launches == before + 1
+    assert LAUNCHES["raster_interp"] == before + 1
     ids_p, z_p, pl_p = (t.cpu().numpy() for t in raster_cuda.rasterize_interp_reference(
         setup, bins, rows64, w, h, th, tw, **caps))
     mismatch = ids_k != ids_p
@@ -80,11 +81,11 @@ def test_pipeline_frame_through_kernel_matches_plain_path(device, tile):
     cam = Camera(cfg.fov, cfg.width, cfg.height, cfg.near, cfg.far)
     cam.move([0, 6, 18])
     cam.rotate(0, math.pi, 0.35)
-    before = raster_cuda.rasterize_interp.launches
+    before = LAUNCHES["raster_interp"]
     a = kern.render(cam).cpu().numpy().astype(np.float64) / 255.0
     b = plain.render(cam).cpu().numpy().astype(np.float64) / 255.0
     # the first render captures the frame: its warm-up frames launch, then the replay
-    assert raster_cuda.rasterize_interp.launches == before + CAPTURE_WARMUP + 1
+    assert LAUNCHES["raster_interp"] == before + CAPTURE_WARMUP + 1
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
     assert kern.last_stats.bin_overflow == plain.last_stats.bin_overflow == 0
 

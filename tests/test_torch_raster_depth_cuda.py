@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import random_triangles
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.ops import raster, raster_cuda
 from test_torch_raster_cuda import edge_case_scene, screen_triangles
 
@@ -40,10 +41,10 @@ def test_depth_kernel_matches_plain_version_and_kernel_a(device, n, seed, cap, c
     valid[::17] = False                      # invalid triangles never cover
     setup = raster.setup_triangles(clip, tris, valid, w, h)
     bins = raster.bin_triangles(setup, h // th, w // tw, th, tw, cap)
-    before = raster_cuda.rasterize_depth.launches
+    before = LAUNCHES["raster_depth"]
     ids_k, z_k = raster_cuda.rasterize_depth(setup, bins, w, h, th, tw, **caps)
     torch.cuda.synchronize()
-    assert raster_cuda.rasterize_depth.launches == before + 1
+    assert LAUNCHES["raster_depth"] == before + 1
     ids_p, z_p = raster_cuda.rasterize_depth_reference(setup, bins, w, h, th, tw, **caps)
     assert torch.equal(ids_k, ids_p) and torch.equal(z_k, z_p)
     assert (ids_k >= 0).any() and (z_k[ids_k < 0] == 1.0).all()

@@ -26,12 +26,8 @@ import pytest
 import torch
 
 from chip_smoke import recording
-from direct12pbrrenderer_tpu_torch.ops import (
-    cover_cuda,
-    raster_cuda,
-    resolve_shade_cuda,
-    shade_fused,
-)
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
+from direct12pbrrenderer_tpu_torch.ops import shade_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -62,8 +58,8 @@ KNOBS = dict(tile_h=24, tile_w=128, bin_cap=4096, atlas_max_dim=256, prefilter_s
 
 
 def _launches():
-    return (raster_cuda.rasterize_interp.launches, cover_cuda.fused_cover.launches,
-            resolve_shade_cuda.resolve_shade.launches, shade_fused.deferred_kernel.launches)
+    return (LAUNCHES["raster_interp"], LAUNCHES["fused_cover"],
+            LAUNCHES["resolve_shade"], LAUNCHES["deferred_shade"])
 
 
 def test_default_frame_on_the_card_matches_the_cpu_frame(device):
@@ -80,7 +76,7 @@ def test_default_frame_on_the_card_matches_the_cpu_frame(device):
     torch.cuda.synchronize()
     after = _launches()
     # kernel D's launch went through the recorder; A, B (3 texture + 1 env)
-    # and C counted on their wrappers
+    # and C counted
     assert [y - x for x, y in zip(before, after)][:3] == [1, 4, 1] and len(calls) == 1
     b = cpu.render(cam).numpy().astype(np.float64) / 255.0
     assert float(np.sqrt(np.mean((a - b) ** 2))) <= 1e-3
@@ -235,11 +231,10 @@ def test_light_dtype_instances_bit_equal_to_plain(device, frame_inputs, light_dt
     kargs, kw = frame_inputs
     args = _variant(kargs, case)
     kw = dict(kw, light_dtype=light_dtype)
-    counter = f"{light_dtype}_launches" if light_dtype else "launches"
-    n0, k0 = shade_fused.deferred_kernel.launches, getattr(shade_fused.deferred_kernel, counter)
+    counter = f"deferred_shade_{light_dtype}" if light_dtype else "deferred_shade"
+    n0, k0 = LAUNCHES["deferred_shade"], LAUNCHES[counter]
     got = shade_fused.deferred_kernel(*args, **kw)
-    assert (shade_fused.deferred_kernel.launches - n0,
-            getattr(shade_fused.deferred_kernel, counter) - k0) == (1, 1)
+    assert (LAUNCHES["deferred_shade"] - n0, LAUNCHES[counter] - k0) == (1, 1)
     want = shade_fused.deferred_kernel_reference(*args, **kw)
     f32 = shade_fused.deferred_kernel_reference(*args, **dict(kw, light_dtype=None))
     differ = got.view(torch.int32) != want.view(torch.int32)

@@ -35,8 +35,9 @@ import pytest
 import torch
 
 import chip_smoke
-from chip_smoke import BAND_A_D, KERNELS, hold_call, read_launches, recording, reset_launches
+from chip_smoke import BAND_A_D, KERNELS, hold_call, recording
 from direct12pbrrenderer_tpu_torch.config import RenderConfig
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.parallel import frame_sharded
 from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, eager
 
@@ -76,10 +77,10 @@ def _band_rank(mesh):
         y_offsets = [kw["y_offset"] for _, kw in calls["raster_interp"]]
         del calls
         torch.cuda.synchronize()
-        reset_launches()
+        before = LAUNCHES.copy()
         band, avg, bin_counts, tex, trunc, env = frame(*args)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = LAUNCHES - before
         full = frame_sharded.gather_rows(mesh, band).cpu().numpy()
         single = pipe.render(cam).cpu().numpy() if mesh.rank == 0 else None
     return dict(held=held, y_offsets=y_offsets, launches=launches, frame=full, single=single,
@@ -124,12 +125,11 @@ def _nccl_rank(mesh):
             with eager():
                 want = frame(*args)
             first = frame.captured
-            before = read_launches()
+            before = LAUNCHES.copy()
             got = frame(*args)
             torch.cuda.synchronize()
             if first is not None:
-                out["launches"].append({k: n - before[k] for k, n in read_launches().items()
-                                        if n != before[k]})
+                out["launches"].append(dict(LAUNCHES - before))
             out["equal_eager"].append(_equal(got, want))
             pipe.avg_luminance = carry
             single = pipe.render(c, collect_stats=False)
