@@ -162,9 +162,9 @@ GRAPH_FRAMES, EQUAL_FRAMES, SYNC_FRAMES, SEQ_FRAMES = 16, 4, 8, 32
 PATH_FRAMES, PATH_SEQ = 3, 8
 PATH_KERNELS = {
     "lights1k": {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
-                 "point_lights": 1, "env_plan": 2},
+                 "point_lights": 1, "env_plan": 2, "tex_plan": 2},
     "planar-tex": {"raster_interp": 1, "fused_cover": 4, "atlas_resolve": 1, "env_resolve": 1,
-                   "env_plan": 2},
+                   "env_plan": 2, "tex_plan": 2},
     "anisotropic": {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2,
                     "aniso_sample": 1},
     "use_tex_kernel=False": {"raster_interp": 1},
@@ -190,6 +190,8 @@ G_RTOL, G_ATOL, G_COUNTER_FRAC = 1e-4, 1e-5, 1e-4  # kernel G: a log/pow ulp at 
 F_RTOL, F_ATOL = 1e-6, 1e-7   # kernels F and E: the same staged words and weights
 ENV_PLAN_OUTPUTS = ("off", "cnts", "staged", "rec", "fx", "fy", "covered", "env_approx",
                     "fracm", "has_env")
+TEX_PLAN_OUTPUTS = ("off", "cnts", "staged", "rec", "fx", "fy", "tl", "covered", "sel",
+                    "approx")
 # [reference-fns]: the JAX package's reference-only functions on the card.
 # bloom vs bloom_reference: rtol and atol 2e-5, the JAX package's own bar
 # (tests/test_postprocess.py); its two blooms differ by 1.14e-5 at most at
@@ -214,11 +216,12 @@ ASSET_CELLS = (512, 256)
 # the AppConfig defaults from APP_POSE ((x, y, z), yaw, pitch in degrees,
 # orbit degrees per frame: the stress cells' pose); each frame launches
 # kernel A once, B five times (texture fallback, lo, hi, the cascade, env),
-# C and D once, the env plan's two kernels, and no other
+# C and D once, the env plan's two kernels, the texture plan's three (its
+# cascade's act plane the third), and no other
 APP_CELLS, APP_GRID = (128, 64), (8, 4)
 APP_POSE = ((0.0, 6.0, 18.0), 180.0, 20.05, 1.0)
 APP_KERNELS = {"raster_interp": 1, "fused_cover": 5, "resolve_shade": 1, "deferred_shade": 1,
-               "env_plan": 2}
+               "env_plan": 2, "tex_plan": 3}
 APP_COUNTED = 8          # frames whose launches [app] counts
 # the 1024-light cell: the JAX bench's third scene (bench.py _lights1k_bench)
 L1K_CELLS, L1K_LIGHTS, L1K_BIN_CAP = (128, 64), 1024, 2048
@@ -230,9 +233,9 @@ BASE_KNOBS = dict(tile_h=TILE_H, tile_w=TILE_W, bin_cap=BIN_CAP, atlas_max_dim=2
 # as one band; two gloo ranks render the 1024-light cell in 540-row bands
 # on 552-row canvases (kernels F and G at y_offset 540).
 BAND_A_D = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "deferred_shade": 1,
-            "env_plan": 2}
+            "env_plan": 2, "tex_plan": 2}
 BAND_L1K = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
-            "point_lights": 1, "env_plan": 2}
+            "point_lights": 1, "env_plan": 2, "tex_plan": 2}
 BAND_PHASES = {
     "sharded": ("textured", 4, "cuda:0", BAND_A_D, ("env_resolve", "point_lights")),
     "sharded-nccl": ("textured", 1, "cuda", BAND_A_D, ("env_resolve", "point_lights")),
@@ -266,6 +269,11 @@ KERNELS = {  # launch counter name -> (TPU kernel it replaces, wrapper module, w
     "env_plan": ("none: the XLA glue direct12pbrrenderer_tpu/ops/shading.py:93 "
                  "(env_tap_groups) + ops/envcache.py:312 (plan_env_tiled)", "envcache",
                  "env_plan"),
+    # the texture cache's plan (csrc/tex_plan.cu, two launches a call around
+    # kernel B's texture covers, three with the cascade): no TPU kernel, the
+    # JAX package's XLA glue
+    "tex_plan": ("none: the XLA glue direct12pbrrenderer_tpu/ops/texcache.py "
+                 "(_plan_and_stage, and shade_planes_fused's tap setup)", "texcache", "tex_plan"),
     # the anisotropic sampler (csrc/aniso_sample.cu, one launch a frame on
     # the anisotropic path): no TPU kernel, the JAX package's XLA glue
     "aniso_sample": ("none: the XLA glue direct12pbrrenderer_tpu/ops/gbuffer.py:133 "
@@ -292,11 +300,12 @@ INSTANCES = (WIDE, *D_DTYPES)
 # tile is 64 wide, so its frame takes the planar texture cache (B, E) and
 # the unfused deferred pass with the env cache (B, F).
 BENCH_CELLS = {
-    "smoke": ("raster_interp", "fused_cover", "atlas_resolve", "env_resolve", "env_plan"),
+    "smoke": ("raster_interp", "fused_cover", "atlas_resolve", "env_resolve", "env_plan",
+              "tex_plan"),
     "sponza_class": ("raster_interp", "fused_cover", "resolve_shade", "deferred_shade",
-                     "env_plan"),
+                     "env_plan", "tex_plan"),
     "lights1k": ("raster_interp", "fused_cover", "resolve_shade", "env_resolve",
-                 "point_lights", "env_plan"),
+                 "point_lights", "env_plan", "tex_plan"),
 }
 BENCH_TRACE = 8   # frames of each bench cell traced by torch.profiler
 # kernel I runs kernel B's source and device kernel, D's instances D's
@@ -739,6 +748,9 @@ def hold_call(phase: str, name: str, args, kw, empty_ok: bool = False) -> float:
         return 0.0
     if name == "env_plan":
         check_env_plan(phase, got, want)
+        return 0.0
+    if name == "tex_plan":
+        check_tex_plan(phase, got, want)
         return 0.0
     if name == "resolve_shade":
         return check_shade(phase, got, want)
@@ -1408,6 +1420,56 @@ def env_plan_stage(phase: str, pargs, pkw, smi: str):
     return (0.0, ms, plain_ms, alone, cold), b
 
 
+def tex_plan_stage(phase: str, targs, tkw, smi: str):
+    """[kernel-tex-plan]: one frame's recorded `texcache.tex_plan` call held
+    bit for bit to `tex_plan_reference` on the same fields, then timed
+    through the wrapper (CUDA events, warm and with the L2 evicted), its
+    kernels alone and all its device work (kernel B's three covers, the
+    allocations' fills) by torch.profiler, and the plain version. The bound
+    reads the fields the plan uses once (a raster block's uv, use flags and
+    texture ids and the pixel's id), writes every output once and reads the
+    staged pages once (at most every page of the atlas). Returns ((max abs
+    error, ms, plain ms, kernels' ms, cold ms), bound)."""
+    from direct12pbrrenderer_tpu_torch.ops import texcache
+
+    def plan():
+        return texcache.tex_plan(*targs, **tkw)
+
+    def plain():
+        return texcache.tex_plan_reference(*targs, **tkw)
+
+    got = plan()
+    check_tex_plan(phase, got, plain())
+    ms, cold = cuda_ms(plan, 20), cold_ms(plan, 20)
+    alone, busy = device_ms(plan, 10, "tex_plan")
+    plain_ms = cuda_ms(plain, 3)
+    atlas, fields, cnts, n_groups = targs[0], targs[1], got[1], got[0].shape[1]
+    pages_read = min(int(cnts[:, :n_groups].sum()), atlas.data.shape[0] // 128) * 128 * 4 * 4
+    if len(fields) == 2:   # of a raster block's 24 planes the plan reads 12
+        field_bytes = nbytes(fields[0]) // 2 + nbytes(fields[1])
+    else:
+        field_bytes = nbytes(*fields)
+    n_bytes = field_bytes + nbytes(*(x for x in got if x is not None)) + pages_read
+    b = bound(n_bytes)
+    say(phase, f"{tuple(got[3].shape)} records from {tuple(fields[0].shape)} fields (tile "
+        f"{targs[2]}), staged {tuple(got[2].shape)}, {int(cnts[:, :n_groups].sum())} pages "
+        f"staged under the counts, approx {int(got[9])}: bit-equal to the plain version on "
+        f"every output; through its wrapper {ms:.4f} ms (CUDA events; {cold:.4f} ms with the "
+        f"L2 evicted before each call), its kernels alone {alone:.4f} ms of {busy:.4f} ms of "
+        f"device work with kernel B's covers (torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}: {n_bytes / 1e6:.1f} MB, the staged block "
+        f"{nbytes(got[2]) / 1e6:.1f} MB, the staged pages' reads {pages_read / 1e6:.1f} MB) "
+        f"on {smi}")
+    return (0.0, ms, plain_ms, alone, cold), b
+
+
+def check_tex_plan(phase, got, want) -> None:
+    """The texture plan's bar: every output bit-equal to the plain version's."""
+    for g, r, out in zip(got, want, TEX_PLAN_OUTPUTS):
+        if (g is None) != (r is None) or (g is not None and not torch.equal(g, r)):
+            fail(phase, f"tex_plan: {out} differs from the plain version")
+
+
 def check_env_plan(phase, got, want) -> None:
     """The env plan's bar: every output bit-equal to the plain version's."""
     for g, r, out in zip(got, want, ENV_PLAN_OUTPUTS):
@@ -1565,7 +1627,7 @@ def frame_graph_phase(smi: str, pipe, cam, eager_times, binning_ms: float) -> di
     if pipe.captured_frame is not cf:
         fail(phase, "the yaw path captured the frame again")
     want_launches = {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1,
-                     "deferred_shade": 1, "env_plan": 2}
+                     "deferred_shade": 1, "env_plan": 2, "tex_plan": 2}
     times, launches = run_frames(phase, pipe, path, {
         k: n * GRAPH_FRAMES for k, n in want_launches.items()})
     if any(launches[k] != n * GRAPH_FRAMES for k, n in want_launches.items()):
@@ -2022,7 +2084,8 @@ def lights1k(dev, smi, cam, knobs, base_knobs, measured, bounds) -> dict[str, in
         pipe.render(c)
     times, launches = run_frames("frame-lights1k", pipe, path[WARMUP:], {
         "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
-        "env_resolve": FRAMES, "point_lights": FRAMES, "env_plan": 2 * FRAMES})
+        "env_resolve": FRAMES, "point_lights": FRAMES, "env_plan": 2 * FRAMES,
+        "tex_plan": 2 * FRAMES})
     if launches["deferred_shade"]:
         fail("frame-lights1k", f"kernel D launched {launches['deferred_shade']} times")
     frame_line = check_frame("frame-lights1k", pipe, path[-1])
@@ -2441,7 +2504,7 @@ def asset_auto(dev, cam, smi) -> int:
     keep = read_launches()
     times, frame_launches = run_frames(phase, pipe, path[WARMUP:], {
         "fused_cover": 5 * FRAMES, "resolve_shade": FRAMES, "deferred_shade": FRAMES,
-        "raster_interp": FRAMES})
+        "raster_interp": FRAMES, "tex_plan": 3 * FRAMES})
     launches = {k: keep[k] + frame_launches[k] for k in KERNELS}
     if len(recorded) != 1 or h_census != 6:
         fail(phase, f"the first render ran {len(recorded)} censuses and launched kernel H "
@@ -2620,7 +2683,7 @@ def plain_kernels():
     from unittest import mock
 
     from direct12pbrrenderer_tpu_torch.ops import (cover_cuda, envcache, raster_cuda,
-                                                   resolve_shade_cuda, shade_fused)
+                                                   resolve_shade_cuda, shade_fused, texcache)
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import eager
 
     with contextlib.ExitStack() as stack:
@@ -2628,6 +2691,7 @@ def plain_kernels():
         for module, name, plain in (
                 (raster_cuda, "_launch", raster_cuda.rasterize_interp_reference),
                 (envcache, "env_plan", envcache.env_plan_reference),
+                (texcache, "tex_plan", texcache.tex_plan_reference),
                 (cover_cuda, "fused_cover", cover_cuda.fused_cover_reference),
                 (resolve_shade_cuda, "resolve_shade", resolve_shade_cuda.resolve_shade_reference),
                 (shade_fused, "deferred_kernel", shade_fused.deferred_kernel_reference)):
@@ -3322,7 +3386,7 @@ def planar_tex_cells(dev, smi, scene, cfg, cam, knobs, pipe, cover_calls, measur
     ptex.render(path[0])
     times, launches = run_frames("frame-planar-tex", ptex, path[1:], {
         "raster_interp": PTEX_FRAMES, "fused_cover": 4 * PTEX_FRAMES,
-        "atlas_resolve": PTEX_FRAMES, "env_resolve": PTEX_FRAMES},
+        "atlas_resolve": PTEX_FRAMES, "env_resolve": PTEX_FRAMES, "tex_plan": 2 * PTEX_FRAMES},
         absent=("resolve_shade", "deferred_shade", "point_lights", "raster_depth"))
     out = {"atlas_resolve": launches["atlas_resolve"]}
     frame_line = check_frame("frame-planar-tex", ptex, path[-1])
@@ -3447,6 +3511,7 @@ def main(argv=None) -> None:
         raster_cuda,
         resolve_shade_cuda,
         shade_fused,
+        texcache,
     )
     from direct12pbrrenderer_tpu_torch.pipeline.deferred import DeferredRenderPipeline, eager
 
@@ -3536,12 +3601,15 @@ def main(argv=None) -> None:
         shade_calls = stack.enter_context(recording(resolve_shade_cuda, "resolve_shade"))
         deferred_calls = stack.enter_context(recording(shade_fused, "deferred_kernel"))
         plan_calls = stack.enter_context(recording(envcache, "env_plan"))
+        tex_calls = stack.enter_context(recording(texcache, "tex_plan"))
         pipe.render(cam, collect_stats=False)
         torch.cuda.synchronize()
-    if (len(cover_calls), len(shade_calls), len(deferred_calls), len(plan_calls)) != (4, 1, 1, 1):
+    if (len(cover_calls), len(shade_calls), len(deferred_calls), len(plan_calls),
+            len(tex_calls)) != (4, 1, 1, 1, 1):
         fail("kernel-cover", f"a default frame made {len(cover_calls)} cover, "
-             f"{len(shade_calls)} resolve-shade, {len(deferred_calls)} deferred and "
-             f"{len(plan_calls)} env-plan calls, want 4, 1, 1, 1")
+             f"{len(shade_calls)} resolve-shade, {len(deferred_calls)} deferred, "
+             f"{len(plan_calls)} env-plan and {len(tex_calls)} texture-plan calls, want 4, 1, "
+             f"1, 1, 1")
     parts, cover_ms, cover_alone_ms, cover_plain_ms = [], [], [], []
     cover_bytes = plane_bytes = 0
     for (cargs, ckw), what in zip(cover_calls, ("texture fallback", "texture lo half",
@@ -3669,6 +3737,11 @@ def main(argv=None) -> None:
     measured["env_plan"], bounds["env_plan"] = env_plan_stage("kernel-env-plan", pargs, pkw, smi)
     del plan_calls, pargs
 
+    # ---- the texture plan vs its plain version on the same frame -----------
+    (targs, tkw), = tex_calls
+    measured["tex_plan"], bounds["tex_plan"] = tex_plan_stage("kernel-tex-plan", targs, tkw, smi)
+    del tex_calls, targs
+
     # ---- GBuffer pass stages of both paths ---------------------------------
     tri_id, depth, planes = raster_cuda.rasterize_interp(*args)
     stage_ms["gbuffer_shade_planar"] = cuda_ms(lambda: gbuffer.gbuffer_shade_planar(
@@ -3701,7 +3774,7 @@ def main(argv=None) -> None:
             pipe.render(c)
         times, launches = run_frames("frame", pipe, path[WARMUP:], {
             "raster_interp": FRAMES, "fused_cover": 4 * FRAMES, "resolve_shade": FRAMES,
-            "deferred_shade": FRAMES, "env_plan": 2 * FRAMES})
+            "deferred_shade": FRAMES, "env_plan": 2 * FRAMES, "tex_plan": 2 * FRAMES})
         frame_line = check_frame("frame", pipe, path[-1])
     say("frame", f"default path run eagerly (`eager()`), {FRAMES} frames {W}x{H}: mean "
         f"{np.mean(times):.2f} ms, p50 {np.median(times):.2f} ms (host clock, synchronized per "

@@ -10,7 +10,11 @@ kernel I, whose plain form is `_cover_and_match_2level` over
 (`ops/resolve_shade_cuda.py`, the tap resolve plus the gbuffer.hlsl pixel
 shade) for the fused G-buffer (`shade_planes_fused`), and kernel E
 (`ops/atlas_resolve_cuda.py`, the storage-space taps) for the planar one
-(`sample_atlas_tiled`, `sample_atlas_textured`). The tap census
+(`sample_atlas_tiled`, `sample_atlas_textured`). Both plan through
+`tex_plan`, from their per-pixel fields to the staged pages: on a CUDA
+device the hand-written kernels of `csrc/tex_plan.cu` around kernel B's
+covers, on the CPU its plain version `tex_plan_reference` (the fused path's
+tap setup, then `_plan_and_stage`). The tap census
 (`tap_census`, `recommend_caps`, `recommend_block_caps`, `recommend_budget`)
 measures a frame's page demand and sizes the cache's knobs for
 `tex_caps="auto"`. Layouts at module boundaries are the JAX package's:
@@ -30,9 +34,12 @@ Differences from the TPU plan, none of which changes a value:
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from ..kernels.launch import Entry
 from . import (atlas_resolve_cuda, common, cover_cuda, cover_two, gbuffer,
                resolve_shade_cuda)
 from ..utils import trace
@@ -42,6 +49,12 @@ from .gbuffer import AtlasDevice
 MAX_MIPS = 13
 CAP_FB = 4       # guaranteed last-mip fallback pages per group
 SEG_CHUNK = 8    # staged-span granularity (the TPU kernel's sweep chunk)
+# csrc/tex_plan.cu's kernels, each counted as a launch of tex_plan: the taps
+# and the select take the fields' and the plan's arguments first
+_ARGS = ("i", "P", "s", "n", "p", "i", "n")
+_TAPS = Entry("tex_plan", "tex_plan_taps_launch", _ARGS + ("p", "p"))
+_CASCADE = Entry("tex_plan", "tex_plan_cascade_launch", ("p", "p", "p", ctypes.c_longlong, "p"))
+_SELECT = Entry("tex_plan", "tex_plan_select_launch", _ARGS + ("p", "P", "n", "P"))
 
 
 # --------------------------------------------------------------- tiling ----
@@ -347,14 +360,222 @@ def _plan_and_stage(atlas, tex_t, u_t, v_t, lod_t, act_t, *, trilinear, cap_lo, 
     return off_arr, cnts, staged, rec_t, fx_t, fy_t, tfrac_t, covered_t, sel_t
 
 
+def _check_plan_args(trilinear, cap_lo, cap_hi, block_cap, stage_budget, cascade, cascade_caps):
+    """The plan's knobs as `_plan_and_stage` takes them (raising where it
+    raises): (per-cover caps and block caps after the fallback's, casc_mip,
+    the staged pages a tile)."""
+    cap_casc, bc_casc = cascade_caps[:2]
+    casc_mip = cascade_caps[2] if len(cascade_caps) > 2 else 3
+    for c in (cap_lo, cap_hi, cap_casc):
+        if (c + CAP_FB) % SEG_CHUNK:
+            raise ValueError(f"cap {c} + {CAP_FB} fallback pages must be a multiple "
+                             f"of {SEG_CHUNK}")
+    bc_halves = block_cap if isinstance(block_cap, tuple) else (block_cap, block_cap)
+    caps = [cap_lo, cap_hi][: 2 if trilinear else 1]
+    bcs = list(bc_halves[: len(caps)])
+    if cascade:
+        caps.append(cap_casc)
+        bcs.append(bc_casc)
+    full_budget = 5 * sum(_align8(CAP_FB + c) for c in caps)
+    budget = full_budget if stage_budget is None else min(stage_budget, full_budget)
+    if budget % SEG_CHUNK or budget < SEG_CHUNK * 5 * len(caps):
+        raise ValueError(f"stage budget {budget} must be a multiple of {SEG_CHUNK} "
+                         f"and at least {SEG_CHUNK * 5 * len(caps)}")
+    return caps, bcs, casc_mip, budget
+
+
+def _fields_layout(fields: tuple, tile: tuple):
+    """(fused, tiles, blocks) of the plan's per-pixel fields: the fused
+    G-buffer's raster blocks (pl_tiles (tiles, p, 24), id_tiles (tiles, p,
+    1)) of `tile` = (tile_h, tile_w) tiles, or the planar sampler's (tex, u,
+    v, lod, active) (H, W[, 5]) taps cut into them."""
+    tile_h, tile_w = tile
+    if len(fields) == 2:
+        n_tiles, p = fields[0].shape[:2]
+        if p % 128 or tile_w % 128 or tile_h % 2 or p != tile_h * tile_w:
+            raise ValueError(f"fused tiles need tile_w % 128 == 0 and an even tile_h, "
+                             f"got {tile_h}x{tile_w} over {p} pixels")
+        return True, n_tiles, p // 128
+    if len(fields) != 5:
+        raise ValueError(f"fields are (pl_tiles, id_tiles) or (tex, u, v, lod, active), "
+                         f"got {len(fields)}")
+    height, width = fields[1].shape
+    if (tile_h * tile_w) % 128 or height % tile_h or width % tile_w:
+        raise ValueError(f"a {tile_h}x{tile_w} tile of 128-pixel rows must divide the "
+                         f"{height}x{width} frame")
+    return False, (height // tile_h) * (width // tile_w), tile_h * tile_w // 128
+
+
+def tex_plan(atlas: AtlasDevice, fields: tuple, tile: tuple, *, trilinear: bool = True,
+             cap_lo: int = 92, cap_hi: int = 44, block_cap=16, stage_budget: int | None = None,
+             cascade: bool = False, cascade_caps: tuple = (20, 8, 3)):
+    """The texture cache's per-frame plan from the taps' per-pixel fields:
+    the tap setup, then `_plan_and_stage`'s mip selection, addressing, page
+    covers (kernel B, or I above cap 128) and compact staged-page block.
+
+    `fields` are the fused G-buffer's raster blocks (pl_tiles (tiles, p, 24)
+    f32: uv at planes 0-1, use flags 14-18, texture ids 19-23; id_tiles
+    (tiles, p, 1) int32), whose taps take the quad-derivative LOD, or the
+    planar sampler's taps (tex (H, W, 5) int32 >= 0, u, v (H, W), lod (H, W,
+    5), active (H, W, 5) bool) cut into `tile` = (tile_h, tile_w) tiles. Both
+    are read in place through their strides. Returns `_plan_and_stage`'s
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t) and
+    approx_count (() int32: the active taps left to the fallback). Counts
+    the frame's active taps and staged pages (`trace.count`: tex_taps,
+    tex_pages_staged).
+
+    CUDA tensors launch `csrc/tex_plan.cu`: its tap kernel, kernel B's
+    covers (`cover_cuda.fused_cover`: the fallback, each half, the cascade;
+    with the cascade, its act plane by a third kernel of the source) and its
+    select kernel, two launches of its own a call (three with the cascade);
+    CPU tensors take `tex_plan_reference`, the plain version. There is no
+    fallback between the two: a CUDA input launches or raises."""
+    fused, tiles, blocks = _fields_layout(fields, tile)
+    caps, bcs, casc_mip, budget = _check_plan_args(trilinear, cap_lo, cap_hi, block_cap,
+                                                   stage_budget, cascade, cascade_caps)
+    dev = fields[0].device
+    if dev.type == "cpu":
+        return tex_plan_reference(atlas, fields, tile, trilinear=trilinear, cap_lo=cap_lo,
+                                  cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget,
+                                  cascade=cascade, cascade_caps=cascade_caps)
+    if dev.type != "cuda":
+        raise ValueError(f"tex_plan: unsupported device {dev}")
+    _check_fields(fields, fused, dev)
+    if not 0 < blocks <= 32:
+        raise ValueError(f"kernel B takes 1..32 rows of 128 pixels a tile, got {blocks}")
+    if min(bcs) < 1:
+        raise ValueError(f"block caps must be at least 1, got {bcs}")
+    data = atlas.data
+    if data.dtype != torch.int32 or data.shape[1:] != (4,) or not data.is_contiguous():
+        raise ValueError(f"atlas.data must be contiguous (P*128, 4) int32, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    tile_h, tile_w = tile
+    table = fused_tex_table(atlas).to(torch.int32)
+    ptrs = [x.data_ptr() for x in fields] + [0] * (5 - len(fields))
+    if fused:   # tile blocks (tiles, p, c): pixel p of tile t at t * s0 + p * s1
+        planes = [(s[0], 0, 128 * s[1], s[1], s[2]) for s in (x.stride() for x in fields)]
+        tx, w = 1, 128
+    else:       # (H, W[, 5]) planes cut into tiles, tile t = ty * (W / tile_w) + tx
+        planes = [(tile_h * s[0], tile_w * s[1], s[0], s[1], s[2] if len(s) > 2 else 0)
+                  for s in (x.stride() for x in fields)]
+        tx, w = fields[1].shape[1] // tile_w, tile_w
+    planes += [(0,) * 5] * (5 - len(planes))
+    n_halves = 2 if trilinear else 1
+    n_groups = 5 * len(caps)
+    args = (int(fused), (ctypes.c_void_p * 5)(*ptrs),
+            (ctypes.c_longlong * 25)(*(v for q in planes for v in q)),
+            (ctypes.c_int * 5)(tiles, blocks, tx, w, tile_w), table.data_ptr(), table.shape[0],
+            (ctypes.c_int * 5)(int(trilinear), n_halves, int(cascade), casc_mip, budget))
+    plane_shape = (tiles, 5, blocks, 128)
+    pages = torch.empty((1 + len(caps),) + plane_shape, dtype=torch.int32, device=dev)
+    act = torch.empty(plane_shape, dtype=torch.bool, device=dev)
+    _TAPS(dev, *args, pages.data_ptr(), act.data_ptr())
+    covers = [cover_cuda.fused_cover(pages[0], act, (CAP_FB,) * 5, CAP_FB)]
+    for i in range(n_halves):
+        covers.append(cover_cuda.fused_cover(pages[1 + i], act, (caps[i],) * 5, bcs[i]))
+    if cascade:
+        act_c = torch.empty_like(act)
+        _CASCADE(dev, act.data_ptr(), covers[1][3].data_ptr(), covers[n_halves][3].data_ptr(),
+                 act.numel(), act_c.data_ptr())
+        covers.append(cover_cuda.fused_cover(pages[-1], act_c, (caps[-1],) * 5, bcs[-1]))
+    off_arr = torch.empty((tiles, n_groups), dtype=torch.int32, device=dev)
+    cnts = torch.empty((tiles, n_groups + int(cascade)), dtype=torch.int32, device=dev)
+    staged = torch.empty((tiles, budget * 4, 128), dtype=torch.int32, device=dev)
+    group_shape = (tiles, n_groups, blocks, 128)
+    rec_t = torch.empty(group_shape, dtype=torch.int32, device=dev)
+    fx_t = torch.empty(group_shape, dtype=torch.float32, device=dev)
+    fy_t = torch.empty(group_shape, dtype=torch.float32, device=dev)
+    tl_t = torch.empty(plane_shape, dtype=torch.float32, device=dev)
+    covered_t = torch.empty(plane_shape, dtype=torch.bool, device=dev)
+    sel_t = torch.empty(plane_shape, dtype=torch.int32, device=dev) if cascade else None
+    approx = torch.zeros((), dtype=torch.int32, device=dev)
+    _SELECT(dev, *args, data.data_ptr(),
+            (ctypes.c_void_p * 16)(*(x.data_ptr() for c in covers for x in c),
+                                   *(0,) * (16 - 4 * len(covers))),
+            (ctypes.c_int * 4)(*(c[0].shape[-1] for c in covers), *(0,) * (4 - len(covers))),
+            (ctypes.c_void_p * 10)(*(x.data_ptr() if x is not None else 0 for x in (
+                off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t, approx))))
+    trace.count("tex_taps", act)
+    trace.count("tex_pages_staged", cnts[:, :n_groups])
+    return off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t, approx
+
+
+def _check_fields(fields: tuple, fused: bool, dev) -> None:
+    """The fields' shapes and dtypes as the kernels read them."""
+    if fused:
+        n_tiles, p = fields[0].shape[:2]
+        want = {"pl_tiles": (fields[0], (n_tiles, p, 24), torch.float32),
+                "id_tiles": (fields[1], (n_tiles, p, 1), torch.int32)}
+    else:
+        hw = tuple(fields[1].shape)
+        want = {"tex": (fields[0], hw + (5,), torch.int32), "u": (fields[1], hw, torch.float32),
+                "v": (fields[2], hw, torch.float32), "lod": (fields[3], hw + (5,), torch.float32),
+                "active": (fields[4], hw + (5,), torch.bool)}
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != dev:
+            raise ValueError(f"{name} must be {shape} {dtype} on {dev}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def tex_plan_reference(atlas: AtlasDevice, fields: tuple, tile: tuple, *, trilinear: bool = True,
+                       cap_lo: int = 92, cap_hi: int = 44, block_cap=16,
+                       stage_budget: int | None = None, cascade: bool = False,
+                       cascade_caps: tuple = (20, 8, 3)):
+    """Plain version of `tex_plan`: the fused G-buffer's tap setup (masked
+    uv, use flags, texture ids and the quad-derivative LOD) or the planar
+    taps tiled, then `_plan_and_stage`; approx_count counts the active taps
+    it left uncovered."""
+    tile_h, tile_w = tile
+    if len(fields) == 2:
+        pl_tiles, id_tiles = fields
+        n_tiles, p, _ = pl_tiles.shape
+        blocks = p // 128
+        planes_t = pl_tiles.reshape(n_tiles, blocks, 128, 24).permute(0, 3, 1, 2)
+        mask_t = id_tiles.reshape(n_tiles, 1, blocks, 128) >= 0
+
+        uv_t = torch.where(mask_t, planes_t[:, 0:2], 0.0)
+        use_t = planes_t[:, 14:19] > 0.5
+        tex_t = torch.clamp(planes_t[:, 19:24].to(torch.int32), min=0)
+        act_t = use_t & mask_t
+
+        # quad-derivative LOD (gbuffer.tap_lod) in tiled layout
+        ddx, ddy = _quad_deltas(uv_t, tile_h, tile_w)
+        size5 = onehot_lookup(atlas.base_size.float(), tex_t)
+        gx_u = ddx[:, 0][:, None] * size5[..., 0]
+        gx_v = ddx[:, 1][:, None] * size5[..., 1]
+        gy_u = ddy[:, 0][:, None] * size5[..., 0]
+        gy_v = ddy[:, 1][:, None] * size5[..., 1]
+        rho2 = torch.maximum(gx_u * gx_u + gx_v * gx_v, gy_u * gy_u + gy_v * gy_v)
+        lod_t = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+        lod_t = torch.where(mask_t, lod_t, 99.0)
+
+        u5_t = uv_t[:, 0:1].expand(tex_t.shape)
+        v5_t = uv_t[:, 1:2].expand(tex_t.shape)
+    else:
+        tex, u, v, lod, active = fields
+
+        def tile_g(x):  # (H, W, 5) -> (tiles, 5, blocks, 128)
+            return _tile(x.permute(2, 0, 1), tile_h, tile_w)
+
+        tex_t, u5_t, v5_t, lod_t, act_t = (
+            tile_g(tex), tile_g(u[..., None].expand(tex.shape)),
+            tile_g(v[..., None].expand(tex.shape)), tile_g(lod), tile_g(active))
+    plan = _plan_and_stage(
+        atlas, tex_t, u5_t, v5_t, lod_t, act_t, trilinear=trilinear, cap_lo=cap_lo,
+        cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
+        cap_casc=cascade_caps[0], block_cap_casc=cascade_caps[1],
+        casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+    return (*plan, (act_t & ~plan[7]).sum().to(torch.int32))
+
+
 def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str = "trilinear",
                        tile_h: int = 24, tile_w: int = 128, cap_lo: int = 92, cap_hi: int = 44,
                        block_cap=16, stage_budget: int | None = None, cascade: bool = False,
                        cascade_caps: tuple = (20, 8, 3)):
     """The planar texture-cache sampler: tex (H, W, 5) int32 >= 0, u/v (H,
     W), lod (H, W, 5), active (H, W, 5) bool taps that must resolve. The tap
-    planes are tiled on this function's own (tile_h, tile_w) cache tiling,
-    planned (kernel B, or I above cap 128) and resolved (kernel E).
+    planes are planned on this function's own (tile_h, tile_w) cache tiling
+    (`tex_plan`: kernel B, or I above cap 128) and resolved (kernel E).
 
     Returns (rgba (H, W, 5, 4) storage space, covered (H, W, 5) bool, approx
     (H, W, 5) bool): covered taps are exact (bit-equal to the direct-atlas
@@ -362,17 +583,10 @@ def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str =
     coarsest mip (or, with `cascade`, at the mip_lo+3 re-tap)."""
     height, width = u.shape
     trilinear = filter != "bilinear"
-
-    def tile_g(x):  # (H, W, 5) -> (tiles, 5, blocks, 128)
-        return _tile(x.permute(2, 0, 1), tile_h, tile_w)
-
-    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t) = _plan_and_stage(
-        atlas, tile_g(tex), tile_g(u[..., None].expand(tex.shape)),
-        tile_g(v[..., None].expand(tex.shape)), tile_g(lod), tile_g(active),
-        trilinear=trilinear, cap_lo=cap_lo, cap_hi=cap_hi, block_cap=block_cap,
-        stage_budget=stage_budget, cascade=cascade, cap_casc=cascade_caps[0],
-        block_cap_casc=cascade_caps[1],
-        casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t, _) = tex_plan(
+        atlas, (tex, u, v, lod, active), (tile_h, tile_w), trilinear=trilinear, cap_lo=cap_lo,
+        cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
+        cascade_caps=cascade_caps)
     trace.stage("gbuffer.tex_resolve", 2)
     out = atlas_resolve_cuda.atlas_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t,
                                            sel_t, trilinear=trilinear)
@@ -429,54 +643,32 @@ def shade_planes_fused(atlas: AtlasDevice, pl_tiles, id_tiles, height: int, widt
                        stage_budget: int | None = None, cascade: bool = False,
                        cascade_caps: tuple = (20, 8, 3), return_tiled: bool = False):
     """The fused G-buffer back half: raster plane blocks pl_tiles (tiles, p,
-    24) and ids (tiles, p, 1) -> quantized G-buffer planes. Quad-derivative
-    LOD, the plan (kernel B) and the resolve + pixel shade (kernel C), in
-    tiled layout throughout.
+    24) and ids (tiles, p, 1) -> quantized G-buffer planes. The plan
+    (`tex_plan`: the taps' quad-derivative LOD, kernel B's covers, the
+    staged pages) and the resolve + pixel shade (kernel C), in tiled layout
+    throughout.
 
     Returns (gb9 (9, H, W) f32 [albedo(3), emission, oct(2), roughness,
     metallic, ao], approx_count () int32); with return_tiled=True,
     (gb_tiles (tiles, 9, blocks, 128), approx_count)."""
     trilinear = filter != "bilinear"
     n_tiles, p, _ = pl_tiles.shape
-    if p % 128 or tile_w % 128 or tile_h % 2:
-        raise ValueError(f"fused tiles need tile_w % 128 == 0 and an even tile_h, "
-                         f"got {tile_h}x{tile_w}")
+    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, _, sel_t, approx_count) = tex_plan(
+        atlas, (pl_tiles, id_tiles), (tile_h, tile_w), trilinear=trilinear, cap_lo=cap_lo,
+        cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
+        cascade_caps=cascade_caps)
+    trace.stage("gbuffer.tex_resolve", 2)
+
     blocks = p // 128
     planes_t = pl_tiles.reshape(n_tiles, blocks, 128, 24).permute(0, 3, 1, 2)
     mask_t = id_tiles.reshape(n_tiles, 1, blocks, 128) >= 0
-
-    uv_t = torch.where(mask_t, planes_t[:, 0:2], 0.0)
-    use_t = planes_t[:, 14:19] > 0.5
     tex_t = torch.clamp(planes_t[:, 19:24].to(torch.int32), min=0)
-    act_t = use_t & mask_t
-
-    # quad-derivative LOD (gbuffer.tap_lod) in tiled layout
-    ddx, ddy = _quad_deltas(uv_t, tile_h, tile_w)
-    size5 = onehot_lookup(atlas.base_size.float(), tex_t)
-    gx_u = ddx[:, 0][:, None] * size5[..., 0]
-    gx_v = ddx[:, 1][:, None] * size5[..., 1]
-    gy_u = ddy[:, 0][:, None] * size5[..., 0]
-    gy_v = ddy[:, 1][:, None] * size5[..., 1]
-    rho2 = torch.maximum(gx_u * gx_u + gx_v * gx_v, gy_u * gy_u + gy_v * gy_v)
-    lod_t = 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
-    lod_t = torch.where(mask_t, lod_t, 99.0)
-
-    u5_t = uv_t[:, 0:1].expand(tex_t.shape)
-    v5_t = uv_t[:, 1:2].expand(tex_t.shape)
-    (off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, covered_t, sel_t) = _plan_and_stage(
-        atlas, tex_t, u5_t, v5_t, lod_t, act_t, trilinear=trilinear, cap_lo=cap_lo,
-        cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
-        cap_casc=cascade_caps[0], block_cap_casc=cascade_caps[1],
-        casc_mip=cascade_caps[2] if len(cascade_caps) > 2 else 3)
-    trace.stage("gbuffer.tex_resolve", 2)
-
     srgb5 = onehot_lookup(atlas.srgb.float()[:, None], tex_t)[..., 0] > 0.5
     flags = torch.cat([srgb5, mask_t], 1).to(torch.int32)          # (tiles, 6, b, 128)
     attrs = planes_t[:, 2:19]                                      # (tiles, 17, b, 128)
     gb_tiles = resolve_shade_cuda.resolve_shade(
         off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t, attrs, flags, sel_t,
         trilinear=trilinear)
-    approx_count = (act_t & ~covered_t).sum().to(torch.int32)
     if return_tiled:
         return gb_tiles, approx_count
     return _untile(gb_tiles, height, width, tile_h, tile_w), approx_count

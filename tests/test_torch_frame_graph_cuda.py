@@ -41,12 +41,13 @@ KNOBS = dict(tile_h=24, tile_w=128, bin_cap=1024, atlas_max_dim=256, prefilter_s
 # each path's knobs over KNOBS, and the kernels one of its frames launches
 PATHS = {
     "default": ({}, {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1,
-                     "deferred_shade": 1, "env_plan": 2}),
+                     "deferred_shade": 1, "env_plan": 2, "tex_plan": 2}),
     "lights1k": (dict(max_active_lights=128),
                  {"raster_interp": 1, "fused_cover": 4, "resolve_shade": 1, "env_resolve": 1,
-                  "point_lights": 1, "env_plan": 2}),
+                  "point_lights": 1, "env_plan": 2, "tex_plan": 2}),
     "planar-tex": (dict(tile_w=160), {"raster_interp": 1, "fused_cover": 4,
-                                      "atlas_resolve": 1, "env_resolve": 1, "env_plan": 2}),
+                                      "atlas_resolve": 1, "env_resolve": 1, "env_plan": 2,
+                                      "tex_plan": 2}),
     "anisotropic": (dict(texture_filter="anisotropic"),
                     {"raster_interp": 1, "fused_cover": 1, "env_resolve": 1, "env_plan": 2,
                      "aniso_sample": 1}),
