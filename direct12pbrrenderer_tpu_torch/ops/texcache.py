@@ -576,6 +576,8 @@ def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str =
     W), lod (H, W, 5), active (H, W, 5) bool taps that must resolve. The tap
     planes are planned on this function's own (tile_h, tile_w) cache tiling
     (`tex_plan`: kernel B, or I above cap 128) and resolved (kernel E).
+    Traced, the resolve is the span `gbuffer.atlas_resolve` inside
+    `gbuffer.tex_resolve` (the untile after it stays outside).
 
     Returns (rgba (H, W, 5, 4) storage space, covered (H, W, 5) bool, approx
     (H, W, 5) bool): covered taps are exact (bit-equal to the direct-atlas
@@ -588,8 +590,9 @@ def sample_atlas_tiled(atlas: AtlasDevice, tex, u, v, lod, active, filter: str =
         cap_hi=cap_hi, block_cap=block_cap, stage_budget=stage_budget, cascade=cascade,
         cascade_caps=cascade_caps)
     trace.stage("gbuffer.tex_resolve", 2)
-    out = atlas_resolve_cuda.atlas_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t,
-                                           sel_t, trilinear=trilinear)
+    with trace.span("gbuffer.atlas_resolve"):
+        out = atlas_resolve_cuda.atlas_resolve(off_arr, cnts, staged, rec_t, fx_t, fy_t, tl_t,
+                                               sel_t, trilinear=trilinear)
     rgba = _untile(out, height, width, tile_h, tile_w).permute(2, 3, 0, 1)   # (H, W, 5, 4)
     covered = _untile(covered_t, height, width, tile_h, tile_w).permute(1, 2, 0)
     return rgba, covered, active & ~covered

@@ -1,83 +1,26 @@
-"""The benchmark's `terrain_aniso` configuration on the CPU: the port built
-from the configuration file as the benchmark builds it
-(`benchmark.program.pipeline`, the scene from `benchmark.scenes.stress`)
-renders three poses of the `stream` traffic with the exposure carried, and
-each frame is held to the plain reference (`benchmark/reference/`) by the
-frame bar, the configuration's own limits and the counters at the pose; a
-traced frame's `tex_taps` is the reference's count at its pose.
+"""The benchmark's `terrain_aniso` configuration on the CPU, held to the plain
+reference at three `stream` poses (`tests/torch_config_cells.py`) on the
+CPU's and the card's paths; a traced frame's `tex_taps` is the reference's
+count at its pose, four taps a sample.
 
-The configuration is cut to 128x48, one row of its 24x128 tiles wide, so
-the canvas is the viewport: the program's tap counters (the texture
-cache's as well) count the covered pixels of a padded canvas, which the
-reference does not render, and 1920x1080 pads nothing. The scene is cut to
-the reference test's small terrain (16x8 cells, a 16^2 sky, a 16^2 BRDF
-LUT): at full size the IBL precompute of the 256^2 sky takes minutes on
-the CPU, in the port and in the reference alike, and so few pixels bin the
-262,144 triangles past `bin_cap` (the program counts the loss in
-`bin_overflow`, which the reference never has). Two paths: the CPU's own
-defaults (the plain row gather and dense deferred pass) and the card's
-(kernel A's planes, the env cache), each through its plain kernels here.
+The configuration is cut to 128x48, one row of its 24x128 tiles wide.
 """
 
-import json
-
-import numpy as np
 import pytest
 import torch
 
-from benchmark import cells, program, run
-from benchmark.reference.frame import Reference
-from benchmark.scenes import stress
+from torch_config_cells import PATHS, config, hold_to_reference
 
 torch.set_num_threads(2)
 
-BAR = 1e-3            # the port's frame bar: rmse of uint8 / 255
 SEED = 2**31 + 4093
-PATHS = {"cpu": {}, "card": dict(use_pallas=True, use_tex_kernel=True)}
-
-
-def _config():
-    cfg = json.loads((cells.HERE / "configs" / "terrain_aniso.json").read_text())
-    cfg["render"].update(width=128, height=48)
-    cfg["scene"].update(cells_x=16, cells_y=8, sky_size=16)
-    cfg["pipeline"].update(brdf_lut_size=16)
-    return cfg
 
 
 @pytest.mark.parametrize("path", list(PATHS))
 def test_terrain_aniso_matches_the_reference(path):
-    cfg = _config()
+    cfg = config("terrain_aniso", 128)
     assert cfg["pipeline"]["texture_filter"] == "anisotropic"
-    limits = cfg["limits"]
-    traffic = json.loads((cells.HERE / "traffic" / "stream.json").read_text())
-    dt = traffic["delta_time"]
-    data = stress.build(cfg["scene"], SEED)
-    pipe = program.pipeline(cfg, program.port_scene(data), "cpu", **PATHS[path])
+    pipe, _, want = hold_to_reference(cfg, path, SEED)
     assert pipe.texture_filter == "anisotropic" and not pipe.use_fused_gbuffer
-    ref = Reference(data, {**cfg["render"], **cfg["pipeline"], "fov": program.fov(cfg["render"])},
-                    "cpu")
-    poses = [cells.pose(traffic, SEED, k) for k in range(3)]
-    for pose in poses:
-        prev = float(pipe.avg_luminance)
-        got = pipe.render(program.camera(cfg, pose), dt, collect_stats=True).numpy()
-        want, avg, counts = ref.render(pose, prev, dt)
-        want = want.numpy()
-        assert run.rmse8(got, want) <= BAR
-        d = np.abs(got.astype(np.int32) - want.astype(np.int32))
-        assert float((d >= 2).mean()) <= limits["off2_share"]
-        assert float((d >= 1).mean()) <= limits["off1_share"]
-        gap = abs(float(pipe.avg_luminance) - float(avg)) / abs(float(avg))
-        # on the card's path the env cache's bfloat16 pages move the carry
-        # by 2e-5 to 9e-5 at this size, as they do on the trilinear paths
-        # with the env cache; the frame bar holds it there
-        assert gap <= (limits["carry_gap"] if path == "cpu" else BAR)
-        stats = {k: getattr(pipe.last_stats, k) for k in run.STATS}
-        assert sum(stats[k] != v for k, v in ref.stats(pose).items()) <= limits["stats_off"]
-        assert pipe.last_stats.tex_taps == 0   # an untraced frame counts nothing
-        assert 0 < counts["covered"] < counts["pixels"]
-    pipe.start_trace()
-    pipe.render(program.camera(cfg, poses[0]), dt, collect_stats=True)
-    pipe.stop_trace()
-    want = ref.counts(poses[0])
     assert want["tex_taps"] == 4 * want["tex_samples"] > 0
     assert pipe.last_stats.tex_taps == want["tex_taps"]

@@ -4,7 +4,8 @@ host clock into the same ring a card's mark kernel writes.
 * The span tree and the marks' order of a traced frame on the plain, fused,
   planar and anisotropic tiny-pipeline paths: the ten passes and `stats` at
   depth 1, the five GBuffer stages under GBuffer, the anisotropic
-  sampler's footprint and taps under its resolve, `shade.env_plan` under
+  sampler's footprint and taps, or the planar texture cache's kernel E
+  (`gbuffer.atlas_resolve`), under its resolve, `shade.env_plan` under
   DeferredShading where the env cache runs; the five GBuffer stages make
   up the GBuffer pass to within its first mark.
 * Frames, exposure carry and FrameStats are bit-equal with tracing on and
@@ -53,6 +54,8 @@ PASSES = ("Cull", "GBuffer", "Clustered", "DeferredShading", "Skybox", "Bloom", 
 GBUFFER = ("gbuffer.geometry", "gbuffer.binning", "gbuffer.raster", "gbuffer.tex_plan",
            "gbuffer.tex_resolve")
 ANISO = ("gbuffer.aniso_footprint", "gbuffer.aniso_taps")
+# the spans each path records inside gbuffer.tex_resolve
+RESOLVE = {"planar": ("gbuffer.atlas_resolve",), "aniso": ANISO}
 
 
 def _traced(pipe, cam, frames, ring_frames=64):
@@ -74,17 +77,17 @@ def test_span_tree_and_mark_order(path):
     _, tr = _traced(pipe, cam, 2)
     frame = tr.frames[-1]
     env = path != "plain"
-    aniso = ANISO if path == "aniso" else ()
+    inner = RESOLVE.get(path, ())
     want = ([("frame", 0, None)] + [("Cull", 1, "frame"), ("GBuffer", 1, "frame")]
             + [(s, 2, "GBuffer") for s in GBUFFER]
-            + [(s, 3, "gbuffer.tex_resolve") for s in aniso]
+            + [(s, 3, "gbuffer.tex_resolve") for s in inner]
             + [("Clustered", 1, "frame"), ("DeferredShading", 1, "frame")]
             + ([("shade.env_plan", 2, "DeferredShading")] if env else [])
             + [(p, 1, "frame") for p in PASSES[4:]] + [("stats", 1, "frame")])
     assert _tree(frame) == want
     marks = list(frame.signature[1])
     assert marks == (["frame", "Cull", "GBuffer", *GBUFFER]
-                     + [m for s in aniso for m in (s, "/" + s)]
+                     + [m for s in inner for m in (s, "/" + s)]
                      + ["Clustered", "DeferredShading"]
                      + (["shade.env_plan", "/shade.env_plan"] if env else [])
                      + list(PASSES[4:]) + ["stats", "end"])
@@ -97,9 +100,10 @@ def test_span_tree_and_mark_order(path):
     assert t["gbuffer.tex_resolve"][1] == t["GBuffer"][1] == t["Clustered"][0]
     for a, b in zip(GBUFFER, GBUFFER[1:]):
         assert t[a][1] == t[b][0]
-    # the anisotropic sampler's phases lie in order inside the resolve
+    # the anisotropic sampler's phases, or kernel E, lie in order inside
+    # the resolve
     lo = t["gbuffer.tex_resolve"][0]
-    for s in aniso:
+    for s in inner:
         assert lo <= t[s][0] <= t[s][1] <= t["gbuffer.tex_resolve"][1]
         lo = t[s][1]
     ms = frame.ms()

@@ -1,7 +1,8 @@
 """The frame tracer (`utils/trace.py`) on the card, over the captured frames
 of `test_torch_frame_graph_cuda.py`'s stress terrain (the default path,
-kernels A-D, the 1024-light path, A, B, C, F, G, and the anisotropic
-path, A, B, F with the software filter):
+kernels A-D, the 1024-light path, A, B, C, F, G, planar-tex at a 24x160
+raster tile, A, B, E, F, and the anisotropic path, A, B, F with the
+software filter):
 
 * With tracing off the captured frame launches the same device work as a
   pipeline that never traced; with it on, the same work in its order with
@@ -13,6 +14,12 @@ path, A, B, F with the software filter):
   and FrameStats are bit-equal to untraced ones.
 * The card's `%globaltimer` step and the calibration's error are printed
   (`-s`) and lie under 10 us and 1 ms.
+* The benchmark's `terrain_planar` deployment at 1920x1080 (the planar
+  texture cache's route) launches A 1, B 4, E 1, F 1, the env plan 2 and
+  the texture plan 2 a replay; traced, kernel E's span
+  `gbuffer.atlas_resolve` reads device time inside `gbuffer.tex_resolve`,
+  the frame is bit-equal to the untraced one and `tex_taps` is the plain
+  reference's count at the pose.
 
 Needs the card: marked `cuda`, skipped elsewhere (`python -m pytest
 --noconftest tests/test_torch_trace_cuda.py -s` on a GPU machine).
@@ -21,13 +28,18 @@ Needs the card: marked `cuda`, skipped elsewhere (`python -m pytest
 import pytest
 import torch
 
+from benchmark import cells, program
 from benchmark import spans as bench_spans
 from benchmark import trace as bench_trace
+from benchmark.reference.frame import Reference
+from benchmark.scenes import stress
+from direct12pbrrenderer_tpu_torch.kernels.launch import LAUNCHES
 from direct12pbrrenderer_tpu_torch.utils import trace
 from test_torch_frame_graph_cuda import PATHS, _path, _pipe
 
 pytestmark = pytest.mark.cuda
-TRACED = ("default", "lights1k", "anisotropic")
+TRACED = ("default", "lights1k", "planar-tex", "anisotropic")
+PLANAR_SEED = 2**31 + 6007
 MARK = "trace_mark_kernel"
 # the program's host spans: under a profiler each is mirrored on the device
 # timeline, and is left out of the device activities
@@ -119,3 +131,40 @@ def test_timer_step_and_calibration(device):
     print(f"\n[trace-cuda] %globaltimer step {step} ns; calibration offset {offset} ns, "
           f"error {err} ns on {torch.cuda.get_device_name(device)}")
     assert 0 < step < 10_000 and 0 <= err < 1_000_000
+
+
+def test_planar_route_at_the_benchmark_size(device):
+    cl = cells.cell("terrain_planar_stream", cells.spec())
+    cfg, traffic = cl["config"], cl["traffic"]
+    dt = traffic["delta_time"]
+    data = stress.build(cfg["scene"], PLANAR_SEED)
+    pipe = program.pipeline(cfg, program.port_scene(data), device)
+    assert not pipe.use_fused_gbuffer and pipe.use_tex_kernel and pipe.captured
+    pose = cells.pose(traffic, PLANAR_SEED, 0)
+    cam = program.camera(cfg, pose)
+    carry = pipe.avg_luminance.clone()
+    pipe.render(cam, dt)   # the capture
+    pipe.avg_luminance = carry.clone()
+    before = LAUNCHES.copy()
+    want = pipe.render(cam, dt)
+    launches = dict(LAUNCHES - before)
+    want_stats, want_avg = pipe.last_stats, pipe.avg_luminance.clone()
+    print(f"\n[trace-cuda] terrain_planar launches a replay {launches}; {want_stats}")
+    assert launches == PATHS["planar-tex"][1]
+    pipe.start_trace()
+    pipe.avg_luminance = carry.clone()
+    pipe.render(cam, dt)   # the capture with the marks
+    pipe.avg_luminance = carry.clone()
+    got = pipe.render(cam, dt)
+    tr = pipe.stop_trace()
+    assert torch.equal(got, want) and torch.equal(pipe.avg_luminance, want_avg)
+    assert pipe.last_stats == want_stats
+    taps = pipe.last_stats.tex_taps
+    dev = tr.summary()["device"]
+    print(f"[trace-cuda] terrain_planar: gbuffer.atlas_resolve {dev['gbuffer.atlas_resolve']:.4f} "
+          f"ms in gbuffer.tex_resolve {dev['gbuffer.tex_resolve']:.4f} ms; tex_taps {taps}")
+    assert 0 < dev["gbuffer.atlas_resolve"] < dev["gbuffer.tex_resolve"]
+    del pipe
+    ref = Reference(data, {**cfg["render"], **cfg["pipeline"], "fov": program.fov(cfg["render"])},
+                    device)
+    assert taps == ref.counts(pose)["tex_taps"] > 0
